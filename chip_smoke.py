@@ -1,0 +1,503 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch / CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails loudly (any failure exits non-zero):
+
+1. build   — compile the hand-written kernels (``csrc/*.cu``, nvcc for
+             sm_90a, one process per source) and print the build time;
+2. kernels — run each kernel at the serving shapes of full-width
+             qwen2-1.5b in bf16 against its plain torch version on the
+             card, print its time beside the plain version's and its
+             bound (bytes over 3.35 TB/s or flops over 989 TFLOP/s);
+3. model   — full-width qwen2-1.5b cut to 2 layers, int4 weights: the
+             same params and inputs through the decode step, the prefill
+             chunk and the unified step on the card and on the CPU (where
+             the port takes the plain versions), logits compared at a
+             stated bf16 tolerance;
+4. serve   — ``LLM.load("qwen2-1.5b", quant="rtn-int4", seed=0)`` at full
+             depth serves 8 greedy requests (20 to ~900 prompt tokens, two
+             sharing a 64-token prefix, up to 32 new tokens each), with the
+             kernels' launch counters zeroed just before and read just
+             after: every request finishes, every token is in vocabulary,
+             every kernel launched, the allocator audit is clean.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Details also go to
+``chiprun_out/chip_smoke.json``.  Without a card it exits non-zero and
+prints no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
+TOL = 2e-2                       # bf16 kernel tolerance (tests/test_kernels.py)
+LOGIT_TOL = 0.1                  # bf16 end-to-end logits, card vs CPU
+
+H, KV, D, BS, NB, MB, B, W = 12, 2, 128, 16, 512, 64, 8, 256
+LINEARS = {"wq/wo": (1536, 1536), "wk/wv": (1536, 256),
+           "gate/up": (1536, 8960), "down": (8960, 1536)}
+GS = 32
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / BF16_FLOPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def time_ms(fn, iters: int = 10) -> float:
+    """Mean device time of ``fn`` over ``iters`` runs, each timed with CUDA
+    events and each preceded (outside the timed region) by a write of
+    256 MB, so every run finds the 50 MB L2 cold as the serving path does
+    (a layer's weights and pages are not re-read before 27 other
+    layers')."""
+    import torch
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        total += s.elapsed_time(e)
+    return total / iters
+
+
+# --------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def check_paged_attention(gen):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention
+    dev = "cuda"
+    q = torch.randn((B, H, D), generator=gen, device=dev).bfloat16()
+    kp = torch.randn((NB, BS, KV, D), generator=gen, device=dev).bfloat16()
+    vp = torch.randn((NB, BS, KV, D), generator=gen, device=dev).bfloat16()
+    bt = torch.randperm(NB, generator=gen, device=dev)[:B * MB] \
+        .reshape(B, MB).int()
+    # 0 (inactive) / partial page / page boundary / long / full table
+    sl = torch.tensor([0, 37, 64, 300, 512, 777, 901, 1024],
+                      dtype=torch.int32, device=dev)
+    out = paged_attention(q, kp, vp, bt, sl)
+    want = ref.paged_attention_ref(q, kp, vp, bt, sl)
+    torch.cuda.synchronize()
+    live = sl > 0
+    err = (out[live].float() - want[live].float()).abs().max().item()
+    zero = out[~live].float().abs().max().item()
+    if not err <= TOL or zero != 0.0:
+        raise AssertionError(f"paged_attention: max err {err} (tol {TOL}), "
+                             f"seq_len 0 rows max {zero} (want 0)")
+    toks = int(sl.sum())
+    nbytes = 2 * (2 * B * H * D) + toks * KV * D * 2 * 2 \
+        + 4 * (B + (toks + BS - 1) // BS)
+    flops = 4 * H * D * toks
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:131",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: paged_attention(q, kp, vp, bt, sl)),
+            "plain_ms": time_ms(lambda: ref.paged_attention_ref(
+                q, kp, vp, bt, sl), iters=3),
+            "bound": bound_ms(nbytes, flops), "library_ms": None,
+            "shape": f"q[{B},{H},{D}] pool[{NB},{BS},{KV},{D}] "
+                     f"seq_lens {sl.tolist()}"}
+
+
+def check_flash_attention_chunk(gen):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_chunk
+    dev = "cuda"
+    kp = torch.randn((1, NB, BS, KV, D), generator=gen, device=dev).bfloat16()
+    vp = torch.randn((1, NB, BS, KV, D), generator=gen, device=dev).bfloat16()
+    bt = torch.randperm(NB, generator=gen, device=dev)[:MB][None].int()
+    worst, timed = 0.0, None
+    # q_offset 0 / aligned / unaligned; full and partial chunks
+    for q_off, n in ((0, W), (256, W), (300, 100), (768, W)):
+        q = torch.randn((1, W, H, D), generator=gen, device=dev).bfloat16()
+        kr = torch.randn((1, W, KV, D), generator=gen, device=dev).bfloat16()
+        vr = torch.randn((1, W, KV, D), generator=gen, device=dev).bfloat16()
+        off = torch.tensor(q_off, dtype=torch.int32, device=dev)
+        tl = torch.tensor(q_off + n, dtype=torch.int32, device=dev)
+        out = flash_attention_chunk(q, kp[0], vp[0], bt, off, tl, kr, vr)
+        want = ref.chunk_prefill_attention_ref(q, kp, vp, None, None, 0, bt,
+                                               off, tl, kr, vr)
+        torch.cuda.synchronize()
+        err = (out[:, :n].float() - want[:, :n].float()).abs().max().item()
+        if not err <= TOL:
+            raise AssertionError(f"flash_attention_chunk q_offset={q_off} "
+                                 f"len={n}: max err {err} (tol {TOL})")
+        worst = max(worst, err)
+        timed = (q, kr, vr, off, tl, q_off, n)
+    q, kr, vr, off, tl, q_off, n = timed      # a later chunk: 768 + 256
+    pairs = sum(q_off + i + 1 for i in range(n))     # visible (q, k) pairs
+    nbytes = 2 * (2 * W * H * D + 2 * W * KV * D) + q_off * KV * D * 2 * 2
+    flops = 4 * H * D * pairs
+    return {"name": "flash_attention_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_chunk.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:310",
+            "max_abs_err": worst,
+            "ms": time_ms(lambda: flash_attention_chunk(
+                q, kp[0], vp[0], bt, off, tl, kr, vr)),
+            "plain_ms": time_ms(lambda: ref.chunk_prefill_attention_ref(
+                q, kp, vp, None, None, 0, bt, off, tl, kr, vr), iters=3),
+            "bound": bound_ms(nbytes, flops), "library_ms": None,
+            "shape": f"q[1,{W},{H},{D}] q_offset {q_off} total {q_off + n}"}
+
+
+def check_gptq_matmul(gen):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gptq_matmul import gptq_matmul
+    dev = "cuda"
+    rows, worst, main = [], 0.0, None
+    for lname, (K, N) in LINEARS.items():
+        qw = torch.randint(-2 ** 31, 2 ** 31 - 1, (K // 8, N), generator=gen,
+                           device=dev, dtype=torch.int64).int()
+        sc = (torch.rand((K // GS, N), generator=gen, device=dev) * 0.01)
+        zr = torch.randint(0, 16, (K // GS, N), generator=gen,
+                           device=dev).float()
+        for M in (8, 256):
+            x = torch.randn((M, K), generator=gen, device=dev).bfloat16()
+            y = gptq_matmul(x, qw, sc, zr)
+            want = ref.gptq_matmul_ref(x, qw, sc, zr)
+            torch.cuda.synchronize()
+            diff = (y.float() - want.float()).abs()
+            scale = want.float().abs().max().item()
+            lim = TOL * scale + TOL * want.float().abs()
+            err = diff.max().item()
+            if not bool((diff <= lim).all()):
+                raise AssertionError(f"gptq_matmul {lname} M={M}: max err "
+                                     f"{err} (tol {TOL} x max|ref| {scale})")
+            worst = max(worst, err / scale)
+            nbytes = M * K * 2 + K * N // 2 + 2 * (K // GS) * N * 4 + M * N * 2
+            flops = 2 * M * K * N
+            row = {"linear": lname, "M": M, "K": K, "N": N,
+                   "ms": time_ms(lambda: gptq_matmul(x, qw, sc, zr)),
+                   "plain_ms": time_ms(lambda: ref.gptq_matmul_ref(
+                       x, qw, sc, zr), iters=3),
+                   "bound": bound_ms(nbytes, flops), "rel_err": err / scale}
+            # a yardstick of another function: the dense bf16 product with
+            # the weight already dequantized (what int4 is meant to beat)
+            w16 = ref.gptq_matmul_ref(torch.eye(K, device=dev,
+                                                dtype=torch.bfloat16),
+                                      qw, sc, zr)
+            row["dense_bf16_matmul_ms"] = time_ms(lambda: x @ w16)
+            rows.append(row)
+            log(f"gptq_matmul {lname:8s} M={M:3d} K={K} N={N}: "
+                f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"bound_ms={row['bound'][0]:.4f} ({row['bound'][1]}) "
+                f"dense_bf16_matmul_ms={row['dense_bf16_matmul_ms']:.4f} "
+                f"rel_err={row['rel_err']:.2e}")
+            if lname == "gate/up" and M == 8:
+                main = row
+    return {"name": "gptq_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gptq_matmul.cu",
+            "replaces": "src/repro/kernels/gptq_matmul.py:75",
+            "max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound": main["bound"],
+            "library_ms": None,
+            "shape": "x[8,1536] @ int4[1536,8960] gs 32 (gate/up, decode); "
+                     "max_abs_err relative to max|ref|",
+            "per_shape": rows}
+
+
+# --------------------------------------------------------------------------
+# Phase 3: the 2-layer full-width model on the card and on the CPU
+# --------------------------------------------------------------------------
+
+def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.bridge import tree_to
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.kv_quant import cache_from_state
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantize import quantize_params_rtn
+    cfg = get_config("qwen2-1.5b").replace(num_layers=layers)
+    params = quantize_params_rtn(T.init_params(cfg, 1, ref_dev), cfg, GS)
+    rng = np.random.default_rng(0)
+    nb, mb, slots = 128, MB, B
+    bs = cfg.paging.block_size
+    pool_shape = (layers, nb, bs, cfg.num_kv_heads, cfg.resolved_head_dim)
+    pool_k = torch.from_numpy(rng.normal(size=pool_shape).astype(np.float32))
+    pool_v = torch.from_numpy(rng.normal(size=pool_shape).astype(np.float32))
+    bt = rng.permutation(nb)[:slots * 10].reshape(slots, 10).astype(np.int32)
+    bt = np.concatenate([bt, np.zeros((slots, mb - 10), np.int32)], 1)
+    sl = np.array([0, 9, 16, 37, 64, 100, 150, 160], np.int32)
+    toks = rng.integers(0, cfg.vocab_size, slots).astype(np.int32)
+    active = sl > 0
+    ctoks = rng.integers(0, cfg.vocab_size, (1, W)).astype(np.int32)
+    cbt = np.zeros((1, mb), np.int32)
+    cbt[0, :24] = rng.permutation(np.setdiff1d(np.arange(nb), bt))[:24]
+    q_off, n = 160, 200                  # an unaligned later chunk
+    sampling = {"keys": np.zeros((slots + 1, 2), np.uint32),
+                "counts": np.zeros(slots + 1, np.int32),
+                "temps": np.zeros(slots + 1, np.float32),
+                "top_ks": np.zeros(slots + 1, np.int32),
+                "top_ps": np.ones(slots + 1, np.float32)}
+    res = {}
+    with torch.no_grad():
+        for d in (ref_dev, dev):
+            p = T.split_layers(T.cast_params(tree_to(params, d),
+                                             T.act_dtype(cfg)))
+
+            def fresh():
+                st = T.make_decode_state(cfg, slots, nb, mb, device=d)
+                st["k_pool"].copy_(pool_k)
+                st["v_pool"].copy_(pool_v)
+                st["block_table"] = torch.from_numpy(bt).to(d)
+                st["seq_lens"] = torch.from_numpy(sl).to(d)
+                return st
+
+            def i32(a):
+                return torch.from_numpy(np.asarray(a, np.int32)).to(d)
+
+            st = fresh()
+            dec, st = T.decode_step(cfg, p, st, i32(toks))
+            chunk, _ = T.prefill_chunk(cfg, p, cache_from_state(st),
+                                       i32(ctoks), i32(cbt), i32(q_off),
+                                       i32(q_off + n))
+            st = fresh()
+            nxt, st = T.unified_step(cfg, p, st, i32(toks), sampling,
+                                     torch.from_numpy(active).to(d),
+                                     i32(ctoks), i32(cbt), i32(q_off),
+                                     i32(q_off + n))
+            res[d] = (dec.float().cpu(), chunk.float().cpu(), nxt.cpu(),
+                      st["k_pool"].float().cpu())
+    (d0, c0, n0, k0), (d1, c1, n1, k1) = res[ref_dev], res[dev]
+    # inactive decode rows (seq_len 0) are garbage by contract: the kernel
+    # writes zeros there, the plain version an average — compare live rows
+    live = torch.from_numpy(active)
+    d0, d1 = d0[live], d1[live]
+    err = max((d1 - d0).abs().max().item(), (c1 - c0).abs().max().item())
+    scale = max(d0.abs().max().item(), c0.abs().max().item())
+    pool_err = (k1 - k0).abs().max().item()
+    rows = torch.cat([live, torch.ones(1, dtype=torch.bool)])
+    agree = float((n1[rows] == n0[rows]).float().mean())
+    if not (err <= LOGIT_TOL and pool_err <= TOL * k0.abs().max().item()):
+        raise AssertionError(f"model: logits max err {err} (tol {LOGIT_TOL}, "
+                             f"max|logit| {scale}), pool err {pool_err}")
+    if not (torch.isfinite(d1).all() and torch.isfinite(c1).all()):
+        raise AssertionError("model: non-finite logits on the card")
+    return {"layers": layers, "logit_max_abs_err": err, "max_abs_logit": scale,
+            "pool_max_abs_err": pool_err, "greedy_agreement": agree,
+            "tolerance": LOGIT_TOL}
+
+
+# --------------------------------------------------------------------------
+# Phase 4: serve full-depth qwen2-1.5b with int4 weights
+# --------------------------------------------------------------------------
+
+def serve_prompts(vocab: int, lens=(20, 64 + 40, 64 + 300, 150, 420, 600,
+                                    777, 900), seed: int = 0):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ps = [rng.integers(0, vocab, n).tolist() for n in lens]
+    ps[2][:64] = ps[1][:64]              # a shared 64-token prefix
+    return ps
+
+
+def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
+                max_tokens: int = 32, kernels=()) -> dict:
+    import torch
+    from repro_torch.serving import LLM, SamplingParams
+    t0 = time.perf_counter()
+    llm = LLM.load(config, quant="rtn-int4", seed=0, device=dev,
+                   reduced=reduced)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    vocab = llm.cfg.vocab_size
+    llm.generate([list(range(1, 40))], SamplingParams(max_tokens=2))  # warm
+    prompts = serve_prompts(vocab)
+    sps = [SamplingParams(max_tokens=max_tokens - 3 * i) for i in range(8)]
+    eng = llm.engine
+    base = {k: eng.metrics[k] for k in ("gen_tokens", "prompt_tokens",
+                                        "work_steps", "device_dispatches",
+                                        "decode_steps", "prefill_chunks")}
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    outs = llm.generate(prompts, sps)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    m = {k: eng.metrics[k] - v for k, v in base.items()}
+    bad = [o.request_id for o in outs
+           if not o.finished or o.finish_reason not in ("length", "stop")]
+    toks = [t for o in outs for t in o.token_ids]
+    if bad:
+        raise AssertionError(f"serve: requests {bad} did not finish")
+    if any(t < 0 or t >= vocab for t in toks):
+        raise AssertionError("serve: token -1 or out of vocabulary")
+    if [len(o.token_ids) for o in outs] != [sp.max_tokens for sp in sps]:
+        raise AssertionError("serve: a request stopped short of max_tokens")
+    if any(n <= 0 for n in launches.values()):
+        raise AssertionError(f"serve: a kernel never launched: {launches}")
+    audit = eng.alloc.audit()
+    if audit["live_blocks"] != 0:
+        raise AssertionError(f"serve: allocator audit not clean: {audit}")
+    profile = profile_serve(llm, prompts, sps, outs) if dev != "cpu" else None
+    return {"profile": profile,"config": llm.cfg.name, "layers": llm.cfg.num_layers,
+            "requests": len(outs), "prompt_lens": [len(p) for p in prompts],
+            "load_s": load_s, "wall_s": wall,
+            "gen_tokens": m["gen_tokens"], "prompt_tokens": m["prompt_tokens"],
+            "gen_tok_s": m["gen_tokens"] / wall,
+            "total_tok_s": (m["gen_tokens"] + m["prompt_tokens"]) / wall,
+            "work_steps": m["work_steps"],
+            "mean_step_ms": wall / max(m["work_steps"], 1) * 1e3,
+            "dispatches_per_step": m["device_dispatches"]
+            / max(m["work_steps"], 1),
+            "decode_steps": m["decode_steps"],
+            "prefill_chunks": m["prefill_chunks"],
+            "blocks_reused": eng.alloc.stats["reused"], "audit": audit,
+            "launches": launches,
+            "first_tokens": [o.token_ids[:4] for o in outs]}
+
+
+def profile_serve(llm, prompts, sps, outs) -> dict:
+    """Serve the same requests again under ``torch.profiler`` (after the
+    launch counts were read) and sum the device time by kernel: ours, and
+    every other kernel PyTorch launched.  Also checks the re-run's tokens
+    against the first run's (greedy: identical)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again = llm.generate(prompts, sps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if [o.token_ids for o in again] != [o.token_ids for o in outs]:
+        raise AssertionError("serve: the profiled re-run changed tokens")
+    ours = {"paged_attention_kernel": "paged_attention",
+            "chunk_attention_kernel": "flash_attention_chunk",
+            "gptq_matmul_kernel": "gptq_matmul"}
+    by = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = next((v for k, v in ours.items() if k in e.key), None)
+        key = name or e.key[:60]
+        ms, n = by.get(key, (0.0, 0))
+        by[key] = (ms + us / 1e3, n + e.count)
+    busy = sum(ms for ms, _ in by.values())
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (wall * 1e3),
+            "ours_ms": {v: by.get(v, (0.0, 0))[0] for v in ours.values()},
+            "top": [{"kernel": k, "ms": ms, "calls": n}
+                    for k, (ms, n) in top]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs the port on an NVIDIA card", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build, ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else f"nvidia-smi failed: {smi.stderr.strip()}"
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+    report = {"card": card}
+
+    t0 = time.perf_counter()
+    compiled = build.build_all(verbose=True)
+    report["build_s"] = time.perf_counter() - t0
+    log(f"[build] {len(compiled)} sources compiled in "
+        f"{report['build_s']:.1f} s: {compiled}")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kernels = []
+    for check in (check_paged_attention, check_flash_attention_chunk,
+                  check_gptq_matmul):
+        k = check(gen)
+        kernels.append(k)
+        lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        log(f"[kernel] {k['name']}: kernel_ms={k['ms']:.4f} "
+            f"plain_ms={k['plain_ms']:.4f} library_ms={lib} "
+            f"bound_ms={k['bound'][0]:.5f} ({k['bound'][1]}) "
+            f"max_abs_err={k['max_abs_err']:.3e} [{k['shape']}]")
+    log("[kernels] " + ", ".join(k["name"] for k in kernels)
+        + " built, launched and within tolerance of their plain versions")
+
+    t0 = time.perf_counter()
+    report["model"] = phase_model("cuda")
+    log(f"[model] 2-layer full-width qwen2-1.5b rtn-int4, card vs CPU: "
+        f"{json.dumps(report['model'])} ({time.perf_counter() - t0:.1f} s)")
+
+    report["serve"] = serve = phase_serve("cuda", kernels=ops.KERNELS)
+    log(f"[serve] {serve['config']} x{serve['layers']} layers rtn-int4: "
+        f"{serve['requests']} requests, {serve['gen_tokens']} new tokens "
+        f"in {serve['wall_s']:.2f} s: gen_tok_s={serve['gen_tok_s']:.1f} "
+        f"total_tok_s={serve['total_tok_s']:.1f} "
+        f"mean_step_ms={serve['mean_step_ms']:.2f} "
+        f"dispatches_per_step={serve['dispatches_per_step']:.2f} "
+        f"launches={serve['launches']} audit={serve['audit']}")
+    prof = serve["profile"]
+    log(f"[profile] re-run under torch.profiler: wall_ms={prof['wall_ms']:.1f} "
+        f"device_busy_ms={prof['device_busy_ms']:.1f} "
+        f"device_idle_share={prof['device_idle_share']:.3f} "
+        f"ours_ms={json.dumps(prof['ours_ms'])}")
+    for row in prof["top"]:
+        log(f"[profile]   {row['ms']:9.2f} ms  {row['calls']:6d} calls  "
+            f"{row['kernel']}")
+
+    record = []
+    for k in kernels:
+        record.append({
+            "name": k["name"], "route": k["route"], "source": k["source"],
+            "replaces": k["replaces"],
+            "launches": serve["launches"][k["name"]],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
+            "bound_by": k["bound"][1], "library_ms": k["library_ms"],
+            "shape": k["shape"]})
+    report["kernels"] = kernels
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    log(card)
+    log(json.dumps({"kernels": record}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,10 @@
+"""Qwen2-1.5B [arXiv:2407.10671; hf] — dense, GQA kv=2, QKV bias."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-1.5b", family="dense",
+    num_layers=28, d_model=1536, num_heads=12, num_kv_heads=2,
+    head_dim=128, d_ff=8960, vocab_size=151936,
+    qkv_bias=True, pos_emb="rope", rope_theta=1e6,
+    act="silu", tie_embeddings=True,
+)

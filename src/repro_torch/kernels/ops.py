@@ -1,0 +1,73 @@
+"""Public kernel entry points, dispatched by the device of the tensors.
+
+A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
+launches the hand-written Hopper kernel, whose wrapper raises on anything
+it does not take.  There is no fallback from a CUDA tensor to the plain
+version and no flag that selects one.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.flash_attention import flash_attention_chunk
+from repro_torch.kernels.gptq_matmul import gptq_matmul
+from repro_torch.kernels.paged_attention import paged_attention as _paged
+
+KERNELS = (_paged, flash_attention_chunk, gptq_matmul)
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def paged_attention(q, k_pool, v_pool, block_table, seq_lens,
+                    alibi_slopes=None, *, sliding_window=0):
+    """Decode attention: q [B, H, D] over one layer's pool [NB, BS, KV, D]."""
+    if _on_cuda(q):
+        return _paged(q, k_pool, v_pool, block_table, seq_lens,
+                      alibi_slopes, sliding_window=sliding_window)
+    return _ref.paged_attention_ref(q, k_pool, v_pool, block_table,
+                                    seq_lens, alibi_slopes=alibi_slopes,
+                                    sliding_window=sliding_window)
+
+
+def chunk_prefill_attention(q, k_pool, v_pool, k_scales, v_scales, layer,
+                            block_table, q_offset, total_len, k_raw, v_raw,
+                            alibi_slopes=None, *, sliding_window=0):
+    """Serving chunk-prefill attention with a device-side ``q_offset``.
+
+    q [1, W, H, D]; k_pool/v_pool [L, NB, BS, KV, D]; k_scales/v_scales
+    None (the int8 pool is not ported); layer: int; block_table [1, MB];
+    q_offset / total_len: 0-d int32 tensors; k_raw/v_raw [1, W, KV, D].
+    """
+    if _on_cuda(q):
+        return flash_attention_chunk(
+            q, k_pool[layer], v_pool[layer], block_table, q_offset,
+            total_len, k_raw, v_raw, alibi_slopes, k_scales=k_scales,
+            v_scales=v_scales, sliding_window=sliding_window)
+    return _ref.chunk_prefill_attention_ref(
+        q, k_pool, v_pool, k_scales, v_scales, layer, block_table,
+        q_offset, total_len, k_raw, v_raw, alibi_slopes=alibi_slopes,
+        sliding_window=sliding_window)
+
+
+def quant_matmul(x: torch.Tensor, params: Dict[str, torch.Tensor]
+                 ) -> torch.Tensor:
+    """x [..., K] @ packed int4 weight -> [..., N] (+ bias outside the
+    kernel)."""
+    if not _on_cuda(x):
+        return _ref.quant_matmul_ref(x, params)
+    lead = x.shape[:-1]
+    y = gptq_matmul(x.reshape(-1, x.shape[-1]).contiguous(),
+                    params["qweight"], params["scales"], params["zeros"],
+                    params.get("g_idx"))
+    if "bias" in params:
+        y = y + params["bias"].to(y.dtype)
+    return y.reshape(*lead, -1)

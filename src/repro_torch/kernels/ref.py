@@ -1,0 +1,87 @@
+"""Plain torch versions of every ported kernel (the ``ref.py`` contract).
+
+These are the semantic definitions the CUDA kernels are held against,
+and the path ``kernels/ops.py`` takes for tensors that lie on the CPU.
+They repeat the kernels' arithmetic in plain torch ops and are no
+yardstick of speed.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.core.gqa import decode_attention, grouped_attention
+from repro_torch.core.paged_cache import gather_kv, gather_kv_bounded
+from repro_torch.core.quant import quant_matmul_ref as _qmm
+from repro_torch.core.quant import unpack_int4
+
+
+def flash_attention_ref(q, k, v, *, causal=True, sliding_window=0,
+                        alibi_slopes=None, q_offset=0):
+    """[B,S,H,D] x [B,S,KV,D]^2 -> [B,S,H,D]; O(S^2) reference."""
+    return grouped_attention(q, k, v, causal=causal,
+                             sliding_window=sliding_window,
+                             alibi_slopes=alibi_slopes, q_offset=q_offset)
+
+
+def paged_attention_ref(q, k_pool, v_pool, block_table, seq_lens, *,
+                        alibi_slopes=None, sliding_window=0):
+    """Decode attention over one layer's paged pool: gather the whole
+    table, then the contiguous oracle.  q [B, H, D]; pools
+    [NB, BS, KV, D]; block_table [B, MB]; seq_lens [B]."""
+    max_len = block_table.shape[1] * k_pool.shape[1]
+    kc = gather_kv(k_pool[None], 0, block_table, max_len)
+    vc = gather_kv(v_pool[None], 0, block_table, max_len)
+    return decode_attention(q, kc, vc, seq_lens, alibi_slopes=alibi_slopes,
+                            sliding_window=sliding_window)
+
+
+def chunk_prefill_attention_ref(q, k_pool, v_pool, k_scales, v_scales,
+                                layer, block_table, q_offset, total_len,
+                                k_raw, v_raw, *, alibi_slopes=None,
+                                sliding_window=0):
+    """Chunk-prefill attention: gather the pool's live pages
+    (``ceil(total_len / BS)``), overlay the chunk's own raw K/V at
+    ``[q_offset, q_offset + W)``, then the O(S^2) grouped reference with
+    ``q_offset`` driving the causal mask.  Reads the offsets on the host.
+
+    q [1, W, H, D]; pools [L, NB, BS, KV, D]; block_table [1, MB];
+    k_raw/v_raw [1, W, KV, D].
+    """
+    if k_scales is not None:
+        raise NotImplementedError("int8 pools are not ported yet (ROADMAP A8)")
+    q_off, tlen = int(q_offset), int(total_len)
+    bs = k_pool.shape[2]
+    cap = block_table.shape[1] * bs
+    W = q.shape[1]
+    live = (tlen + bs - 1) // bs
+    out = []
+    for pool, raw in ((k_pool, k_raw), (v_pool, v_raw)):
+        c = gather_kv_bounded(pool, layer, block_table, cap, live).to(q.dtype)
+        c = torch.cat([c, torch.zeros((1, W) + tuple(c.shape[2:]),
+                                      dtype=c.dtype, device=c.device)], 1)
+        c[:, q_off:q_off + W] = raw.to(c.dtype)
+        out.append(c[:, :cap])
+    return grouped_attention(q, out[0], out[1], causal=True,
+                             sliding_window=sliding_window,
+                             alibi_slopes=alibi_slopes, q_offset=q_off)
+
+
+def quant_matmul_ref(x: torch.Tensor, params: Dict[str, torch.Tensor]
+                     ) -> torch.Tensor:
+    """W4A16 oracle of the JAX package: dequantize (through g_idx, cast to
+    x.dtype), then matmul, then the bias."""
+    return _qmm(x, params)
+
+
+def gptq_matmul_ref(x: torch.Tensor, qweight: torch.Tensor,
+                    scales: torch.Tensor, zeros: torch.Tensor) -> torch.Tensor:
+    """The kernel's own function in plain torch: contiguous groups,
+    dequantized and multiplied in f32, output in x.dtype."""
+    K = x.shape[-1]
+    gs = K // scales.shape[0]
+    codes = unpack_int4(qweight, K).float()
+    w = (codes - zeros.repeat_interleave(gs, 0)) \
+        * scales.repeat_interleave(gs, 0)
+    return (x.float() @ w).to(x.dtype)

@@ -1,0 +1,129 @@
+"""``LLM`` — one-line construction of a (quantized) serving stack::
+
+    from repro_torch.serving import LLM, SamplingParams
+
+    llm = LLM.load("qwen2-1.5b", quant="rtn-int4", seed=0)   # on the card
+    outs = llm.generate(prompts, SamplingParams(max_tokens=32))
+
+Prompts are token-id lists (the repo has no tokenizer).  The repo has no
+published checkpoint, so ``load`` serves random weights made from
+``seed``; ``LLM(cfg, params, ...)`` serves any params in the JAX layout
+(for example bridged from the JAX package with ``bridge.params_from_numpy``).
+"""
+from __future__ import annotations
+
+from typing import Callable, Iterator, List, Optional, Sequence, Union
+
+import numpy as np
+
+from repro_torch import resolve_device
+from repro_torch.configs.registry import get_config, get_reduced
+from repro_torch.models import transformer as T
+from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.params import RequestOutput, SamplingParams
+
+QUANT_MODES = (None, "rtn-int4", "gptq-int4")
+
+Prompt = Sequence[int]
+
+
+class LLM:
+    """Facade owning a config, (possibly quantized) params and an engine."""
+
+    def __init__(self, cfg, params, *,
+                 detokenizer: Optional[Callable[[List[int]], str]] = None,
+                 device="cuda", **engine_kw):
+        self.cfg = cfg
+        self.engine = ServingEngine(cfg, params, detokenizer=detokenizer,
+                                    device=device, **engine_kw)
+        self.params = self.engine.runner.params
+
+    @classmethod
+    def load(cls, config_name: str, *, quant: Optional[str] = None,
+             kv_cache_dtype: str = "bf16", reduced: bool = False,
+             seed: int = 0,
+             quant_group_size: int = 32, device="cuda",
+             **engine_kw) -> "LLM":
+        """Build a ready-to-serve ``LLM`` from a registry config name.
+
+        quant: None | "rtn-int4" (round-to-nearest int4 of every matmul
+        weight, done in torch on ``device``); "gptq-int4" is not ported
+        yet (ROADMAP A7).  reduced: the tiny same-family CPU config.
+        engine_kw: forwarded to ``ServingEngine`` (max_slots, num_blocks,
+        max_blocks_per_seq, max_num_batched_tokens, max_horizon, ...).
+        """
+        if quant not in QUANT_MODES:
+            raise ValueError(f"unknown quant mode {quant!r}; "
+                             f"expected one of {QUANT_MODES}")
+        if quant == "gptq-int4":
+            raise NotImplementedError(
+                "gptq-int4 is not ported to repro_torch yet (ROADMAP A7); "
+                "use quant='rtn-int4'")
+        dev = resolve_device(device)
+        cfg = get_reduced(config_name) if reduced else get_config(config_name)
+        params = T.init_params(cfg, seed, dev)
+        if quant == "rtn-int4":
+            from repro_torch.models.quantize import quantize_params_rtn
+            params = quantize_params_rtn(params, cfg,
+                                         group_size=quant_group_size)
+        return cls(cfg, params, seed=seed, kv_cache_dtype=kv_cache_dtype,
+                   device=dev, **engine_kw)
+
+    # ------------------------------------------------------------ serving
+    @staticmethod
+    def _as_prompt_list(prompts) -> List[List[int]]:
+        if prompts and isinstance(prompts[0], (int, np.integer)):
+            return [[int(t) for t in prompts]]          # a single prompt
+        return [[int(t) for t in p] for p in prompts]
+
+    def _submit(self, prompts, sampling_params) -> List[int]:
+        plist = self._as_prompt_list(prompts)
+        if sampling_params is None or isinstance(sampling_params,
+                                                 SamplingParams):
+            sps = [sampling_params] * len(plist)
+        else:
+            sps = list(sampling_params)
+            if len(sps) != len(plist):
+                raise ValueError(f"{len(plist)} prompts but "
+                                 f"{len(sps)} sampling params")
+        return [self.engine.add(p, sp) for p, sp in zip(plist, sps)]
+
+    def generate(self, prompts: Union[Prompt, Sequence[Prompt]],
+                 sampling_params: Union[SamplingParams,
+                                        Sequence[SamplingParams],
+                                        None] = None
+                 ) -> List[RequestOutput]:
+        """Run all prompts to completion; one finished ``RequestOutput``
+        per prompt, in submission order."""
+        rids = self._submit(prompts, sampling_params)
+        final = {}
+        for out in self.engine.stream():
+            if out.finished:
+                final[out.request_id] = out
+        missing = [r for r in rids if r not in final]
+        if missing:
+            raise RuntimeError(f"requests {missing} did not finish "
+                               f"(engine stalled?)")
+        return [final[r] for r in rids]
+
+    def stream(self, prompts: Union[Prompt, Sequence[Prompt]],
+               sampling_params: Union[SamplingParams,
+                                      Sequence[SamplingParams],
+                                      None] = None
+               ) -> Iterator[RequestOutput]:
+        """Submit prompts and yield ``RequestOutput`` deltas as steps
+        complete."""
+        self._submit(prompts, sampling_params)
+        yield from self.engine.stream()
+
+    def abort(self, request_id: int) -> bool:
+        return self.engine.abort(request_id)
+
+    def close(self) -> None:
+        self.engine.close()
+
+    def __enter__(self) -> "LLM":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

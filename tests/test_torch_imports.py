@@ -1,0 +1,64 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or any part of the JAX package, and the
+entry points that default to the card refuse to run on a host without
+CUDA instead of falling back to the CPU."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _imported(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_cuda_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the CUDA default is valid here")
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import LLM, ServingEngine
+    cfg = get_reduced("qwen2-1.5b", num_heads=12, num_kv_heads=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        T.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        LLM.load("qwen2-1.5b", reduced=True)
+    params = T.init_params(cfg, 0, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine(cfg, params)
+
+
+def test_unported_paths_refuse():
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import LLM, ServingEngine
+    with pytest.raises(NotImplementedError, match="A11"):
+        get_config("falcon-mamba-7b")
+    with pytest.raises(NotImplementedError, match="A7"):
+        LLM.load("qwen2-1.5b", quant="gptq-int4", reduced=True,
+                 device="cpu")
+    cfg = get_reduced("qwen2-1.5b", num_heads=12, num_kv_heads=2)
+    params = T.init_params(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        ServingEngine(cfg, params, kv_cache_dtype="int8", device="cpu")
+    for kw in ({"enable_async_step": True}, {"enable_unified_step": False},
+               {"enable_chunked_prefill": False}):
+        with pytest.raises(NotImplementedError):
+            ServingEngine(cfg, params, device="cpu", **kw)

@@ -1,0 +1,236 @@
+"""The port's kernel entry points (``repro_torch.kernels.ops``) on the CPU
+against the JAX package: its Pallas kernels in interpret mode and its
+``ref.py`` oracles, on the same numpy inputs.
+
+On the CPU the port's ops take their plain versions; the CUDA kernels
+themselves are held against those plain versions on the card by
+``chip_smoke.py``.  Tolerances are those of ``tests/test_kernels.py``:
+5e-5 for f32, 2e-2 for bf16.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.alibi import alibi_slopes as j_alibi
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_chunk as j_chunk
+from repro.kernels.gptq_matmul import gptq_matmul as j_gptq
+from repro.kernels.paged_attention import paged_attention as j_paged
+from repro_torch.core.alibi import alibi_slopes
+from repro_torch.core.quant import dequantize, pack_int4, unpack_int4
+from repro_torch.kernels import ops, ref
+
+TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of ``dtype``."""
+    j = jnp.asarray(a, JDT[dtype])
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(
+        TDT[dtype])
+
+
+def _close(t: torch.Tensor, j, dtype: str, rows=None):
+    a = t.float().numpy()
+    b = np.asarray(jnp.asarray(j, jnp.float32))
+    if rows is not None:
+        a, b = a[rows], b[rows]
+    np.testing.assert_allclose(a, b, atol=TOL[dtype], rtol=0)
+
+
+def test_alibi_slopes_match():
+    for h in (4, 12, 6):
+        np.testing.assert_array_equal(alibi_slopes(h).numpy(),
+                                      np.asarray(j_alibi(h)))
+
+
+# ------------------------------------------------------------ paged decode
+
+@pytest.mark.parametrize("H,KV", [(4, 4), (12, 2)])          # G = 1, 6
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_vs_pallas_and_ref(H, KV, dtype):
+    rng = np.random.default_rng(11 + H)
+    B, D, BS, MB = 4, 32, 8, 5
+    NB = B * MB + 3
+    q, tq = _pair(rng.normal(size=(B, H, D)), dtype)
+    kp, tkp = _pair(rng.normal(size=(NB, BS, KV, D)), dtype)
+    vp, tvp = _pair(rng.normal(size=(NB, BS, KV, D)), dtype)
+    bt = rng.permutation(NB)[:B * MB].reshape(B, MB).astype(np.int32)
+    # seq_len 0 (inactive) / partial page / page boundary / full table
+    sl = np.array([0, 13, 2 * BS, MB * BS], np.int32)
+    out = ops.paged_attention(tq, tkp, tvp, torch.from_numpy(bt),
+                              torch.from_numpy(sl))
+    pal = j_paged(q, kp, vp, jnp.asarray(bt), jnp.asarray(sl),
+                  interpret=True)
+    orc = jref.paged_attention_ref(q, kp, vp, jnp.asarray(bt),
+                                   jnp.asarray(sl))
+    _close(out, orc, dtype)                 # every row, seq_len 0 included
+    live = sl > 0                           # the kernels write zeros at 0
+    _close(out, pal, dtype, rows=live)
+    np.testing.assert_array_equal(np.asarray(pal, np.float32)[~live], 0)
+
+
+def test_paged_attention_alibi_and_window():
+    rng = np.random.default_rng(5)
+    B, H, KV, D, BS, MB = 2, 12, 2, 16, 8, 5
+    NB = B * MB
+    q, tq = _pair(rng.normal(size=(B, H, D)), "float32")
+    kp, tkp = _pair(rng.normal(size=(NB, BS, KV, D)), "float32")
+    vp, tvp = _pair(rng.normal(size=(NB, BS, KV, D)), "float32")
+    bt = rng.permutation(NB).reshape(B, MB).astype(np.int32)
+    sl = np.array([37, 12], np.int32)
+    out = ops.paged_attention(tq, tkp, tvp, torch.from_numpy(bt),
+                              torch.from_numpy(sl), alibi_slopes(H),
+                              sliding_window=16)
+    pal = j_paged(q, kp, vp, jnp.asarray(bt), jnp.asarray(sl), j_alibi(H),
+                  sliding_window=16, interpret=True)
+    orc = jref.paged_attention_ref(q, kp, vp, jnp.asarray(bt),
+                                   jnp.asarray(sl), alibi_slopes=j_alibi(H),
+                                   sliding_window=16)
+    _close(out, pal, "float32")
+    _close(out, orc, "float32")
+
+
+# ------------------------------------------------------------ chunk prefill
+
+@pytest.mark.parametrize("H,KV", [(2, 2), (12, 2)])          # G = 1, 6
+@pytest.mark.parametrize("q_off", [0, 16, 5])   # 0 / aligned / unaligned
+@pytest.mark.parametrize("alibi,win", [(False, 0), (True, 0), (False, 12)])
+def test_chunk_prefill_attention_vs_pallas_and_ref(H, KV, q_off, alibi, win):
+    rng = np.random.default_rng(3 + q_off + H)
+    L, NB, BS, D, MB, W = 2, 12, 8, 16, 6, 16
+    total = q_off + int(rng.integers(1, W + 1))
+    q, tq = _pair(rng.normal(size=(1, W, H, D)), "float32")
+    kr, tkr = _pair(rng.normal(size=(1, W, KV, D)), "float32")
+    vr, tvr = _pair(rng.normal(size=(1, W, KV, D)), "float32")
+    kp, tkp = _pair(rng.normal(size=(L, NB, BS, KV, D)), "float32")
+    vp, tvp = _pair(rng.normal(size=(L, NB, BS, KV, D)), "float32")
+    bt = rng.permutation(NB)[:MB][None].astype(np.int32)
+    layer = 1
+    out = ops.chunk_prefill_attention(
+        tq, tkp, tvp, None, None, layer, torch.from_numpy(bt),
+        torch.tensor(q_off, dtype=torch.int32),
+        torch.tensor(total, dtype=torch.int32), tkr, tvr,
+        alibi_slopes(H) if alibi else None, sliding_window=win)
+    sl = j_alibi(H) if alibi else None
+    pal = j_chunk(q, kp[layer], vp[layer], jnp.asarray(bt), jnp.int32(q_off),
+                  jnp.int32(total), kr, vr, sl, sliding_window=win,
+                  block_q=8, interpret=True)
+    orc = jref.chunk_prefill_attention_ref(
+        q, kp, vp, None, None, layer, jnp.asarray(bt), jnp.int32(q_off),
+        jnp.int32(total), kr, vr, alibi_slopes=sl, sliding_window=win)
+    live = total - q_off              # padded query rows: garbage on both
+    _close(out[:, :live], pal[:, :live], "float32")
+    _close(out[:, :live], orc[:, :live], "float32")
+
+
+def test_chunk_prefill_attention_bf16():
+    rng = np.random.default_rng(9)
+    L, NB, BS, H, KV, D, MB, W, q_off = 1, 10, 8, 12, 2, 32, 5, 16, 11
+    total = q_off + 9
+    q, tq = _pair(rng.normal(size=(1, W, H, D)), "bfloat16")
+    kr, tkr = _pair(rng.normal(size=(1, W, KV, D)), "bfloat16")
+    vr, tvr = _pair(rng.normal(size=(1, W, KV, D)), "bfloat16")
+    kp, tkp = _pair(rng.normal(size=(L, NB, BS, KV, D)), "bfloat16")
+    vp, tvp = _pair(rng.normal(size=(L, NB, BS, KV, D)), "bfloat16")
+    bt = rng.permutation(NB)[:MB][None].astype(np.int32)
+    out = ops.chunk_prefill_attention(
+        tq, tkp, tvp, None, None, 0, torch.from_numpy(bt),
+        torch.tensor(q_off, dtype=torch.int32),
+        torch.tensor(total, dtype=torch.int32), tkr, tvr)
+    pal = j_chunk(q, kp[0], vp[0], jnp.asarray(bt), jnp.int32(q_off),
+                  jnp.int32(total), kr, vr, block_q=8, interpret=True)
+    _close(out[:, :total - q_off], pal[:, :total - q_off], "bfloat16")
+
+
+# ------------------------------------------------------------ int4 matmul
+
+def _codes(rng, K, N):
+    """Random int4 codes with the top nibble at 15 in a band of columns:
+    those words are negative as int32 and unpack only with unsigned
+    shifts."""
+    c = rng.integers(0, 16, (K, N)).astype(np.uint8)
+    c[7::8, : N // 2] = 15
+    return c
+
+
+@pytest.mark.parametrize("M,K,N,gs", [(8, 64, 48, 32), (5, 96, 40, 16),
+                                      (16, 128, 64, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quant_matmul_vs_pallas_and_ref(M, K, N, gs, dtype):
+    rng = np.random.default_rng(M + K)
+    codes = _codes(rng, K, N)
+    qw = pack_int4(codes)
+    assert (qw < 0).any()                     # the sign case is exercised
+    scales = rng.uniform(0.01, 0.1, (K // gs, N)).astype(np.float32)
+    zeros = rng.integers(0, 16, (K // gs, N)).astype(np.float32)
+    g_idx = (np.arange(K) // gs).astype(np.int32)
+    x, tx = _pair(rng.normal(size=(M, K)), dtype)
+    jp = {"qweight": jnp.asarray(qw), "scales": jnp.asarray(scales),
+          "zeros": jnp.asarray(zeros), "g_idx": jnp.asarray(g_idx)}
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    out = ops.quant_matmul(tx, tp)
+    orc = jref.quant_matmul_ref(x, jp)
+    pal = j_gptq(x, jp["qweight"], jp["scales"], jp["zeros"], interpret=True)
+    scale = float(np.abs(np.asarray(orc, np.float32)).max())
+    for j in (orc, pal):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(j, np.float32),
+                                   atol=TOL[dtype] * scale, rtol=2e-2)
+    # the kernel's own plain version (f32 dequant) against the Pallas body
+    own = ref.gptq_matmul_ref(tx, tp["qweight"], tp["scales"], tp["zeros"])
+    np.testing.assert_allclose(own.float().numpy(),
+                               np.asarray(pal, np.float32),
+                               atol=TOL[dtype] * scale, rtol=2e-2)
+
+
+def test_int4_pack_unpack_and_grouped_dequant_match_jax():
+    from repro.core.quant import dequantize as j_deq
+    from repro.core.quant import pack_int4 as j_pack
+    from repro.core.quant import unpack_int4 as j_unpack
+    rng = np.random.default_rng(1)
+    K, N, gs = 64, 24, 16
+    codes = _codes(rng, K, N)
+    qw = pack_int4(codes)
+    np.testing.assert_array_equal(qw, j_pack(codes))
+    np.testing.assert_array_equal(unpack_int4(torch.from_numpy(qw), K),
+                                  np.asarray(j_unpack(jnp.asarray(qw), K)))
+    # a permuted (act-order style) g_idx: the plain path gathers through it
+    g_idx = rng.permutation(np.arange(K) // gs).astype(np.int32)
+    p = {"qweight": qw, "g_idx": g_idx,
+         "scales": rng.uniform(0.01, 0.1, (K // gs, N)).astype(np.float32),
+         "zeros": rng.integers(0, 16, (K // gs, N)).astype(np.float32)}
+    want = np.asarray(j_deq({k: jnp.asarray(v) for k, v in p.items()}, K,
+                            jnp.float32))
+    got = dequantize({k: torch.from_numpy(v) for k, v in p.items()}, K,
+                     torch.float32)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The wrappers launch on CUDA tensors or raise; they never fall back
+    to the plain version (the CPU path lives in ``ops`` alone)."""
+    from repro_torch.kernels.flash_attention import flash_attention_chunk
+    from repro_torch.kernels.gptq_matmul import gptq_matmul
+    from repro_torch.kernels.paged_attention import paged_attention
+    q = torch.zeros(2, 4, 16)
+    pool = torch.zeros(3, 8, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention(q, pool, pool, torch.zeros(2, 3, dtype=torch.int32),
+                        torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        gptq_matmul(torch.zeros(2, 16), torch.zeros(2, 4, dtype=torch.int32),
+                    torch.zeros(1, 4), torch.zeros(1, 4))
+    zero = torch.tensor(0, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_chunk(torch.zeros(1, 8, 4, 16), pool, pool,
+                              torch.zeros(1, 3, dtype=torch.int32), zero,
+                              zero, torch.zeros(1, 8, 2, 16),
+                              torch.zeros(1, 8, 2, 16))
+    assert paged_attention.launches == gptq_matmul.launches \
+        == flash_attention_chunk.launches == 0
+    with pytest.raises(ValueError, match="device"):
+        ops.paged_attention(q.to("meta"), pool, pool, None, None)
