@@ -8,20 +8,30 @@ Phases, each of which fails loudly (any failure exits non-zero):
 1. build   — compile the hand-written kernels (``csrc/*.cu``, nvcc for
              sm_90a, one process per source) and print the build time;
 2. kernels — run each kernel at the serving shapes of full-width
-             qwen2-1.5b in bf16 against its plain torch version on the
-             card, print its time beside the plain version's and its
-             bound (bytes over 3.35 TB/s or flops over 989 TFLOP/s);
-3. model   — full-width qwen2-1.5b cut to 2 layers, int4 weights: the
-             same params and inputs through the decode step, the prefill
-             chunk and the unified step on the card and on the CPU (where
+             qwen2-1.5b in bf16 (int8 pools where the kernel reads them)
+             against its plain torch version on the card, print its time
+             beside the plain version's, the library call's where one
+             computes the same function, and its bound (bytes over
+             3.35 TB/s or flops over 989 TFLOP/s);
+3. model   — full-width qwen2-1.5b cut to 2 layers, int4 weights, bf16
+             and int8 pools: the same params and inputs through the decode
+             step, the prefill chunk, the unified step and the
+             whole-prompt ``T.prefill`` on the card and on the CPU (where
              the port takes the plain versions), logits compared at a
              stated bf16 tolerance;
-4. serve   — ``LLM.load("qwen2-1.5b", quant="rtn-int4", seed=0)`` at full
-             depth serves 8 greedy requests (20 to ~900 prompt tokens, two
-             sharing a 64-token prefix, up to 32 new tokens each), with the
-             kernels' launch counters zeroed just before and read just
+4. serve   — ``LLM.load("qwen2-1.5b", quant="rtn-int4", seed=0, ...)`` at
+             full depth serves 8 greedy requests (20 to ~900 prompt tokens,
+             two sharing a 64-token prefix, up to 32 new tokens each)
+             three times: chunked prefill over the bf16 pool, chunked
+             prefill over the int8 pool (``kv_cache_dtype="int8"``), and
+             whole-prompt prefill waves over the bf16 pool
+             (``enable_chunked_prefill=False``).  The kernels' launch
+             counters are zeroed just before each serve and read just
              after: every request finishes, every token is in vocabulary,
-             every kernel launched, the allocator audit is clean.
+             each serve launched exactly its own kernels, the allocator
+             audit is clean.  The bf16 and int8 chunked serves are re-run
+             under ``torch.profiler``; the int8 serve may not copy from the
+             device to the host more often per step than the bf16 one.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -125,46 +135,187 @@ def check_paged_attention(gen):
                      f"seq_lens {sl.tolist()}"}
 
 
-def check_flash_attention_chunk(gen):
+def _int8_pool(shape, gen):
+    """Random K or V blocks [NB, BS, KV, D] quantized as the serving path
+    writes them: int8 codes and [NB, KV] f32 scales."""
+    import torch
+    from repro_torch.core.kv_quant import quantize_blocks
+    x = torch.randn(shape, generator=gen, device="cuda")
+    return quantize_blocks(x, torch.ones(shape[:2], dtype=torch.bool,
+                                         device="cuda"))
+
+
+def check_paged_attention_quant(gen):
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_chunk
+    from repro_torch.kernels.paged_attention_quant import \
+        paged_attention_quant
     dev = "cuda"
-    kp = torch.randn((1, NB, BS, KV, D), generator=gen, device=dev).bfloat16()
-    vp = torch.randn((1, NB, BS, KV, D), generator=gen, device=dev).bfloat16()
+    q = torch.randn((B, H, D), generator=gen, device=dev).bfloat16()
+    kp, ks = _int8_pool((NB, BS, KV, D), gen)
+    vp, vs = _int8_pool((NB, BS, KV, D), gen)
+    bt = torch.randperm(NB, generator=gen, device=dev)[:B * MB] \
+        .reshape(B, MB).int()
+    sl = torch.tensor([0, 37, 64, 300, 512, 777, 901, 1024],
+                      dtype=torch.int32, device=dev)
+    args = (q, kp, ks, vp, vs, bt, sl)
+    out = paged_attention_quant(*args)
+    want = ref.paged_attention_quant_ref(*args)
+    torch.cuda.synchronize()
+    live = sl > 0
+    err = (out[live].float() - want[live].float()).abs().max().item()
+    zero = out[~live].float().abs().max().item()
+    if not err <= TOL or zero != 0.0:
+        raise AssertionError(f"paged_attention_quant: max err {err} (tol "
+                             f"{TOL}), seq_len 0 rows max {zero} (want 0)")
+    toks = int(sl.sum())
+    pages = int(((sl + BS - 1) // BS).sum())
+    nbytes = 2 * (2 * B * H * D) + toks * KV * D * 2 + pages * KV * 4 * 2 \
+        + 4 * (B + pages)
+    flops = 4 * H * D * toks
+    return {"name": "paged_attention_quant", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention_quant.py:62",
+            "max_abs_err": err,
+            "ms": time_ms(lambda: paged_attention_quant(*args)),
+            "plain_ms": time_ms(lambda: ref.paged_attention_quant_ref(*args),
+                                iters=3),
+            "bound": bound_ms(nbytes, flops), "library_ms": None,
+            "shape": f"q[{B},{H},{D}] int8 pool[{NB},{BS},{KV},{D}] + "
+                     f"scales[{NB},{KV}] seq_lens {sl.tolist()}"}
+
+
+CHUNK_CASES = ((0, W), (256, W), (300, 100), (768, W))   # (q_offset, len)
+
+
+def check_flash_attention_chunk(gen, int8: bool = False):
+    """The chunk kernel over the bf16 pool, or (``int8``) its int8-pool
+    branch, at q_offset 0 / aligned / unaligned, full and partial chunks;
+    timed at the last case, a chunk of 256 after 768 pooled tokens."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_chunk, flash_attention_chunk_int8)
+    dev = "cuda"
+    if int8:
+        kernel = flash_attention_chunk_int8
+        (kp, ks), (vp, vs) = (_int8_pool((NB, BS, KV, D), gen)
+                              for _ in range(2))
+        kp, ks, vp, vs = kp[None], ks[None], vp[None], vs[None]
+        scales = {"k_scales": ks[0], "v_scales": vs[0]}
+    else:
+        kernel = flash_attention_chunk
+        kp = torch.randn((1, NB, BS, KV, D), generator=gen,
+                         device=dev).bfloat16()
+        vp = torch.randn((1, NB, BS, KV, D), generator=gen,
+                         device=dev).bfloat16()
+        ks = vs = None
+        scales = {}
     bt = torch.randperm(NB, generator=gen, device=dev)[:MB][None].int()
     worst, timed = 0.0, None
-    # q_offset 0 / aligned / unaligned; full and partial chunks
-    for q_off, n in ((0, W), (256, W), (300, 100), (768, W)):
+    for q_off, n in CHUNK_CASES:
         q = torch.randn((1, W, H, D), generator=gen, device=dev).bfloat16()
         kr = torch.randn((1, W, KV, D), generator=gen, device=dev).bfloat16()
         vr = torch.randn((1, W, KV, D), generator=gen, device=dev).bfloat16()
         off = torch.tensor(q_off, dtype=torch.int32, device=dev)
         tl = torch.tensor(q_off + n, dtype=torch.int32, device=dev)
-        out = flash_attention_chunk(q, kp[0], vp[0], bt, off, tl, kr, vr)
-        want = ref.chunk_prefill_attention_ref(q, kp, vp, None, None, 0, bt,
+        out = kernel(q, kp[0], vp[0], bt, off, tl, kr, vr, **scales)
+        want = ref.chunk_prefill_attention_ref(q, kp, vp, ks, vs, 0, bt,
                                                off, tl, kr, vr)
         torch.cuda.synchronize()
         err = (out[:, :n].float() - want[:, :n].float()).abs().max().item()
         if not err <= TOL:
-            raise AssertionError(f"flash_attention_chunk q_offset={q_off} "
-                                 f"len={n}: max err {err} (tol {TOL})")
+            raise AssertionError(f"{kernel.name} q_offset={q_off} len={n}: "
+                                 f"max err {err} (tol {TOL})")
         worst = max(worst, err)
         timed = (q, kr, vr, off, tl, q_off, n)
     q, kr, vr, off, tl, q_off, n = timed      # a later chunk: 768 + 256
     pairs = sum(q_off + i + 1 for i in range(n))     # visible (q, k) pairs
-    nbytes = 2 * (2 * W * H * D + 2 * W * KV * D) + q_off * KV * D * 2 * 2
+    pool_bytes = q_off * KV * D * 2 * (1 if int8 else 2)
+    if int8:
+        pool_bytes += (q_off // BS) * KV * 4 * 2
+    nbytes = 2 * (2 * W * H * D + 2 * W * KV * D) + pool_bytes
     flops = 4 * H * D * pairs
-    return {"name": "flash_attention_chunk", "route": "cuda",
+    return {"name": kernel.name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_chunk.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:310",
+            "replaces": "src/repro/kernels/flash_attention.py:310"
+                        + (" (quantized branch :125-129, :175-177)"
+                           if int8 else ""),
             "max_abs_err": worst,
-            "ms": time_ms(lambda: flash_attention_chunk(
-                q, kp[0], vp[0], bt, off, tl, kr, vr)),
+            "ms": time_ms(lambda: kernel(q, kp[0], vp[0], bt, off, tl, kr,
+                                         vr, **scales)),
             "plain_ms": time_ms(lambda: ref.chunk_prefill_attention_ref(
-                q, kp, vp, None, None, 0, bt, off, tl, kr, vr), iters=3),
+                q, kp, vp, ks, vs, 0, bt, off, tl, kr, vr), iters=3),
             "bound": bound_ms(nbytes, flops), "library_ms": None,
-            "shape": f"q[1,{W},{H},{D}] q_offset {q_off} total {q_off + n}"}
+            "shape": f"q[1,{W},{H},{D}] q_offset {q_off} total {q_off + n}"
+                     + (" int8 pool" if int8 else "")}
+
+
+def check_flash_attention_chunk_int8(gen):
+    return check_flash_attention_chunk(gen, int8=True)
+
+
+WAVE_B, WAVE_S = 8, 960     # the whole-prompt serve's wave: 8 x 900 -> 960
+
+
+def check_flash_attention(gen):
+    """The static prefill kernel at the whole-prompt serve's wave shape
+    (causal, timed), then at q_offset > 0 with Sq < Sk, a sliding band and
+    ALiBi.  The library yardstick is one SDPA call (causal, grouped K/V)
+    on the wave's inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.alibi import alibi_slopes
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    dev = "cuda"
+
+    def qkv(b, sq, sk):
+        return (torch.randn((b, sq, H, D), generator=gen,
+                            device=dev).bfloat16(),
+                torch.randn((b, sk, KV, D), generator=gen,
+                            device=dev).bfloat16(),
+                torch.randn((b, sk, KV, D), generator=gen,
+                            device=dev).bfloat16())
+
+    slopes = alibi_slopes(H, dev)
+    cases = [("causal wave", qkv(WAVE_B, WAVE_S, WAVE_S), {}),
+             ("q_offset 128, Sq 256 < Sk 384", qkv(2, 256, 384),
+              {"q_offset": 128}),
+             ("sliding window 128", qkv(2, 512, 512),
+              {"sliding_window": 128}),
+             ("ALiBi", qkv(2, 512, 512), {"alibi_slopes": slopes})]
+    worst = 0.0
+    for label, (q, k, v), kw in cases:
+        out = flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        if not err <= TOL:
+            raise AssertionError(f"flash_attention {label}: max err {err} "
+                                 f"(tol {TOL})")
+        worst = max(worst, err)
+    q, k, v = cases[0][1]
+    pairs = WAVE_B * WAVE_S * (WAVE_S + 1) // 2       # causal (q, k) pairs
+    nbytes = 2 * (2 * WAVE_B * WAVE_S * H * D + 2 * WAVE_B * WAVE_S * KV * D)
+    flops = 4 * H * D * pairs
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        library = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+    except TypeError:                   # a torch without enable_gqa
+        library = None
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:386",
+            "max_abs_err": worst,
+            "ms": time_ms(lambda: flash_attention(q, k, v)),
+            "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v),
+                                iters=2),
+            "bound": bound_ms(nbytes, flops), "library_ms": library,
+            "shape": f"q[{WAVE_B},{WAVE_S},{H},{D}] k/v[{WAVE_B},{WAVE_S},"
+                     f"{KV},{D}] causal; checked also at "
+                     + "; ".join(c[0] for c in cases[1:])}
 
 
 def check_gptq_matmul(gen):
@@ -228,12 +379,17 @@ def check_gptq_matmul(gen):
 # Phase 3: the 2-layer full-width model on the card and on the CPU
 # --------------------------------------------------------------------------
 
-def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2) -> dict:
+def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2,
+                kv: str = "bf16") -> dict:
+    """The same params, pools and inputs through the decode step, a chunk
+    at q_offset 160, the unified step and a whole-prompt ``T.prefill``
+    wave on ``dev`` and on ``ref_dev``; ``kv`` picks the pool format."""
     import numpy as np
     import torch
     from repro_torch.bridge import tree_to
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.kv_quant import cache_from_state
+    from repro_torch.core.kv_quant import (cache_from_state,
+                                           dequantize_blocks, quantize_blocks)
     from repro_torch.models import transformer as T
     from repro_torch.models.quantize import quantize_params_rtn
     cfg = get_config("qwen2-1.5b").replace(num_layers=layers)
@@ -242,8 +398,14 @@ def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2) -> dict:
     nb, mb, slots = 128, MB, B
     bs = cfg.paging.block_size
     pool_shape = (layers, nb, bs, cfg.num_kv_heads, cfg.resolved_head_dim)
-    pool_k = torch.from_numpy(rng.normal(size=pool_shape).astype(np.float32))
-    pool_v = torch.from_numpy(rng.normal(size=pool_shape).astype(np.float32))
+    pools = {}
+    for name in ("k", "v"):
+        x = torch.from_numpy(rng.normal(size=pool_shape).astype(np.float32))
+        if kv == "int8":
+            pools[name] = quantize_blocks(x, torch.ones(pool_shape[:3],
+                                                        dtype=torch.bool))
+        else:
+            pools[name] = (x, None)
     bt = rng.permutation(nb)[:slots * 10].reshape(slots, 10).astype(np.int32)
     bt = np.concatenate([bt, np.zeros((slots, mb - 10), np.int32)], 1)
     sl = np.array([0, 9, 16, 37, 64, 100, 150, 160], np.int32)
@@ -253,57 +415,92 @@ def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2) -> dict:
     cbt = np.zeros((1, mb), np.int32)
     cbt[0, :24] = rng.permutation(np.setdiff1d(np.arange(nb), bt))[:24]
     q_off, n = 160, 200                  # an unaligned later chunk
+    # a whole-prompt wave: 4 prompts padded to 256, one of a single token
+    wlens = np.array([256, 200, 77, 1], np.int32)
+    wtoks = rng.integers(0, cfg.vocab_size, (4, 256)).astype(np.int32)
+    wbt = np.zeros((4, mb), np.int32)
+    wbt[:, :16] = rng.permutation(nb)[:64].reshape(4, 16)
     sampling = {"keys": np.zeros((slots + 1, 2), np.uint32),
                 "counts": np.zeros(slots + 1, np.int32),
                 "temps": np.zeros(slots + 1, np.float32),
                 "top_ks": np.zeros(slots + 1, np.int32),
                 "top_ps": np.ones(slots + 1, np.float32)}
+
+    def pool_values(st):
+        """The K pool as f32 values (dequantized in int8) and, in int8,
+        the size of one quantization step per (block, KV head)."""
+        k = st["k_pool"].float().cpu()
+        if kv != "int8":
+            return k, torch.zeros(())
+        s = st["k_scales"].cpu()
+        return dequantize_blocks(k.to(torch.int8), s), s[:, :, None, :, None]
+
     res = {}
     with torch.no_grad():
         for d in (ref_dev, dev):
             p = T.split_layers(T.cast_params(tree_to(params, d),
                                              T.act_dtype(cfg)))
 
-            def fresh():
-                st = T.make_decode_state(cfg, slots, nb, mb, device=d)
-                st["k_pool"].copy_(pool_k)
-                st["v_pool"].copy_(pool_v)
-                st["block_table"] = torch.from_numpy(bt).to(d)
-                st["seq_lens"] = torch.from_numpy(sl).to(d)
+            def fresh(table, lens):
+                st = T.make_decode_state(cfg, slots, nb, mb,
+                                         kv_cache_dtype=kv, device=d)
+                for name in ("k", "v"):
+                    vals, scales = pools[name]
+                    st[f"{name}_pool"].copy_(vals)
+                    if scales is not None:
+                        st[f"{name}_scales"].copy_(scales)
+                st["block_table"] = torch.from_numpy(table).to(d)
+                st["seq_lens"] = torch.from_numpy(lens).to(d)
                 return st
 
             def i32(a):
                 return torch.from_numpy(np.asarray(a, np.int32)).to(d)
 
-            st = fresh()
+            st = fresh(bt, sl)
             dec, st = T.decode_step(cfg, p, st, i32(toks))
             chunk, _ = T.prefill_chunk(cfg, p, cache_from_state(st),
                                        i32(ctoks), i32(cbt), i32(q_off),
                                        i32(q_off + n))
-            st = fresh()
+            st = fresh(bt, sl)
             nxt, st = T.unified_step(cfg, p, st, i32(toks), sampling,
                                      torch.from_numpy(active).to(d),
                                      i32(ctoks), i32(cbt), i32(q_off),
                                      i32(q_off + n))
-            res[d] = (dec.float().cpu(), chunk.float().cpu(), nxt.cpu(),
-                      st["k_pool"].float().cpu())
-    (d0, c0, n0, k0), (d1, c1, n1, k1) = res[ref_dev], res[dev]
+            unified_pool = pool_values(st)
+            st = fresh(wbt, wlens)
+            wave, st = T.prefill(cfg, p, st, {"tokens": i32(wtoks),
+                                              "ctx_lens": i32(wlens)})
+            res[d] = (dec.float().cpu(), chunk.float().cpu(),
+                      wave.float().cpu(), nxt.cpu(), unified_pool,
+                      pool_values(st))
+    (d0, c0, w0, n0, *p0), (d1, c1, w1, n1, *p1) = res[ref_dev], res[dev]
     # inactive decode rows (seq_len 0) are garbage by contract: the kernel
     # writes zeros there, the plain version an average — compare live rows
     live = torch.from_numpy(active)
     d0, d1 = d0[live], d1[live]
-    err = max((d1 - d0).abs().max().item(), (c1 - c0).abs().max().item())
-    scale = max(d0.abs().max().item(), c0.abs().max().item())
-    pool_err = (k1 - k0).abs().max().item()
+    err = max((a - b).abs().max().item()
+              for a, b in ((d1, d0), (c1, c0), (w1, w0)))
+    scale = max(t.abs().max().item() for t in (d0, c0, w0))
+    # pools: the bf16 tolerance on values, plus one quantization step in
+    # int8 (a value that differs in bf16 may round to the next code)
+    pool_err, pool_ok = 0.0, True
+    for (k0, _), (k1, step) in zip(p0, p1):
+        diff = (k1 - k0).abs()
+        pool_err = max(pool_err, diff.max().item())
+        pool_ok &= bool((diff <= TOL * k0.abs().max() + step).all())
     rows = torch.cat([live, torch.ones(1, dtype=torch.bool)])
     agree = float((n1[rows] == n0[rows]).float().mean())
-    if not (err <= LOGIT_TOL and pool_err <= TOL * k0.abs().max().item()):
-        raise AssertionError(f"model: logits max err {err} (tol {LOGIT_TOL}, "
-                             f"max|logit| {scale}), pool err {pool_err}")
-    if not (torch.isfinite(d1).all() and torch.isfinite(c1).all()):
-        raise AssertionError("model: non-finite logits on the card")
-    return {"layers": layers, "logit_max_abs_err": err, "max_abs_logit": scale,
+    wave_agree = float((w1.argmax(-1) == w0.argmax(-1)).float().mean())
+    if not (err <= LOGIT_TOL and pool_ok):
+        raise AssertionError(f"model {kv}: logits max err {err} (tol "
+                             f"{LOGIT_TOL}, max|logit| {scale}), pool err "
+                             f"{pool_err}")
+    if not all(torch.isfinite(t).all() for t in (d1, c1, w1)):
+        raise AssertionError(f"model {kv}: non-finite logits on the card")
+    return {"layers": layers, "kv_cache_dtype": kv,
+            "logit_max_abs_err": err, "max_abs_logit": scale,
             "pool_max_abs_err": pool_err, "greedy_agreement": agree,
+            "prefill_wave_greedy_agreement": wave_agree,
             "tolerance": LOGIT_TOL}
 
 
@@ -320,13 +517,34 @@ def serve_prompts(vocab: int, lens=(20, 64 + 40, 64 + 300, 150, 420, 600,
     return ps
 
 
+# The three serves: (label, LLM.load options, kernels that must launch,
+# kernels that must not).  Each runs its own path: the int8 serve never
+# touches a bf16-pool attention kernel, the whole-prompt serve never the
+# chunk kernel.
+SERVES = (
+    ("bf16-chunked", {},
+     {"paged_attention", "flash_attention_chunk", "gptq_matmul"},
+     {"paged_attention_quant", "flash_attention_chunk_int8",
+      "flash_attention"}),
+    ("int8-chunked", {"kv_cache_dtype": "int8"},
+     {"paged_attention_quant", "flash_attention_chunk_int8", "gptq_matmul"},
+     {"paged_attention", "flash_attention_chunk", "flash_attention"}),
+    ("bf16-whole-prompt", {"enable_chunked_prefill": False},
+     {"flash_attention", "paged_attention", "gptq_matmul"},
+     {"flash_attention_chunk", "flash_attention_chunk_int8",
+      "paged_attention_quant"}),
+)
+
+
 def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
-                max_tokens: int = 32, kernels=()) -> dict:
+                max_tokens: int = 32, kernels=(), label: str = "bf16-chunked",
+                options=None, must=(), never=(), profile: bool = False
+                ) -> dict:
     import torch
     from repro_torch.serving import LLM, SamplingParams
     t0 = time.perf_counter()
     llm = LLM.load(config, quant="rtn-int4", seed=0, device=dev,
-                   reduced=reduced)
+                   reduced=reduced, **(options or {}))
     if dev != "cpu":
         torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
@@ -351,58 +569,83 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
            if not o.finished or o.finish_reason not in ("length", "stop")]
     toks = [t for o in outs for t in o.token_ids]
     if bad:
-        raise AssertionError(f"serve: requests {bad} did not finish")
+        raise AssertionError(f"serve {label}: requests {bad} did not finish")
     if any(t < 0 or t >= vocab for t in toks):
-        raise AssertionError("serve: token -1 or out of vocabulary")
+        raise AssertionError(f"serve {label}: token -1 or out of vocabulary")
     if [len(o.token_ids) for o in outs] != [sp.max_tokens for sp in sps]:
-        raise AssertionError("serve: a request stopped short of max_tokens")
-    if any(n <= 0 for n in launches.values()):
-        raise AssertionError(f"serve: a kernel never launched: {launches}")
+        raise AssertionError(f"serve {label}: a request stopped short of "
+                             "max_tokens")
+    missing = [k for k in must if launches.get(k, 0) <= 0]
+    stray = [k for k in never if launches.get(k, 0) > 0]
+    if missing or stray:
+        raise AssertionError(f"serve {label}: kernels {missing} never "
+                             f"launched, {stray} launched off their path: "
+                             f"{launches}")
     audit = eng.alloc.audit()
     if audit["live_blocks"] != 0:
-        raise AssertionError(f"serve: allocator audit not clean: {audit}")
-    profile = profile_serve(llm, prompts, sps, outs) if dev != "cpu" else None
-    return {"profile": profile,"config": llm.cfg.name, "layers": llm.cfg.num_layers,
-            "requests": len(outs), "prompt_lens": [len(p) for p in prompts],
-            "load_s": load_s, "wall_s": wall,
-            "gen_tokens": m["gen_tokens"], "prompt_tokens": m["prompt_tokens"],
-            "gen_tok_s": m["gen_tokens"] / wall,
-            "total_tok_s": (m["gen_tokens"] + m["prompt_tokens"]) / wall,
-            "work_steps": m["work_steps"],
-            "mean_step_ms": wall / max(m["work_steps"], 1) * 1e3,
-            "dispatches_per_step": m["device_dispatches"]
-            / max(m["work_steps"], 1),
-            "decode_steps": m["decode_steps"],
-            "prefill_chunks": m["prefill_chunks"],
-            "blocks_reused": eng.alloc.stats["reused"], "audit": audit,
-            "launches": launches,
-            "first_tokens": [o.token_ids[:4] for o in outs]}
+        raise AssertionError(f"serve {label}: allocator audit not clean: "
+                             f"{audit}")
+    prof = profile_serve(llm, prompts, sps, outs) if profile else None
+    out = {"label": label, "options": options or {}, "profile": prof,
+           "config": llm.cfg.name, "layers": llm.cfg.num_layers,
+           "requests": len(outs), "prompt_lens": [len(p) for p in prompts],
+           "load_s": load_s, "wall_s": wall,
+           "gen_tokens": m["gen_tokens"], "prompt_tokens": m["prompt_tokens"],
+           "gen_tok_s": m["gen_tokens"] / wall,
+           "total_tok_s": (m["gen_tokens"] + m["prompt_tokens"]) / wall,
+           "work_steps": m["work_steps"],
+           "mean_step_ms": wall / max(m["work_steps"], 1) * 1e3,
+           "dispatches_per_step": m["device_dispatches"]
+           / max(m["work_steps"], 1),
+           "decode_steps": m["decode_steps"],
+           "prefill_chunks": m["prefill_chunks"],
+           "kv_pool_bytes": eng.runner.kv_pool_bytes(),
+           "blocks_reused": eng.alloc.stats["reused"], "audit": audit,
+           "launches": launches,
+           "tokens": [o.token_ids for o in outs]}
+    del llm, eng
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+    return out
 
 
 def profile_serve(llm, prompts, sps, outs) -> dict:
     """Serve the same requests again under ``torch.profiler`` (after the
     launch counts were read) and sum the device time by kernel: ours, and
-    every other kernel PyTorch launched.  Also checks the re-run's tokens
-    against the first run's (greedy: identical)."""
+    every other kernel PyTorch launched; count the device-to-host copies
+    per engine step.  Also checks the re-run's tokens against the first
+    run's (greedy: identical)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    steps0 = llm.engine.metrics["work_steps"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         again = llm.generate(prompts, sps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    steps = llm.engine.metrics["work_steps"] - steps0
     if [o.token_ids for o in again] != [o.token_ids for o in outs]:
         raise AssertionError("serve: the profiled re-run changed tokens")
-    ours = {"paged_attention_kernel": "paged_attention",
-            "chunk_attention_kernel": "flash_attention_chunk",
+    ours = {"paged_attention_kernel<__nv_bfloat16, __nv_bfloat16>":
+            "paged_attention",
+            "paged_attention_kernel<__nv_bfloat16, signed char>":
+            "paged_attention_quant",
+            "chunk_attention_kernel<__nv_bfloat16, __nv_bfloat16>":
+            "flash_attention_chunk",
+            "chunk_attention_kernel<__nv_bfloat16, signed char>":
+            "flash_attention_chunk_int8",
+            "flash_attention_kernel": "flash_attention",
             "gptq_matmul_kernel": "gptq_matmul"}
-    by = {}
+    by, dtoh, ops = {}, 0, 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
+        ops += e.count
+        if "Memcpy DtoH" in e.key:
+            dtoh += e.count
         name = next((v for k, v in ours.items() if k in e.key), None)
         key = name or e.key[:60]
         ms, n = by.get(key, (0.0, 0))
@@ -411,9 +654,19 @@ def profile_serve(llm, prompts, sps, outs) -> dict:
     top = sorted(by.items(), key=lambda kv: -kv[1][0])[:12]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / (wall * 1e3),
-            "ours_ms": {v: by.get(v, (0.0, 0))[0] for v in ours.values()},
+            "work_steps": steps, "dtoh_copies": dtoh,
+            "dtoh_per_step": dtoh / max(steps, 1),
+            "device_ops_per_step": ops / max(steps, 1),
+            "ours_ms": {v: by[v][0] for v in ours.values() if v in by},
             "top": [{"kernel": k, "ms": ms, "calls": n}
                     for k, (ms, n) in top]}
+
+
+def agreement(a, b) -> float:
+    """Share of generated tokens two serves agree on, position by
+    position (printed, never asserted: near-ties flip greedy tokens)."""
+    pairs = [(x, y) for ta, tb in zip(a, b) for x, y in zip(ta, tb)]
+    return sum(x == y for x, y in pairs) / max(len(pairs), 1)
 
 
 def main() -> int:
@@ -443,7 +696,9 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = []
-    for check in (check_paged_attention, check_flash_attention_chunk,
+    for check in (check_paged_attention, check_paged_attention_quant,
+                  check_flash_attention_chunk,
+                  check_flash_attention_chunk_int8, check_flash_attention,
                   check_gptq_matmul):
         k = check(gen)
         kernels.append(k)
@@ -455,34 +710,70 @@ def main() -> int:
     log("[kernels] " + ", ".join(k["name"] for k in kernels)
         + " built, launched and within tolerance of their plain versions")
 
-    t0 = time.perf_counter()
-    report["model"] = phase_model("cuda")
-    log(f"[model] 2-layer full-width qwen2-1.5b rtn-int4, card vs CPU: "
-        f"{json.dumps(report['model'])} ({time.perf_counter() - t0:.1f} s)")
+    report["model"] = {}
+    for kv in ("bf16", "int8"):
+        t0 = time.perf_counter()
+        report["model"][kv] = res = phase_model("cuda", kv=kv)
+        log(f"[model] 2-layer full-width qwen2-1.5b rtn-int4, {kv} pool, "
+            f"card vs CPU: {json.dumps(res)} "
+            f"({time.perf_counter() - t0:.1f} s)")
 
-    report["serve"] = serve = phase_serve("cuda", kernels=ops.KERNELS)
-    log(f"[serve] {serve['config']} x{serve['layers']} layers rtn-int4: "
-        f"{serve['requests']} requests, {serve['gen_tokens']} new tokens "
-        f"in {serve['wall_s']:.2f} s: gen_tok_s={serve['gen_tok_s']:.1f} "
-        f"total_tok_s={serve['total_tok_s']:.1f} "
-        f"mean_step_ms={serve['mean_step_ms']:.2f} "
-        f"dispatches_per_step={serve['dispatches_per_step']:.2f} "
-        f"launches={serve['launches']} audit={serve['audit']}")
-    prof = serve["profile"]
-    log(f"[profile] re-run under torch.profiler: wall_ms={prof['wall_ms']:.1f} "
-        f"device_busy_ms={prof['device_busy_ms']:.1f} "
-        f"device_idle_share={prof['device_idle_share']:.3f} "
-        f"ours_ms={json.dumps(prof['ours_ms'])}")
-    for row in prof["top"]:
-        log(f"[profile]   {row['ms']:9.2f} ms  {row['calls']:6d} calls  "
-            f"{row['kernel']}")
+    serves = report["serve"] = {}
+    for label, options, must, never in SERVES:
+        serves[label] = serve = phase_serve(
+            "cuda", kernels=ops.KERNELS, label=label, options=options,
+            must=must, never=never, profile=label.endswith("chunked"))
+        log(f"[serve] {label}: {serve['config']} x{serve['layers']} layers "
+            f"rtn-int4 {json.dumps(options)}: {serve['requests']} requests, "
+            f"{serve['gen_tokens']} new tokens in {serve['wall_s']:.2f} s: "
+            f"gen_tok_s={serve['gen_tok_s']:.1f} "
+            f"total_tok_s={serve['total_tok_s']:.1f} "
+            f"mean_step_ms={serve['mean_step_ms']:.2f} "
+            f"steps={serve['work_steps']} "
+            f"dispatches_per_step={serve['dispatches_per_step']:.2f} "
+            f"kv_pool_bytes={serve['kv_pool_bytes']} "
+            f"launches={serve['launches']} audit={serve['audit']}")
+        prof = serve["profile"]
+        if prof is None:
+            continue
+        log(f"[profile] {label} re-run under torch.profiler: "
+            f"wall_ms={prof['wall_ms']:.1f} "
+            f"device_busy_ms={prof['device_busy_ms']:.1f} "
+            f"device_idle_share={prof['device_idle_share']:.3f} "
+            f"dtoh_copies={prof['dtoh_copies']} over "
+            f"{prof['work_steps']} steps "
+            f"({prof['dtoh_per_step']:.2f}/step) "
+            f"device_ops_per_step={prof['device_ops_per_step']:.0f} "
+            f"ours_ms={json.dumps(prof['ours_ms'])}")
+        for row in prof["top"]:
+            log(f"[profile]   {row['ms']:9.2f} ms  {row['calls']:6d} calls  "
+                f"{row['kernel']}")
+    bf16, int8 = serves["bf16-chunked"], serves["int8-chunked"]
+    ratio = int8["kv_pool_bytes"] / bf16["kv_pool_bytes"]
+    dtoh = (int8["profile"]["dtoh_per_step"], bf16["profile"]["dtoh_per_step"])
+    log(f"[serve] int8 / bf16 kv_pool_bytes = {int8['kv_pool_bytes']} / "
+        f"{bf16['kv_pool_bytes']} = {ratio:.4f}; DtoH copies per step int8 "
+        f"{dtoh[0]:.2f}, bf16 {dtoh[1]:.2f}")
+    for other in ("int8-chunked", "bf16-whole-prompt"):
+        log(f"[serve] greedy agreement bf16-chunked vs {other}: "
+            f"{agreement(bf16['tokens'], serves[other]['tokens']):.3f}")
+    if ratio > 0.51:
+        raise AssertionError(f"serve: int8 pool is {ratio:.4f} of the bf16 "
+                             "pool (limit 0.51)")
+    if dtoh[0] > dtoh[1]:
+        raise AssertionError(f"serve: the int8 serve copies device to host "
+                             f"{dtoh[0]:.2f} times per step, the bf16 one "
+                             f"{dtoh[1]:.2f}: a hidden host sync")
 
     record = []
     for k in kernels:
+        by_serve = {lb: sv["launches"][k["name"]]
+                    for lb, sv in serves.items()}
         record.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
-            "launches": serve["launches"][k["name"]],
+            "launches": sum(by_serve.values()),
+            "launches_by_serve": by_serve,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
             "bound_by": k["bound"][1], "library_ms": k["library_ms"],

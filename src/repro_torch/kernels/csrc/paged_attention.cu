@@ -1,12 +1,23 @@
-// Paged decode attention (Opt-GQA over block tables) for Hopper.
+// Paged decode attention (Opt-GQA over block tables) for Hopper, over the
+// bf16/f32 pool and over the int8 pool.
 //
 // Replaces: repro/kernels/paged_attention.py :: paged_attention
-//           (body _pa_kernel, page clamp _clamp_live), bf16/f32 pools.
+//           (body _pa_kernel, page clamp _clamp_live), bf16/f32 pools, and
+//           repro/kernels/paged_attention_quant.py :: paged_attention_quant
+//           (the same body with quantized=True), int8 pools.
 //
 // What bounds it on an H100: bytes.  Each decode row reads its live K and
-// V pages once (seq_len * KV * D * 2 tensors * 2 bytes in bf16) and does
-// about 4 * G flops per byte read, far below the ~295 flop/byte at which
-// the tensor cores would be the limit.
+// V pages once (seq_len * KV * D * 2 tensors * 2 bytes in bf16; 1 byte in
+// int8, plus one f32 scale per page and KV head) and does about 4 * G
+// flops per byte read, far below the ~295 flop/byte at which the tensor
+// cores would be the limit.
+//
+// As in the JAX package, ONE kernel body serves both pool formats, so the
+// softmax loop cannot diverge between them: the pool element type P is a
+// template parameter apart from the activation type T.  In int8 the tile
+// is dequantized while it is staged into shared memory: 16 codes per
+// 16-byte load, times the scale of the row's page (a 32-token tile spans
+// two 16-token pages, so the scale is taken per row).
 //
 // Design: one thread block per (sequence, KV head).  The block reads its
 // own block_table row and seq_len, walks ONLY the live pages
@@ -27,10 +38,11 @@ namespace {
 constexpr int THREADS = 128;   // one output column per thread: D <= 128
 constexpr int MAX_G = 16;      // query heads per KV head held in registers
 
-template <typename T>
+template <typename T, typename P>
 __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ block_table,
+    const T* __restrict__ q, const P* __restrict__ k_pool,
+    const float* __restrict__ k_scales, const P* __restrict__ v_pool,
+    const float* __restrict__ v_scales, const int* __restrict__ block_table,
     const int* __restrict__ seq_lens, const float* __restrict__ slopes,
     T* __restrict__ out, int H, int KV, int D, int BS, int MB, int TP,
     int window, int use_alibi) {
@@ -66,12 +78,13 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
   __syncthreads();
 
   for (int p0 = 0; p0 < npages; p0 += TP) {
-    rt::load_kv_tile<T, THREADS>(
-        k_pool, v_pool, ks, vs, TT, D, [&](int t) -> long long {
+    rt::load_kv_tile<P, THREADS>(
+        k_pool, v_pool, k_scales, v_scales, ks, vs, TT, D,
+        [&](int t) -> rt::KVRow {
           const int page = p0 + t / BS;
-          if (page >= npages) return -1;      // past the live pages
+          if (page >= npages) return {-1, 0};   // past the live pages
           const long long blk = block_table[(size_t)b * MB + page];
-          return ((blk * BS + t % BS) * KV + h) * D;
+          return {((blk * BS + t % BS) * KV + h) * D, blk * KV + h};
         });
     __syncthreads();
     for (int i = tid; i < G * TT; i += THREADS) {
@@ -112,11 +125,12 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel(
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* block_table, const int* seq_lens, const float* slopes,
-           void* out, int B, int H, int KV, int D, int BS, int MB, int window,
-           int use_alibi, cudaStream_t stream) {
+template <typename T, typename P>
+int launch(const void* q, const void* k_pool, const float* k_scales,
+           const void* v_pool, const float* v_scales, const int* block_table,
+           const int* seq_lens, const float* slopes, void* out, int B, int H,
+           int KV, int D, int BS, int MB, int window, int use_alibi,
+           cudaStream_t stream) {
   static size_t granted = 0;
   const int G = H / KV;
   const int TP = BS >= 32 ? 1 : 32 / BS;
@@ -124,17 +138,20 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   const size_t smem =
       sizeof(float) * ((size_t)G * (D + 1) + (size_t)TT * (D + 1) +
                        (size_t)TT * D + (size_t)G * TT + 3 * (size_t)G);
-  cudaError_t e = rt::allow_smem(paged_attention_kernel<T>, smem, &granted);
+  cudaError_t e = rt::allow_smem(paged_attention_kernel<T, P>, smem,
+                                 &granted);
   if (e != cudaSuccess) return (int)e;
   if (B == 0) return (int)cudaGetLastError();
-  paged_attention_kernel<T><<<dim3(B, KV), THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k_pool, (const T*)v_pool, block_table, seq_lens,
-      slopes, (T*)out, H, KV, D, BS, MB, TP, window, use_alibi);
+  paged_attention_kernel<T, P><<<dim3(B, KV), THREADS, smem, stream>>>(
+      (const T*)q, (const P*)k_pool, k_scales, (const P*)v_pool, v_scales,
+      block_table, seq_lens, slopes, (T*)out, H, KV, D, BS, MB, TP, window,
+      use_alibi);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Pools in the activation dtype.
 extern "C" int paged_attention_launch(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const int* block_table, const int* seq_lens, const float* slopes,
@@ -142,9 +159,26 @@ extern "C" int paged_attention_launch(
     int use_alibi, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == rt::DTYPE_BF16)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, block_table, seq_lens,
-                                 slopes, out, B, H, KV, D, BS, MB, window,
-                                 use_alibi, s);
-  return launch<float>(q, k_pool, v_pool, block_table, seq_lens, slopes, out,
-                       B, H, KV, D, BS, MB, window, use_alibi, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pool, nullptr, v_pool, nullptr, block_table, seq_lens, slopes,
+        out, B, H, KV, D, BS, MB, window, use_alibi, s);
+  return launch<float, float>(q, k_pool, nullptr, v_pool, nullptr,
+                              block_table, seq_lens, slopes, out, B, H, KV,
+                              D, BS, MB, window, use_alibi, s);
+}
+
+// int8 pools with [NB, KV] f32 scales; q and out in `dtype`.
+extern "C" int paged_attention_quant_launch(
+    int dtype, const void* q, const void* k_values, const float* k_scales,
+    const void* v_values, const float* v_scales, const int* block_table,
+    const int* seq_lens, const float* slopes, void* out, int B, int H,
+    int KV, int D, int BS, int MB, int window, int use_alibi, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == rt::DTYPE_BF16)
+    return launch<__nv_bfloat16, int8_t>(
+        q, k_values, k_scales, v_values, v_scales, block_table, seq_lens,
+        slopes, out, B, H, KV, D, BS, MB, window, use_alibi, s);
+  return launch<float, int8_t>(q, k_values, k_scales, v_values, v_scales,
+                               block_table, seq_lens, slopes, out, B, H, KV,
+                               D, BS, MB, window, use_alibi, s);
 }

@@ -1,12 +1,15 @@
-"""Wrapper of the hand-written Hopper chunk-prefill attention kernel
-(``csrc/flash_attention_chunk.cu``; replaces the bf16-pool branch of the
-JAX package's Pallas ``kernels/flash_attention.py ::
-flash_attention_chunk``).
+"""Wrappers of the hand-written Hopper flash-attention kernels:
 
-The int8-pool branch of that kernel and the static-offset
-``flash_attention`` (whole-prompt prefill, training) are not ported yet
-(ROADMAP B2/B5).  CUDA tensors only; ``ops.chunk_prefill_attention``
-sends CPU tensors to the plain version in ``kernels/ref.py``.
+* ``flash_attention_chunk`` / ``flash_attention_chunk_int8``
+  (``csrc/flash_attention_chunk.cu``) replace the JAX package's Pallas
+  ``kernels/flash_attention.py :: flash_attention_chunk``, bf16/f32 pools
+  and int8 pools; one instance each, so a run's launch counts tell which
+  branch ran;
+* ``flash_attention`` (``csrc/flash_attention.cu``) replaces its static
+  ``flash_attention`` (whole-prompt prefill).
+
+CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the plain
+versions in ``kernels/ref.py``.
 """
 from __future__ import annotations
 
@@ -20,19 +23,26 @@ from repro_torch.kernels import build
 ROWS_PER_BLOCK = 48   # query rows (tokens x grouped heads) per thread block
 
 
+def _block_q(W: int, G: int) -> int:
+    return max(1, min(W, ROWS_PER_BLOCK // G))
+
+
 class FlashAttentionChunk:
-    """Callable kernel wrapper; ``launches`` counts kernel launches."""
+    """Callable kernel wrapper of one pool format (``int8`` or the
+    activation dtype); ``launches`` counts kernel launches."""
 
-    name = "flash_attention_chunk"
-
-    def __init__(self):
+    def __init__(self, int8: bool = False):
+        self.int8 = int8
+        self.name = "flash_attention_chunk" + ("_int8" if int8 else "")
         self.launches = 0
         self._fn = None
 
     def _launcher(self):
         if self._fn is None:
-            fn = build.load("flash_attention_chunk").flash_attention_chunk_launch
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+            fn = getattr(build.load("flash_attention_chunk"),
+                         self.name + "_launch")
+            nptr = 12 if self.int8 else 10
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * nptr
                            + [ctypes.c_int] * 9 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
@@ -45,19 +55,23 @@ class FlashAttentionChunk:
                  alibi_slopes: Optional[torch.Tensor] = None, *,
                  k_scales=None, v_scales=None,
                  sliding_window: int = 0) -> torch.Tensor:
-        """q [1, W, H, D]; k_pool/v_pool [NB, BS, KV, D] (one layer);
-        block_table [1, MB] int32; q_offset / total_len 0-d int32 device
-        tensors (read by the kernel, never by the host); k_raw/v_raw
-        [1, W, KV, D].  Returns [1, W, H, D]; rows at or past
-        ``total_len - q_offset`` hold garbage, as in the JAX kernel."""
-        if k_scales is not None or v_scales is not None:
-            raise NotImplementedError(
-                "int8 pools in flash_attention_chunk are not ported yet "
-                "(ROADMAP A8)")
+        """q [1, W, H, D]; k_pool/v_pool [NB, BS, KV, D] (one layer; int8
+        with k_scales/v_scales [NB, KV] f32 for the int8 instance, q's
+        dtype otherwise); block_table [1, MB] int32; q_offset / total_len
+        0-d int32 device tensors (read by the kernel, never by the host);
+        k_raw/v_raw [1, W, KV, D] in q's dtype.  Returns [1, W, H, D]; rows
+        at or past ``total_len - q_offset`` hold garbage, as in the JAX
+        kernel."""
+        if (k_scales is not None) != self.int8 \
+                or (v_scales is not None) != self.int8:
+            raise ValueError(f"{self.name} takes "
+                             + ("int8 pools with scales" if self.int8
+                                else "unscaled pools"))
         dev = q.device
+        pool_dtype = torch.int8 if self.int8 else q.dtype
         build.require(q, "q", ndim=4)
         for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-            build.require(t, name, dtype=q.dtype, ndim=4, device=dev)
+            build.require(t, name, dtype=pool_dtype, ndim=4, device=dev)
         for name, t in (("k_raw", k_raw), ("v_raw", v_raw)):
             build.require(t, name, dtype=q.dtype, ndim=4, device=dev)
         build.require(block_table, "block_table", dtype=torch.int32, ndim=2,
@@ -75,27 +89,92 @@ class FlashAttentionChunk:
                              f"{tuple(q.shape)}")
         if k_raw.shape != (1, W, KV, D) or v_raw.shape != k_raw.shape:
             raise ValueError(f"k_raw/v_raw must be {(1, W, KV, D)}")
-        if D % 8:
-            raise ValueError(f"head_dim {D} must be a multiple of 8")
+        vec = 16 if self.int8 else 8           # values per 16-byte load
+        if D % vec:
+            raise ValueError(f"head_dim {D} must be a multiple of {vec}")
         if any(t.data_ptr() % 16 for t in (k_pool, v_pool, k_raw, v_raw)):
             raise ValueError("pools and raw K/V must be 16-byte aligned")
+        pools = [k_pool.data_ptr(), v_pool.data_ptr()]
+        if self.int8:
+            for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+                build.require(t, name, dtype=torch.float32, ndim=2,
+                              device=dev)
+                if t.shape != (NB, KV):
+                    raise ValueError(f"{name} must be {(NB, KV)}")
+            pools = [k_pool.data_ptr(), k_scales.data_ptr(),
+                     v_pool.data_ptr(), v_scales.data_ptr()]
         if alibi_slopes is not None:
             build.require(alibi_slopes, "alibi_slopes", dtype=torch.float32,
                           ndim=1, device=dev)
-        G = H // KV
-        bq = max(1, min(W, ROWS_PER_BLOCK // G))
         out = torch.empty_like(q)
         err = self._launcher()(
-            build.dtype_code(q), q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), block_table.data_ptr(), q_offset.data_ptr(),
+            build.dtype_code(q), q.data_ptr(), *pools,
+            block_table.data_ptr(), q_offset.data_ptr(),
             total_len.data_ptr(), k_raw.data_ptr(), v_raw.data_ptr(),
             alibi_slopes.data_ptr() if alibi_slopes is not None else None,
-            out.data_ptr(), W, H, KV, D, BS, block_table.shape[1], bq,
-            int(sliding_window), int(alibi_slopes is not None),
-            build.stream_of(dev))
+            out.data_ptr(), W, H, KV, D, BS, block_table.shape[1],
+            _block_q(W, H // KV), int(sliding_window),
+            int(alibi_slopes is not None), build.stream_of(dev))
+        build.check_launch(self.name, err)
+        self.launches += 1
+        return out
+
+
+class FlashAttention:
+    """Callable wrapper of the static prefill kernel; ``launches`` counts
+    kernel launches."""
+
+    name = "flash_attention"
+
+    def __init__(self):
+        self.launches = 0
+        self._fn = None
+
+    def _launcher(self):
+        if self._fn is None:
+            fn = build.load("flash_attention").flash_attention_launch
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                           + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 alibi_slopes: Optional[torch.Tensor] = None, *,
+                 causal: bool = True, sliding_window: int = 0,
+                 q_offset: int = 0) -> torch.Tensor:
+        """q [B, Sq, H, D]; k/v [B, Sk, KV, D] in q's dtype; q_offset a
+        host int (query i sits at position q_offset + i).  Returns
+        [B, Sq, H, D]."""
+        dev = q.device
+        build.require(q, "q", ndim=4)
+        build.require(k, "k", dtype=q.dtype, ndim=4, device=dev)
+        build.require(v, "v", dtype=q.dtype, ndim=4, device=dev)
+        B, Sq, H, D = q.shape
+        Sk, KV = k.shape[1], k.shape[2]
+        if v.shape != k.shape or k.shape[0] != B or k.shape[3] != D \
+                or H % KV:
+            raise ValueError(f"k/v {tuple(k.shape)} do not fit q "
+                             f"{tuple(q.shape)}")
+        if D % 8:
+            raise ValueError(f"head_dim {D} must be a multiple of 8")
+        if k.data_ptr() % 16 or v.data_ptr() % 16:
+            raise ValueError("k/v must be 16-byte aligned")
+        if alibi_slopes is not None:
+            build.require(alibi_slopes, "alibi_slopes", dtype=torch.float32,
+                          ndim=1, device=dev)
+        out = torch.empty_like(q)
+        err = self._launcher()(
+            build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            alibi_slopes.data_ptr() if alibi_slopes is not None else None,
+            out.data_ptr(), B, Sq, Sk, H, KV, D, _block_q(Sq, H // KV),
+            int(q_offset), int(causal), int(sliding_window),
+            int(alibi_slopes is not None), build.stream_of(dev))
         build.check_launch(self.name, err)
         self.launches += 1
         return out
 
 
 flash_attention_chunk = FlashAttentionChunk()
+flash_attention_chunk_int8 = FlashAttentionChunk(int8=True)
+flash_attention = FlashAttention()

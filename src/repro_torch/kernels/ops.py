@@ -12,11 +12,16 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.flash_attention import flash_attention_chunk
+from repro_torch.kernels.flash_attention import flash_attention as _flash
+from repro_torch.kernels.flash_attention import (flash_attention_chunk,
+                                                 flash_attention_chunk_int8)
 from repro_torch.kernels.gptq_matmul import gptq_matmul
 from repro_torch.kernels.paged_attention import paged_attention as _paged
+from repro_torch.kernels.paged_attention_quant import (
+    paged_attention_quant as _paged_quant)
 
-KERNELS = (_paged, flash_attention_chunk, gptq_matmul)
+KERNELS = (_paged, _paged_quant, flash_attention_chunk,
+           flash_attention_chunk_int8, _flash, gptq_matmul)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -38,20 +43,54 @@ def paged_attention(q, k_pool, v_pool, block_table, seq_lens,
                                     sliding_window=sliding_window)
 
 
+def paged_attention_quant(q, k_values, k_scales, v_values, v_scales,
+                          block_table, seq_lens, alibi_slopes=None, *,
+                          sliding_window=0):
+    """Decode attention over one layer's int8 pool: values [NB, BS, KV,
+    D] int8, scales [NB, KV] f32, dequantized in the kernel."""
+    if _on_cuda(q):
+        return _paged_quant(q, k_values, k_scales, v_values, v_scales,
+                            block_table, seq_lens, alibi_slopes,
+                            sliding_window=sliding_window)
+    return _ref.paged_attention_quant_ref(
+        q, k_values, k_scales, v_values, v_scales, block_table, seq_lens,
+        alibi_slopes=alibi_slopes, sliding_window=sliding_window)
+
+
+def flash_attention(q, k, v, alibi_slopes=None, *, causal=True,
+                    sliding_window=0, q_offset: int = 0):
+    """Static prefill attention: q [B, Sq, H, D] at positions q_offset + i
+    over k/v [B, Sk, KV, D]."""
+    if _on_cuda(q):
+        return _flash(q, k, v, alibi_slopes, causal=causal,
+                      sliding_window=sliding_window, q_offset=q_offset)
+    return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                    sliding_window=sliding_window,
+                                    alibi_slopes=alibi_slopes,
+                                    q_offset=q_offset)
+
+
 def chunk_prefill_attention(q, k_pool, v_pool, k_scales, v_scales, layer,
                             block_table, q_offset, total_len, k_raw, v_raw,
                             alibi_slopes=None, *, sliding_window=0):
     """Serving chunk-prefill attention with a device-side ``q_offset``.
 
     q [1, W, H, D]; k_pool/v_pool [L, NB, BS, KV, D]; k_scales/v_scales
-    None (the int8 pool is not ported); layer: int; block_table [1, MB];
-    q_offset / total_len: 0-d int32 tensors; k_raw/v_raw [1, W, KV, D].
+    [L, NB, KV] f32 for int8 pools, else None; layer: int; block_table
+    [1, MB]; q_offset / total_len: 0-d int32 tensors; k_raw/v_raw
+    [1, W, KV, D].
     """
     if _on_cuda(q):
+        if k_scales is not None:
+            return flash_attention_chunk_int8(
+                q, k_pool[layer], v_pool[layer], block_table, q_offset,
+                total_len, k_raw, v_raw, alibi_slopes,
+                k_scales=k_scales[layer], v_scales=v_scales[layer],
+                sliding_window=sliding_window)
         return flash_attention_chunk(
             q, k_pool[layer], v_pool[layer], block_table, q_offset,
-            total_len, k_raw, v_raw, alibi_slopes, k_scales=k_scales,
-            v_scales=v_scales, sliding_window=sliding_window)
+            total_len, k_raw, v_raw, alibi_slopes,
+            sliding_window=sliding_window)
     return _ref.chunk_prefill_attention_ref(
         q, k_pool, v_pool, k_scales, v_scales, layer, block_table,
         q_offset, total_len, k_raw, v_raw, alibi_slopes=alibi_slopes,

@@ -12,7 +12,9 @@ from typing import Dict
 import torch
 
 from repro_torch.core.gqa import decode_attention, grouped_attention
-from repro_torch.core.paged_cache import gather_kv, gather_kv_bounded
+from repro_torch.core.kv_quant import (KVCache, gather_kv_quant,
+                                       kv_gather_bounded)
+from repro_torch.core.paged_cache import gather_kv
 from repro_torch.core.quant import quant_matmul_ref as _qmm
 from repro_torch.core.quant import unpack_int4
 
@@ -37,28 +39,45 @@ def paged_attention_ref(q, k_pool, v_pool, block_table, seq_lens, *,
                             sliding_window=sliding_window)
 
 
+def paged_attention_quant_ref(q, k_values, k_scales, v_values, v_scales,
+                              block_table, seq_lens, *, alibi_slopes=None,
+                              sliding_window=0):
+    """Decode attention over one layer's int8 pool: dequantize the
+    gathered pages (one f32 scale per block and KV head), then the
+    contiguous oracle.  q [B, H, D]; values [NB, BS, KV, D] int8; scales
+    [NB, KV] f32; block_table [B, MB]; seq_lens [B]."""
+    max_len = block_table.shape[1] * k_values.shape[1]
+    kc = gather_kv_quant(k_values[None], k_scales[None], 0, block_table,
+                         max_len)
+    vc = gather_kv_quant(v_values[None], v_scales[None], 0, block_table,
+                         max_len)
+    return decode_attention(q, kc, vc, seq_lens, alibi_slopes=alibi_slopes,
+                            sliding_window=sliding_window)
+
+
 def chunk_prefill_attention_ref(q, k_pool, v_pool, k_scales, v_scales,
                                 layer, block_table, q_offset, total_len,
                                 k_raw, v_raw, *, alibi_slopes=None,
                                 sliding_window=0):
     """Chunk-prefill attention: gather the pool's live pages
-    (``ceil(total_len / BS)``), overlay the chunk's own raw K/V at
-    ``[q_offset, q_offset + W)``, then the O(S^2) grouped reference with
-    ``q_offset`` driving the causal mask.  Reads the offsets on the host.
+    (``ceil(total_len / BS)``; int8 pools dequantized, then cast to
+    q.dtype), overlay the chunk's own raw K/V at ``[q_offset, q_offset +
+    W)``, then the O(S^2) grouped reference with ``q_offset`` driving the
+    causal mask.  Reads the offsets on the host.
 
-    q [1, W, H, D]; pools [L, NB, BS, KV, D]; block_table [1, MB];
-    k_raw/v_raw [1, W, KV, D].
+    q [1, W, H, D]; pools [L, NB, BS, KV, D] (int8 when k_scales/v_scales
+    [L, NB, KV] f32 are given); block_table [1, MB]; k_raw/v_raw
+    [1, W, KV, D].
     """
-    if k_scales is not None:
-        raise NotImplementedError("int8 pools are not ported yet (ROADMAP A8)")
     q_off, tlen = int(q_offset), int(total_len)
-    bs = k_pool.shape[2]
+    cache = KVCache(k_pool, v_pool, k_scales, v_scales)
+    bs = cache.block_size
     cap = block_table.shape[1] * bs
     W = q.shape[1]
     live = (tlen + bs - 1) // bs
     out = []
-    for pool, raw in ((k_pool, k_raw), (v_pool, v_raw)):
-        c = gather_kv_bounded(pool, layer, block_table, cap, live).to(q.dtype)
+    for c, raw in zip(kv_gather_bounded(cache, layer, block_table, cap, live,
+                                        q.dtype), (k_raw, v_raw)):
         c = torch.cat([c, torch.zeros((1, W) + tuple(c.shape[2:]),
                                       dtype=c.dtype, device=c.device)], 1)
         c[:, q_off:q_off + W] = raw.to(c.dtype)

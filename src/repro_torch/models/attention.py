@@ -1,5 +1,6 @@
 """Attention layer of the dense decoders on the Opt-GQA core: the q/k/v
-projections and the paged decode path over the block-table pool.
+projections, the whole-prompt prefill with its cache write, and the paged
+decode path over the block-table pool (bf16 or int8).
 
 This slice ports the full-attention branch; the sliding-window ring cache
 and the sharded (shard_map) islands of the JAX package wait for later
@@ -13,7 +14,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.alibi import alibi_slopes
-from repro_torch.core.kv_quant import KVCache, kv_write_decode
+from repro_torch.core.kv_quant import (KVCache, kv_write_decode,
+                                       kv_write_prefill)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, linear, rope
 
@@ -56,15 +58,35 @@ def _slopes(cfg: ModelConfig, device):
         else None
 
 
+def attn_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor, *, kind: str,
+                 cache: KVCache, layer: int, block_table: torch.Tensor,
+                 ctx_lens: torch.Tensor):
+    """Whole-prompt prefill: causal attention over the prompt, then its
+    K/V written into the paged pool (quantize-on-write for an int8
+    cache).  x [B, S, d] right-padded, positions 0 .. S - 1; only
+    positions < ctx_lens are written.  Returns (y [B, S, d], cache)."""
+    _require_full(kind)
+    S = x.shape[1]
+    q, k, v = _qkv(cfg, p, x, torch.arange(S, device=x.device))
+    o = ops.flash_attention(q, k, v, _slopes(cfg, x.device), causal=True)
+    cache = kv_write_prefill(cache, layer, k, v, block_table, ctx_lens)
+    y = linear(o.reshape(*o.shape[:2], -1), p["wo"])
+    return y, cache
+
+
+def _require_full(kind: str) -> None:
+    if kind != "full":
+        raise NotImplementedError(
+            f"{kind!r} attention layers are not ported yet (ROADMAP A11: "
+            "the sliding-window ring cache)")
+
+
 def attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, *, kind: str,
                 cache: KVCache, layer: int, block_table: torch.Tensor,
                 seq_lens: torch.Tensor):
     """One-token decode. x: [B, d]; pools [L, NB, BS, KV, D], written in
     place.  Returns (y [B, d], cache)."""
-    if kind != "full":
-        raise NotImplementedError(
-            f"{kind!r} attention layers are not ported yet (ROADMAP A11: "
-            "the sliding-window ring cache)")
+    _require_full(kind)
     positions = (seq_lens.long() - 1)[:, None]             # [B, 1]
     q, k, v = _qkv(cfg, p, x[:, None, :], positions)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]                    # [B, H/KV, D]
@@ -76,8 +98,15 @@ def attn_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, *, kind: str,
 
 def _decode_cache_attend(cfg, q, k, v, cache: KVCache, block_table,
                          seq_lens, layer):
-    """Cache write + paged attention (full-attention branch)."""
+    """Cache write + paged attention (full-attention branch); an int8
+    cache is read by the kernel that dequantizes in registers."""
     cache = kv_write_decode(cache, layer, k, v, block_table, seq_lens - 1)
-    o = ops.paged_attention(q, cache.k[layer], cache.v[layer], block_table,
-                            seq_lens, _slopes(cfg, q.device))
+    slopes = _slopes(cfg, q.device)
+    if cache.quantized:
+        o = ops.paged_attention_quant(q, cache.k[layer], cache.k_scale[layer],
+                                      cache.v[layer], cache.v_scale[layer],
+                                      block_table, seq_lens, slopes)
+    else:
+        o = ops.paged_attention(q, cache.k[layer], cache.v[layer],
+                                block_table, seq_lens, slopes)
     return o, cache

@@ -1,5 +1,5 @@
-"""Dense decoder assembly for serving: init / decode state / decode step /
-megastep / prefill chunk / unified step.
+"""Dense decoder assembly for serving: init / decode state / whole-prompt
+prefill / decode step / megastep / prefill chunk / unified step.
 
 The JAX package scans over layer-stacked params with ``lax.scan``; here a
 Python loop walks the layers.  ``params["layers"]`` keeps the JAX layout
@@ -18,12 +18,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kv_quant import (cache_from_state, cache_to_state,
-                                       kv_write_prefill,
+                                       kv_write_prefill, make_kv_pool_quant,
                                        normalize_kv_cache_dtype)
 from repro_torch.core.paged_cache import make_kv_pool
 from repro_torch.core.sampling import sample_from_logits
 from repro_torch.kernels import ops
-from repro_torch.models.attention import _qkv, _slopes, attn_decode, attn_init
+from repro_torch.models.attention import (_qkv, _slopes, attn_decode,
+                                         attn_init, attn_prefill)
 from repro_torch.models.layers import (apply_norm, embed_init, linear,
                                        mlp_apply, mlp_init, norm_init,
                                        unembed)
@@ -143,22 +144,66 @@ def make_decode_state(cfg: ModelConfig, max_seqs: int, num_blocks: int,
                       kv_cache_dtype: Optional[str] = None,
                       device="cuda") -> Dict[str, torch.Tensor]:
     """seq_lens [B] i32, block_table [B, MB] i32 and the (k, v) pools
-    [L, NB, BS, KV, D] of ``dtype`` (the activation dtype by default)."""
+    [L, NB, BS, KV, D]: of ``dtype`` (the activation dtype by default),
+    or with ``kv_cache_dtype="int8"`` int8 values plus the (k, v) scale
+    pools [L, NB, KV] f32."""
     _require_dense(cfg)
-    normalize_kv_cache_dtype(kv_cache_dtype)
+    kv_mode = normalize_kv_cache_dtype(kv_cache_dtype)
     dev = resolve_device(device)
-    dtype = dtype if dtype is not None else act_dtype(cfg)
-    kp, vp = make_kv_pool(cfg.num_layers, num_blocks, cfg.paging.block_size,
-                          cfg.num_kv_heads, cfg.resolved_head_dim, dtype, dev)
-    return {"seq_lens": torch.zeros(max_seqs, dtype=torch.int32, device=dev),
-            "k_pool": kp, "v_pool": vp,
-            "block_table": torch.zeros((max_seqs, max_blocks_per_seq),
-                                       dtype=torch.int32, device=dev)}
+    dims = (cfg.num_layers, num_blocks, cfg.paging.block_size,
+            cfg.num_kv_heads, cfg.resolved_head_dim)
+    st = {"seq_lens": torch.zeros(max_seqs, dtype=torch.int32, device=dev),
+          "block_table": torch.zeros((max_seqs, max_blocks_per_seq),
+                                     dtype=torch.int32, device=dev)}
+    if kv_mode == "int8":
+        kp, vp, ks, vs = make_kv_pool_quant(*dims, device=dev)
+        st.update(k_scales=ks, v_scales=vs)
+    else:
+        kp, vp = make_kv_pool(*dims, dtype if dtype is not None
+                              else act_dtype(cfg), dev)
+    st.update(k_pool=kp, v_pool=vp)
+    return st
 
 
 def _final_logits(cfg, params, x):
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return unembed(x, params["embed"], params.get("head")).float()
+
+
+def prefill(cfg: ModelConfig, params: Params, state: Dict[str, torch.Tensor],
+            batch: Dict[str, torch.Tensor], rt: Optional[dict] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Whole-prompt prefill of a wave: fills the pools, returns last-token
+    logits [B, V] f32.
+
+    batch: tokens [B, S] (right-padded), ctx_lens [B];
+    state["block_table"] holds the wave's rows and state["seq_lens"] is
+    set to ctx_lens.  Homogeneous full-attention stacks only; the
+    ``rt["prefill_chunk"]`` variant (chunks read back from the pool) is
+    not ported (ROADMAP A3)."""
+    _require_dense(cfg)
+    if (rt or {}).get("prefill_chunk"):
+        raise NotImplementedError(
+            "rt['prefill_chunk'] (chunked whole-prompt prefill) is not "
+            "ported to repro_torch yet (ROADMAP A3)")
+    tokens, ctx_lens = batch["tokens"], batch["ctx_lens"]
+    x = params["embed"][tokens.long()].to(act_dtype(cfg))        # [B, S, d]
+    state = dict(state)
+    state["seq_lens"] = ctx_lens
+    cache = cache_from_state(state)
+    for li in range(cfg.num_layers):
+        lp = _layer(params, li)
+        hn = apply_norm(lp["attn_norm"], x, cfg.norm, cfg.norm_eps)
+        mix, cache = attn_prefill(cfg, lp["attn"], hn,
+                                  kind=cfg.layer_kind(li), cache=cache,
+                                  layer=li, block_table=state["block_table"],
+                                  ctx_lens=ctx_lens)
+        x = x + mix
+        hn = apply_norm(lp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
+        x = x + mlp_apply(lp["mlp"], hn, cfg.act)
+    state.update(cache_to_state(cache))
+    idx = (ctx_lens.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
+    return _final_logits(cfg, params, x.gather(1, idx)[:, 0]), state
 
 
 def decode_step(cfg: ModelConfig, params: Params,

@@ -9,11 +9,15 @@ chunk and every row's sampling, further chunks of an admission burst each
 dispatch alone — and a pure-decode plan runs the fused decode megastep.
 Tokens are read back once per iteration.
 
+``enable_chunked_prefill=False`` keeps the JAX package's stop-the-world
+behaviour, its parity oracle: admitted prompts prefill whole, in waves
+padded to a ``prefill_bucket`` multiple (the static ``flash_attention``
+kernel), then every running sequence decodes through the megastep.
+Either mode serves the bf16 or the int8 KV pool (``kv_cache_dtype``).
+
 Not ported yet, and refused with ``NotImplementedError``: the async
 pipelined step (ROADMAP A6), the two-call and legacy per-token oracles,
-the whole-prompt prefill oracle (with the static ``flash_attention``
-kernel, ROADMAP B5), fault injection, load shedding and telemetry
-(ROADMAP A10).
+fault injection, load shedding and telemetry (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -27,7 +31,6 @@ from repro_torch import resolve_device
 from repro_torch.bridge import tree_to
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paged_cache import BlockAllocator
-from repro_torch.models import transformer as T
 from repro_torch.serving.model_runner import ModelRunner
 from repro_torch.serving.params import (FINISH_ABORT, FINISH_ERROR,
                                         FINISH_LENGTH, FINISH_STOP,
@@ -46,7 +49,8 @@ def _refuse(what: str, item: str) -> None:
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 8,
                  num_blocks: int = 512, max_blocks_per_seq: int = 64,
-                 rt: Optional[dict] = None, seed: int = 0,
+                 prefill_bucket: int = 64, rt: Optional[dict] = None,
+                 seed: int = 0,
                  use_fused: bool = True, max_horizon: int = 8,
                  detokenizer=None, kv_cache_dtype: str = "bf16",
                  max_num_batched_tokens: int = 256,
@@ -59,9 +63,6 @@ class ServingEngine:
             _refuse("the async pipelined step", "ROADMAP A6")
         if not (use_fused and enable_unified_step):
             _refuse("the two-call / legacy per-token oracles", "ROADMAP A5")
-        if not enable_chunked_prefill or not T.supports_chunked_prefill(cfg):
-            _refuse("whole-prompt prefill", "ROADMAP B5, the static "
-                    "flash_attention kernel")
         if fault_injector is not None:
             _refuse("fault injection", "ROADMAP A5")
         if max_waiting is not None:
@@ -73,6 +74,7 @@ class ServingEngine:
         self.cfg = cfg
         self.max_slots = max_slots
         self.mb = max_blocks_per_seq
+        self.prefill_bucket = prefill_bucket
         self.max_horizon = max(1, max_horizon)
         self.detokenizer = detokenizer
         self.seed = seed
@@ -90,14 +92,20 @@ class ServingEngine:
         self.scheduler = Scheduler(alloc, max_slots=max_slots,
                                    max_blocks_per_seq=max_blocks_per_seq,
                                    metrics=self.metrics)
+        # every config the port serves keeps its prefill state in the
+        # paged pool (transformer._require_dense), so any of them may chunk
+        self.chunked = bool(enable_chunked_prefill)
         self.max_num_batched_tokens = int(max_num_batched_tokens)
-        if self.max_num_batched_tokens <= max_slots:
+        if self.chunked and self.max_num_batched_tokens <= max_slots:
             raise ValueError(
                 f"max_num_batched_tokens={max_num_batched_tokens} must "
                 f"exceed max_slots={max_slots}: a step of all-decode slots "
                 "would otherwise leave prefill no budget (starvation)")
+        # the chunk's fixed token width: never longer than the budget, nor
+        # than a sequence's KV capacity
         chunk_tokens = min(self.max_num_batched_tokens,
-                           self.scheduler.cap_tokens)
+                           self.scheduler.cap_tokens) if self.chunked \
+            else None
         # a row with non-finite logits samples -1 and is quarantined
         rt = dict(rt or {}, sampling_guard=True)
         self.runner = ModelRunner(cfg, params, max_slots=max_slots,
@@ -221,6 +229,38 @@ class ServingEngine:
         return out.cpu().numpy()
 
     # ------------------------------------------------------------ dispatch
+    def _run_prefill_oracle(self, seqs: List[Sequence],
+                            outs: List[RequestOutput]) -> None:
+        """Stop-the-world wave prefill (``enable_chunked_prefill=False``):
+        the whole wave, padded to a ``prefill_bucket`` multiple, in one
+        dispatch, then its first tokens sampled in one call."""
+        b = self.prefill_bucket
+        maxlen = max(s.seq_len for s in seqs)
+        maxlen = min(((maxlen + b - 1) // b) * b, self.scheduler.cap_tokens)
+        logits = self.runner.prefill(seqs, maxlen)
+        # register-on-write: the wave's device write is issued, so its
+        # full prompt blocks become content-addressable
+        for s in seqs:
+            self.scheduler.register_written(s)
+        self.metrics["prompt_tokens"] += sum(s.seq_len for s in seqs)
+        nxt = self.runner.sample(logits, self._sampling_rows(
+            [s.req for s in seqs]))
+        self.metrics["host_syncs"] += 1
+        now = time.perf_counter()
+        for i, s in enumerate(seqs):
+            self._absorb(s, [int(nxt[i])], now, outs)
+        # leave the device tables consistent with the host bookkeeping
+        self.runner.sync_tables(self.scheduler.running)
+
+    def _prepare_dispatch(self, horizon: int) -> StepPlan:
+        """Whole-prompt mode's planning: horizon and block growth for all
+        running (= all decodable) sequences, as one decode-only plan."""
+        h = self.scheduler.plan_horizon(horizon)
+        cow = self.scheduler.grow_for_horizon(h) if h else []
+        return StepPlan(decode_slots=sorted(self.scheduler.decodable())
+                        if h else [], horizon=h, cow_pairs=cow,
+                        prefill=[], budget=0)
+
     def _run_prefill_chunks(self, chunks: List[PrefillChunk],
                             outs: List[RequestOutput]) -> None:
         """Chunks that ride no decode step: each runs alone, then the
@@ -334,6 +374,9 @@ class ServingEngine:
         try:
             for req in self.scheduler.finish_at_capacity():
                 self._emit(req, outs)
+            if not self.chunked:
+                self._step_whole_prompt(outs)
+                return outs
             plan = self.scheduler.plan_step(self.max_num_batched_tokens,
                                             max_horizon=self.max_horizon)
             self._dispatch(plan, outs)
@@ -346,6 +389,18 @@ class ServingEngine:
                 self.metrics["device_dispatches"] += used
                 self.metrics["work_steps"] += 1
         return outs
+
+    def _step_whole_prompt(self, outs: List[RequestOutput]) -> None:
+        """One iteration of the whole-prompt mode: admit and prefill a
+        wave, then a decode megastep for every running sequence."""
+        admitted = self.scheduler.try_admit()
+        if admitted:
+            self._run_prefill_oracle(admitted, outs)
+        for req in self.scheduler.finish_at_capacity():
+            self._emit(req, outs)          # a fresh exactly-cap prefill
+        if self.scheduler.running:
+            self._dispatch_decode(self._prepare_dispatch(self.max_horizon),
+                                  outs)
 
     def stream(self, max_steps: int = 100000) -> Iterator[RequestOutput]:
         steps = 0

@@ -5,6 +5,11 @@
     llm = LLM.load("qwen2-1.5b", quant="rtn-int4", seed=0)   # on the card
     outs = llm.generate(prompts, SamplingParams(max_tokens=32))
 
+    # int8 paged KV (half the pool bytes of bf16) and/or whole-prompt
+    # prefill waves instead of chunked prefill:
+    llm = LLM.load("qwen2-1.5b", quant="rtn-int4", kv_cache_dtype="int8",
+                   enable_chunked_prefill=False)
+
 Prompts are token-id lists (the repo has no tokenizer).  The repo has no
 published checkpoint, so ``load`` serves random weights made from
 ``seed``; ``LLM(cfg, params, ...)`` serves any params in the JAX layout
@@ -48,9 +53,13 @@ class LLM:
 
         quant: None | "rtn-int4" (round-to-nearest int4 of every matmul
         weight, done in torch on ``device``); "gptq-int4" is not ported
-        yet (ROADMAP A7).  reduced: the tiny same-family CPU config.
+        yet (ROADMAP A7).  kv_cache_dtype: "bf16" (the pool holds the
+        activation dtype) or "int8" (int8 values plus one f32 scale per
+        block and KV head).  reduced: the tiny same-family CPU config.
         engine_kw: forwarded to ``ServingEngine`` (max_slots, num_blocks,
-        max_blocks_per_seq, max_num_batched_tokens, max_horizon, ...).
+        max_blocks_per_seq, max_num_batched_tokens, max_horizon,
+        enable_chunked_prefill — False runs whole-prompt prefill waves —
+        prefill_bucket [whole-prompt mode only], ...).
         """
         if quant not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {quant!r}; "

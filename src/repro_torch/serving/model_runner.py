@@ -1,9 +1,10 @@
 """Device-side half of the serving engine: the decode state and the step
 functions.
 
-Owns the paged KV pools (updated in place), the unified step, the
-decode megastep, the standalone prefill chunk and sampling, and the
-copy-on-write block copies.  It knows nothing about queues or request
+Owns the paged KV pools (bf16, or int8 with their scales; updated in
+place), the unified step, the decode megastep, the standalone prefill
+chunk, the whole-prompt prefill wave and sampling, and the copy-on-write
+block copies.  It knows nothing about queues or request
 lifecycles — the ``Scheduler`` does.  ``dispatches`` counts the device
 calls issued (steps and CoW copies), which the engine diffs per step.
 """
@@ -29,7 +30,8 @@ class ModelRunner:
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int,
                  num_blocks: int, max_blocks_per_seq: int,
                  rt: Optional[dict] = None, max_horizon: int = 8,
-                 kv_cache_dtype: str = "bf16", chunk_tokens: int = 256):
+                 kv_cache_dtype: str = "bf16",
+                 chunk_tokens: Optional[int] = 256):
         self.cfg = cfg
         self.device = params["embed"].device
         # weights used only cast to the activation dtype are cast once;
@@ -77,6 +79,32 @@ class ModelRunner:
             sl[slot] = s.seq_len
         self.state["block_table"] = self._i32(bt)
         self.state["seq_lens"] = self._i32(sl)
+
+    # ------------------------------------------------------------ prefill
+    @torch.no_grad()
+    def prefill(self, seqs, maxlen: int) -> torch.Tensor:
+        """Prefill a wave of admitted sequences (prompts right-padded to
+        ``maxlen``) into the pools, in place; returns the last-token
+        logits [len(seqs), V] on the device."""
+        B = len(seqs)
+        toks = np.zeros((B, maxlen), np.int32)
+        lens = np.zeros((B,), np.int32)
+        bt = np.zeros((B, self.mb), np.int32)
+        for i, s in enumerate(seqs):
+            toks[i, :s.seq_len] = s.req.prompt
+            lens[i] = s.seq_len
+            bt[i, :len(s.block_ids)] = s.block_ids
+        # the wave's own block table and lengths; the pools are shared
+        sub = dict(self.state, block_table=self._i32(bt),
+                   seq_lens=self._i32(lens))
+        self.dispatches += 1
+        logits, sub = T.prefill(self.cfg, self.params, sub,
+                                {"tokens": self._i32(toks),
+                                 "ctx_lens": self._i32(lens)}, self.rt)
+        for k in _POOL_KEYS:
+            if k in sub:
+                self.state[k] = sub[k]
+        return logits
 
     # ------------------------------------------------------------ steps
     @torch.no_grad()

@@ -56,9 +56,18 @@ def test_unported_paths_refuse():
                  device="cpu")
     cfg = get_reduced("qwen2-1.5b", num_heads=12, num_kv_heads=2)
     params = T.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        ServingEngine(cfg, params, kv_cache_dtype="int8", device="cpu")
     for kw in ({"enable_async_step": True}, {"enable_unified_step": False},
-               {"enable_chunked_prefill": False}):
+               {"enable_unified_step": False, "kv_cache_dtype": "int8"}):
         with pytest.raises(NotImplementedError):
             ServingEngine(cfg, params, device="cpu", **kw)
+    # the chunked variant of whole-prompt prefill waits for A3
+    st = T.make_decode_state(cfg, 1, 4, 2, device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+             "ctx_lens": torch.full((1,), 4, dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="A3"):
+        T.prefill(cfg, params, st, batch, rt={"prefill_chunk": 2})
+    # int8 KV and whole-prompt prefill are served now, together too
+    eng = ServingEngine(cfg, params, device="cpu", kv_cache_dtype="int8",
+                        enable_chunked_prefill=False, num_blocks=8,
+                        max_blocks_per_seq=2)
+    assert eng.kv_cache_dtype == "int8" and not eng.chunked

@@ -5,7 +5,8 @@ against the JAX package: its Pallas kernels in interpret mode and its
 On the CPU the port's ops take their plain versions; the CUDA kernels
 themselves are held against those plain versions on the card by
 ``chip_smoke.py``.  Tolerances are those of ``tests/test_kernels.py``:
-5e-5 for f32, 2e-2 for bf16.
+5e-5 for f32, 2e-2 for bf16.  An int8 pool is compared at the f32
+tolerance: both sides dequantize the same codes and scales exactly.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,14 +15,17 @@ import torch
 
 from repro.core.alibi import alibi_slopes as j_alibi
 from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.flash_attention import flash_attention_chunk as j_chunk
 from repro.kernels.gptq_matmul import gptq_matmul as j_gptq
 from repro.kernels.paged_attention import paged_attention as j_paged
+from repro.kernels.paged_attention_quant import \
+    paged_attention_quant as j_paged_quant
 from repro_torch.core.alibi import alibi_slopes
 from repro_torch.core.quant import dequantize, pack_int4, unpack_int4
 from repro_torch.kernels import ops, ref
 
-TOL = {"float32": 5e-5, "bfloat16": 2e-2}
+TOL = {"float32": 5e-5, "bfloat16": 2e-2, "int8": 5e-5}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -47,49 +51,85 @@ def test_alibi_slopes_match():
                                       np.asarray(j_alibi(h)))
 
 
+def _int8_pool(rng, shape):
+    """Random int8 codes [..., NB, BS, KV, D] and f32 scales [..., NB, KV]
+    as (jax, torch) pairs."""
+    codes = rng.integers(-127, 128, shape).astype(np.int8)
+    scales = rng.uniform(0.005, 0.05, shape[:-3] + shape[-2:-1]) \
+        .astype(np.float32)
+    return ((jnp.asarray(codes), torch.from_numpy(codes)),
+            (jnp.asarray(scales), torch.from_numpy(scales)))
+
+
+def _paged_pools(rng, shape, dtype):
+    """One layer's K and V pools in ``dtype``, or int8 codes + scales:
+    returns {"j": jax args, "t": torch args} in the kernels' order."""
+    if dtype == "int8":
+        (kj, kt), (ksj, kst) = _int8_pool(rng, shape)
+        (vj, vt), (vsj, vst) = _int8_pool(rng, shape)
+        return {"j": (kj, ksj, vj, vsj), "t": (kt, kst, vt, vst)}
+    kj, kt = _pair(rng.normal(size=shape), dtype)
+    vj, vt = _pair(rng.normal(size=shape), dtype)
+    return {"j": (kj, vj), "t": (kt, vt)}
+
+
+def _paged_all(q, tq, pools, bt, sl, dtype, **kw):
+    """(port op, Pallas interpret, JAX ref) of the paged decode kernel of
+    the pool format, on the same inputs."""
+    sl_j = kw.pop("alibi_j", None)
+    sl_t = kw.pop("alibi_t", None)
+    tbt, tsl = torch.from_numpy(bt), torch.from_numpy(sl)
+    jbt, jsl = jnp.asarray(bt), jnp.asarray(sl)
+    if dtype == "int8":
+        out = ops.paged_attention_quant(tq, *pools["t"], tbt, tsl, sl_t, **kw)
+        pal = j_paged_quant(q, *pools["j"], jbt, jsl, sl_j, interpret=True,
+                            **kw)
+        orc = jref.paged_attention_quant_ref(q, *pools["j"], jbt, jsl,
+                                             alibi_slopes=sl_j, **kw)
+    else:
+        out = ops.paged_attention(tq, *pools["t"], tbt, tsl, sl_t, **kw)
+        pal = j_paged(q, *pools["j"], jbt, jsl, sl_j, interpret=True, **kw)
+        orc = jref.paged_attention_ref(q, *pools["j"], jbt, jsl,
+                                       alibi_slopes=sl_j, **kw)
+    return out, pal, orc
+
+
 # ------------------------------------------------------------ paged decode
 
 @pytest.mark.parametrize("H,KV", [(4, 4), (12, 2)])          # G = 1, 6
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_paged_attention_vs_pallas_and_ref(H, KV, dtype):
+    """bf16/f32 pools through ``paged_attention``; int8 pools (f32 q)
+    through ``paged_attention_quant``."""
     rng = np.random.default_rng(11 + H)
     B, D, BS, MB = 4, 32, 8, 5
     NB = B * MB + 3
-    q, tq = _pair(rng.normal(size=(B, H, D)), dtype)
-    kp, tkp = _pair(rng.normal(size=(NB, BS, KV, D)), dtype)
-    vp, tvp = _pair(rng.normal(size=(NB, BS, KV, D)), dtype)
+    q, tq = _pair(rng.normal(size=(B, H, D)),
+                  "float32" if dtype == "int8" else dtype)
+    pools = _paged_pools(rng, (NB, BS, KV, D), dtype)
     bt = rng.permutation(NB)[:B * MB].reshape(B, MB).astype(np.int32)
     # seq_len 0 (inactive) / partial page / page boundary / full table
     sl = np.array([0, 13, 2 * BS, MB * BS], np.int32)
-    out = ops.paged_attention(tq, tkp, tvp, torch.from_numpy(bt),
-                              torch.from_numpy(sl))
-    pal = j_paged(q, kp, vp, jnp.asarray(bt), jnp.asarray(sl),
-                  interpret=True)
-    orc = jref.paged_attention_ref(q, kp, vp, jnp.asarray(bt),
-                                   jnp.asarray(sl))
+    out, pal, orc = _paged_all(q, tq, pools, bt, sl, dtype)
     _close(out, orc, dtype)                 # every row, seq_len 0 included
     live = sl > 0                           # the kernels write zeros at 0
     _close(out, pal, dtype, rows=live)
     np.testing.assert_array_equal(np.asarray(pal, np.float32)[~live], 0)
 
 
-def test_paged_attention_alibi_and_window():
+@pytest.mark.parametrize("H,KV", [(12, 12), (12, 2)])        # G = 1, 6
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_paged_attention_alibi_and_window(H, KV, dtype):
     rng = np.random.default_rng(5)
-    B, H, KV, D, BS, MB = 2, 12, 2, 16, 8, 5
+    B, D, BS, MB = 2, 16, 8, 5
     NB = B * MB
     q, tq = _pair(rng.normal(size=(B, H, D)), "float32")
-    kp, tkp = _pair(rng.normal(size=(NB, BS, KV, D)), "float32")
-    vp, tvp = _pair(rng.normal(size=(NB, BS, KV, D)), "float32")
+    pools = _paged_pools(rng, (NB, BS, KV, D), dtype)
     bt = rng.permutation(NB).reshape(B, MB).astype(np.int32)
     sl = np.array([37, 12], np.int32)
-    out = ops.paged_attention(tq, tkp, tvp, torch.from_numpy(bt),
-                              torch.from_numpy(sl), alibi_slopes(H),
-                              sliding_window=16)
-    pal = j_paged(q, kp, vp, jnp.asarray(bt), jnp.asarray(sl), j_alibi(H),
-                  sliding_window=16, interpret=True)
-    orc = jref.paged_attention_ref(q, kp, vp, jnp.asarray(bt),
-                                   jnp.asarray(sl), alibi_slopes=j_alibi(H),
-                                   sliding_window=16)
+    out, pal, orc = _paged_all(q, tq, pools, bt, sl, dtype,
+                               alibi_j=j_alibi(H), alibi_t=alibi_slopes(H),
+                               sliding_window=16)
     _close(out, pal, "float32")
     _close(out, orc, "float32")
 
@@ -99,28 +139,37 @@ def test_paged_attention_alibi_and_window():
 @pytest.mark.parametrize("H,KV", [(2, 2), (12, 2)])          # G = 1, 6
 @pytest.mark.parametrize("q_off", [0, 16, 5])   # 0 / aligned / unaligned
 @pytest.mark.parametrize("alibi,win", [(False, 0), (True, 0), (False, 12)])
-def test_chunk_prefill_attention_vs_pallas_and_ref(H, KV, q_off, alibi, win):
+@pytest.mark.parametrize("pool", ["float32", "int8"])
+def test_chunk_prefill_attention_vs_pallas_and_ref(H, KV, q_off, alibi, win,
+                                                   pool):
     rng = np.random.default_rng(3 + q_off + H)
     L, NB, BS, D, MB, W = 2, 12, 8, 16, 6, 16
     total = q_off + int(rng.integers(1, W + 1))
     q, tq = _pair(rng.normal(size=(1, W, H, D)), "float32")
     kr, tkr = _pair(rng.normal(size=(1, W, KV, D)), "float32")
     vr, tvr = _pair(rng.normal(size=(1, W, KV, D)), "float32")
-    kp, tkp = _pair(rng.normal(size=(L, NB, BS, KV, D)), "float32")
-    vp, tvp = _pair(rng.normal(size=(L, NB, BS, KV, D)), "float32")
+    if pool == "int8":
+        (kp, tkp), (ks, tks) = _int8_pool(rng, (L, NB, BS, KV, D))
+        (vp, tvp), (vs, tvs) = _int8_pool(rng, (L, NB, BS, KV, D))
+    else:
+        kp, tkp = _pair(rng.normal(size=(L, NB, BS, KV, D)), "float32")
+        vp, tvp = _pair(rng.normal(size=(L, NB, BS, KV, D)), "float32")
+        ks = tks = vs = tvs = None
     bt = rng.permutation(NB)[:MB][None].astype(np.int32)
     layer = 1
     out = ops.chunk_prefill_attention(
-        tq, tkp, tvp, None, None, layer, torch.from_numpy(bt),
+        tq, tkp, tvp, tks, tvs, layer, torch.from_numpy(bt),
         torch.tensor(q_off, dtype=torch.int32),
         torch.tensor(total, dtype=torch.int32), tkr, tvr,
         alibi_slopes(H) if alibi else None, sliding_window=win)
     sl = j_alibi(H) if alibi else None
     pal = j_chunk(q, kp[layer], vp[layer], jnp.asarray(bt), jnp.int32(q_off),
-                  jnp.int32(total), kr, vr, sl, sliding_window=win,
-                  block_q=8, interpret=True)
+                  jnp.int32(total), kr, vr, sl,
+                  k_scales=None if ks is None else ks[layer],
+                  v_scales=None if vs is None else vs[layer],
+                  sliding_window=win, block_q=8, interpret=True)
     orc = jref.chunk_prefill_attention_ref(
-        q, kp, vp, None, None, layer, jnp.asarray(bt), jnp.int32(q_off),
+        q, kp, vp, ks, vs, layer, jnp.asarray(bt), jnp.int32(q_off),
         jnp.int32(total), kr, vr, alibi_slopes=sl, sliding_window=win)
     live = total - q_off              # padded query rows: garbage on both
     _close(out[:, :live], pal[:, :live], "float32")
@@ -144,6 +193,36 @@ def test_chunk_prefill_attention_bf16():
     pal = j_chunk(q, kp[0], vp[0], jnp.asarray(bt), jnp.int32(q_off),
                   jnp.int32(total), kr, vr, block_q=8, interpret=True)
     _close(out[:, :total - q_off], pal[:, :total - q_off], "bfloat16")
+
+
+# ------------------------------------------------------------ static prefill
+
+@pytest.mark.parametrize("H,KV", [(4, 4), (12, 2)])          # G = 1, 6
+@pytest.mark.parametrize("case", [
+    dict(Sq=16, Sk=16),                                 # causal
+    dict(Sq=8, Sk=20, q_offset=12),                     # q_offset > 0, Sq < Sk
+    dict(Sq=16, Sk=16, sliding_window=5),               # sliding band
+    dict(Sq=16, Sk=16, alibi=True),                     # ALiBi
+    dict(Sq=13, Sk=13, alibi=True, sliding_window=6),   # ragged Sk
+    dict(Sq=12, Sk=20, causal=False),                   # bidirectional
+], ids=["causal", "offset", "window", "alibi", "ragged", "noncausal"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_vs_pallas_and_ref(H, KV, case, dtype):
+    case = dict(case)
+    Sq, Sk = case.pop("Sq"), case.pop("Sk")
+    alibi = case.pop("alibi", False)
+    rng = np.random.default_rng(Sq + Sk + H)
+    B, D = 2, 16
+    q, tq = _pair(rng.normal(size=(B, Sq, H, D)), dtype)
+    k, tk = _pair(rng.normal(size=(B, Sk, KV, D)), dtype)
+    v, tv = _pair(rng.normal(size=(B, Sk, KV, D)), dtype)
+    out = ops.flash_attention(tq, tk, tv,
+                              alibi_slopes(H) if alibi else None, **case)
+    sl = j_alibi(H) if alibi else None
+    pal = j_flash(q, k, v, sl, block_q=8, block_k=8, interpret=True, **case)
+    orc = jref.flash_attention_ref(q, k, v, alibi_slopes=sl, **case)
+    _close(out, pal, dtype)
+    _close(out, orc, dtype)
 
 
 # ------------------------------------------------------------ int4 matmul
@@ -213,24 +292,42 @@ def test_int4_pack_unpack_and_grouped_dequant_match_jax():
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The wrappers launch on CUDA tensors or raise; they never fall back
     to the plain version (the CPU path lives in ``ops`` alone)."""
-    from repro_torch.kernels.flash_attention import flash_attention_chunk
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_chunk, flash_attention_chunk_int8)
     from repro_torch.kernels.gptq_matmul import gptq_matmul
     from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.paged_attention_quant import \
+        paged_attention_quant
     q = torch.zeros(2, 4, 16)
     pool = torch.zeros(3, 8, 2, 16)
+    pool8 = torch.zeros(3, 8, 2, 16, dtype=torch.int8)
+    scales = torch.ones(3, 2)
+    bt = torch.zeros(2, 3, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        paged_attention(q, pool, pool, torch.zeros(2, 3, dtype=torch.int32),
-                        torch.zeros(2, dtype=torch.int32))
+        paged_attention(q, pool, pool, bt, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention_quant(q, pool8, scales, pool8, scales, bt,
+                              torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         gptq_matmul(torch.zeros(2, 16), torch.zeros(2, 4, dtype=torch.int32),
                     torch.zeros(1, 4), torch.zeros(1, 4))
     zero = torch.tensor(0, dtype=torch.int32)
+    chunk = (torch.zeros(1, 8, 4, 16), torch.zeros(1, 3, dtype=torch.int32),
+             zero, zero, torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention_chunk(torch.zeros(1, 8, 4, 16), pool, pool,
-                              torch.zeros(1, 3, dtype=torch.int32), zero,
-                              zero, torch.zeros(1, 8, 2, 16),
-                              torch.zeros(1, 8, 2, 16))
-    assert paged_attention.launches == gptq_matmul.launches \
-        == flash_attention_chunk.launches == 0
+        flash_attention_chunk(chunk[0], pool, pool, *chunk[1:])
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_chunk_int8(chunk[0], pool8, pool8, *chunk[1:],
+                                   k_scales=scales, v_scales=scales)
+    with pytest.raises(ValueError, match="int8 pools"):
+        flash_attention_chunk_int8(chunk[0], pool8, pool8, *chunk[1:])
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 2, 16),
+                        torch.zeros(1, 8, 2, 16))
+    kernels = (paged_attention, paged_attention_quant, gptq_matmul,
+               flash_attention_chunk, flash_attention_chunk_int8,
+               flash_attention)
+    assert set(ops.KERNELS) == set(kernels)
+    assert [k.launches for k in kernels] == [0] * len(kernels)
     with pytest.raises(ValueError, match="device"):
         ops.paged_attention(q.to("meta"), pool, pool, None, None)

@@ -1,9 +1,10 @@
 """The port's model (``repro_torch.models``) against the JAX package on the
 CPU, on the same bridged params: RTN quantization bit-exact, and
-decode / prefill-chunk / unified-step logits, tokens and pools at f32
-(atol 1e-4 on logits: the sums run in another order).  Also the paged
-pool writes, the CoW copy and the sampler's greedy, guard and top-k/top-p
-filter paths.
+whole-prompt prefill / decode / prefill-chunk / unified-step logits,
+tokens and pools at f32 (atol 1e-4 on logits: the sums run in another
+order), over the bf16-mode pool and the int8 pool.  int8 is compared
+with int8 only, never with bf16.  Also the paged pool writes, the CoW
+copy and the sampler's greedy, guard and top-k/top-p filter paths.
 
 Model: reduced qwen2-1.5b with 12 query heads over 2 KV heads (G = 6),
 f32 activations, non-zero qkv biases set through numpy.
@@ -17,14 +18,15 @@ import torch
 from repro.configs.registry import get_reduced as j_get_reduced
 from repro.core import paged_cache as jpc
 from repro.core import sampling as jsamp
-from repro.core.kv_quant import KVCache as JKVCache
+from repro.core.kv_quant import cache_from_state as j_cache_from_state
+from repro.core.kv_quant import cache_to_state as j_cache_to_state
 from repro.models import transformer as JT
 from repro.models.quantize import quantize_params_rtn as j_rtn
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs.registry import get_reduced
 from repro_torch.core import paged_cache as pc
 from repro_torch.core import sampling as samp
-from repro_torch.core.kv_quant import KVCache
+from repro_torch.core.kv_quant import cache_from_state
 from repro_torch.models import transformer as T
 from repro_torch.models.quantize import quantize_params_rtn
 
@@ -80,8 +82,24 @@ def _close(t, j, tol, err=""):
 
 
 def _pools_close(tcache, jcache):
-    _close(tcache.k, jcache.k, POOL_TOL, "k_pool")
-    _close(tcache.v, jcache.v, POOL_TOL, "v_pool")
+    """Pools at POOL_TOL; an int8 pool dequantized, within one scale step
+    more (a K/V value that differs in its last bits between the two
+    sides may round to the neighbouring code) and with scales at rtol
+    1e-5."""
+    for name, t, j, ts, js in (("k", tcache.k, jcache.k, tcache.k_scale,
+                                jcache.k_scale),
+                               ("v", tcache.v, jcache.v, tcache.v_scale,
+                                jcache.v_scale)):
+        if ts is None:
+            _close(t, j, POOL_TOL, f"{name}_pool")
+            continue
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5,
+                                   err_msg=f"{name}_scales")
+        step = ts.numpy()[:, :, None, :, None]
+        diff = np.abs(t.float().numpy() * step
+                      - np.asarray(j, np.float32) * np.asarray(js)[
+                          :, :, None, :, None])
+        assert (diff <= step + POOL_TOL).all(), f"{name}_pool"
 
 
 def _sampling(n):
@@ -93,15 +111,19 @@ def _sampling(n):
 
 
 @pytest.mark.parametrize("quant", ["dense", "rtn-int4"])
-def test_chunks_decode_and_unified_step_match_jax(models, quant):
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_chunks_decode_and_unified_step_match_jax(models, quant, kv):
     jcfg, cfg, m = models
     jp, tp = m[quant]
     rng = np.random.default_rng(1)
     V = cfg.vocab_size
-    jst = JT.make_decode_state(jcfg, B, NB, MB, dtype=jnp.float32)
-    tst = T.make_decode_state(cfg, B, NB, MB, device="cpu")
-    jc = JKVCache(jst["k_pool"], jst["v_pool"])
-    tc = KVCache(tst["k_pool"], tst["v_pool"])
+    jst = JT.make_decode_state(jcfg, B, NB, MB, dtype=jnp.float32,
+                               kv_cache_dtype=kv)
+    tst = T.make_decode_state(cfg, B, NB, MB, kv_cache_dtype=kv,
+                              device="cpu")
+    assert tst.keys() == jst.keys()
+    jc = j_cache_from_state(jst)
+    tc = cache_from_state(tst)
     prompts = {0: rng.integers(1, V, 40), 2: rng.integers(1, V, 20),
                1: rng.integers(1, V, 12)}
     blocks = {0: [5, 9, 2], 2: [7, 11], 1: [3]}
@@ -134,14 +156,13 @@ def test_chunks_decode_and_unified_step_match_jax(models, quant):
         bt[slot, :len(blocks[slot]) + 1] = blocks[slot] + [20 + slot]
     sl = np.array([41, 0, 21], np.int32)
     toks = np.array([last[0], 0, last[2]], np.int32)
-    jst = dict(jst, k_pool=jc.k, v_pool=jc.v, block_table=jnp.asarray(bt),
+    jst = dict(jst, **j_cache_to_state(jc), block_table=jnp.asarray(bt),
                seq_lens=jnp.asarray(sl))
     tst.update(block_table=torch.from_numpy(bt), seq_lens=torch.from_numpy(sl))
     jlog, jst = JT.decode_step(jcfg, jp, jst, jnp.asarray(toks))
     tlog, tst = T.decode_step(cfg, tp, tst, torch.from_numpy(toks))
     _close(tlog, jlog, LOGIT_TOL, "decode")
-    _pools_close(KVCache(tst["k_pool"], tst["v_pool"]),
-                 JKVCache(jst["k_pool"], jst["v_pool"]))
+    _pools_close(cache_from_state(tst), j_cache_from_state(jst))
 
     # unified step: decode slots 0 and 2 + the first chunk of slot 1
     nxt = np.asarray(jlog).argmax(-1).astype(np.int32)
@@ -167,8 +188,44 @@ def test_chunks_decode_and_unified_step_match_jax(models, quant):
     np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
     np.testing.assert_array_equal(tst["seq_lens"].numpy(),
                                   np.asarray(jst["seq_lens"]))
-    _pools_close(KVCache(tst["k_pool"], tst["v_pool"]),
-                 JKVCache(jst["k_pool"], jst["v_pool"]))
+    _pools_close(cache_from_state(tst), j_cache_from_state(jst))
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_prefill_wave_matches_jax(models, kv):
+    """A whole-prompt wave of three right-padded prompts (``T.prefill``):
+    last-token logits, seq_lens and the pools the wave wrote; then a
+    decode step reads those pools back."""
+    jcfg, cfg, m = models
+    jp, tp = m["rtn-int4"]
+    rng = np.random.default_rng(4)
+    S = 24                                       # a prefill_bucket multiple
+    lens = np.array([24, 17, 5], np.int32)
+    toks = np.zeros((B, S), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(1, cfg.vocab_size, n)
+    bt = rng.permutation(NB)[:B * MB].reshape(B, MB).astype(np.int32)
+    jst = JT.make_decode_state(jcfg, B, NB, MB, dtype=jnp.float32,
+                               kv_cache_dtype=kv)
+    tst = T.make_decode_state(cfg, B, NB, MB, kv_cache_dtype=kv,
+                              device="cpu")
+    jst["block_table"] = jnp.asarray(bt)
+    tst["block_table"] = torch.from_numpy(bt)
+    jlog, jst = JT.prefill(jcfg, jp, jst, {"tokens": jnp.asarray(toks),
+                                           "ctx_lens": jnp.asarray(lens)})
+    tlog, tst = T.prefill(cfg, tp, tst, {"tokens": torch.from_numpy(toks),
+                                         "ctx_lens": torch.from_numpy(lens)})
+    _close(tlog, jlog, LOGIT_TOL, "prefill")
+    np.testing.assert_array_equal(tst["seq_lens"].numpy(), lens)
+    _pools_close(cache_from_state(tst), j_cache_from_state(jst))
+    nxt = np.asarray(jlog).argmax(-1).astype(np.int32)
+    sl = lens + 1
+    jst["seq_lens"] = jnp.asarray(sl)
+    tst["seq_lens"] = torch.from_numpy(sl)
+    jlog, jst = JT.decode_step(jcfg, jp, jst, jnp.asarray(nxt))
+    tlog, tst = T.decode_step(cfg, tp, tst, torch.from_numpy(nxt))
+    _close(tlog, jlog, LOGIT_TOL, "decode after prefill")
+    _pools_close(cache_from_state(tst), j_cache_from_state(jst))
 
 
 def test_decode_megastep_greedy_tokens_match_jax(models):

@@ -1,8 +1,9 @@
 """The port's serving stack against the JAX package on the CPU: identical
 scheduler plans over a seeded arrival trace, greedy ``LLM`` drains
 token-exact against the JAX engine (``enable_async_step=False``) on the
-same bridged params, copy-on-write on the device pools, and a clean
-allocator audit after every drain."""
+same bridged params — chunked or whole-prompt prefill, bf16 or int8 KV
+pool (int8 compared with int8 only) — copy-on-write on the device pools,
+and a clean allocator audit after every drain."""
 import jax
 import numpy as np
 import pytest
@@ -105,23 +106,42 @@ def _prompts():
     return ps
 
 
-@pytest.mark.parametrize("quant", [None, "rtn-int4"])
-def test_llm_greedy_drain_token_exact_vs_jax(small, quant):
+def _drain_both(params, jcfg, cfg, prompts, max_tokens, **kw):
+    """The same greedy requests through the JAX engine and the port's;
+    returns (port LLM, JAX LLM, port outputs, JAX outputs)."""
+    jllm = JLLM(jcfg, params, enable_async_step=False, **kw)
+    want = jllm.generate(prompts, [JSP(max_tokens=m) for m in max_tokens])
+    llm = LLM(cfg, params_from_numpy(jax.tree.map(np.asarray, params)),
+              device="cpu", **kw)
+    got = llm.generate(prompts, [SamplingParams(max_tokens=m)
+                                 for m in max_tokens])
+    return llm, jllm, got, want
+
+
+@pytest.mark.parametrize("quant,kv,chunked", [
+    (None, "bf16", True), ("rtn-int4", "bf16", True),
+    ("rtn-int4", "int8", True), ("rtn-int4", "bf16", False),
+    ("rtn-int4", "int8", False)],
+    ids=["None", "rtn-int4", "rtn-int4-int8", "rtn-int4-whole",
+         "rtn-int4-int8-whole"])
+def test_llm_greedy_drain_token_exact_vs_jax(small, quant, kv, chunked):
+    """Chunked mode runs multi-chunk prompts through unified dispatches;
+    whole-prompt mode (``enable_chunked_prefill=False``) runs waves
+    padded to ``prefill_bucket`` through ``T.prefill``, then megasteps."""
     jcfg, cfg, params = small
     if quant == "rtn-int4":
         params = j_rtn(params, jcfg, group_size=32)
     prompts = _prompts()
-    sps = [SamplingParams(max_tokens=m) for m in (10, 6, 12, 4, 8)]
-    jllm = JLLM(jcfg, params, enable_async_step=False, **ENGINE_KW)
-    want = jllm.generate(prompts, [JSP(max_tokens=s.max_tokens)
-                                   for s in sps])
-    llm = LLM(cfg, params_from_numpy(jax.tree.map(np.asarray, params)),
-              device="cpu", **ENGINE_KW)
-    got = llm.generate(prompts, sps)
+    llm, jllm, got, want = _drain_both(
+        params, jcfg, cfg, prompts, (10, 6, 12, 4, 8), kv_cache_dtype=kv,
+        enable_chunked_prefill=chunked, prefill_bucket=16, **ENGINE_KW)
     assert [o.token_ids for o in got] == [o.token_ids for o in want]
     assert [o.finish_reason for o in got] == [o.finish_reason for o in want]
     eng = llm.engine
-    assert eng.metrics["prefill_chunks"] > len(prompts)      # multi-chunk
+    if chunked:
+        assert eng.metrics["prefill_chunks"] > len(prompts)  # multi-chunk
+    else:
+        assert eng.metrics["prefill_chunks"] == 0
     assert eng.alloc.stats == jllm.engine.alloc.stats
     assert eng.alloc.stats["reused"] > 0                     # prefix reuse
     assert eng.alloc.audit() == {"live_blocks": 0, "free_blocks": 48,
@@ -130,6 +150,28 @@ def test_llm_greedy_drain_token_exact_vs_jax(small, quant):
     assert rep["device_dispatches"] == jllm.engine.metrics[
         "device_dispatches"]
     assert rep["decode_steps"] == jllm.engine.metrics["decode_steps"]
+    assert rep["kv_pool_bytes"] == jllm.engine.runner.kv_pool_bytes()
+
+
+@pytest.mark.parametrize("chunked", [True, False], ids=["chunked", "whole"])
+def test_llm_int8_block_starved_drain_with_preemptions(small, chunked):
+    """A 9-block int8 pool: decode growth preempts sequences, which are
+    recomputed into fresh blocks (new scales); tokens, preemptions and
+    allocator stats still match the JAX engine's."""
+    jcfg, cfg, params = small
+    params = j_rtn(params, jcfg, group_size=32)
+    rng = np.random.default_rng(51)
+    prompts = [list(rng.integers(1, 200, n)) for n in (28, 28, 40)]
+    llm, jllm, got, want = _drain_both(
+        params, jcfg, cfg, prompts, (24, 24, 24), kv_cache_dtype="int8",
+        enable_chunked_prefill=chunked, prefill_bucket=16, max_slots=3,
+        num_blocks=9, max_blocks_per_seq=8, max_num_batched_tokens=8)
+    assert [o.token_ids for o in got] == [o.token_ids for o in want]
+    assert llm.engine.metrics["preemptions"] > 0
+    assert llm.engine.metrics["preemptions"] == \
+        jllm.engine.metrics["preemptions"]
+    assert llm.engine.alloc.stats == jllm.engine.alloc.stats
+    assert llm.engine.alloc.audit()["live_blocks"] == 0
 
 
 def test_copy_on_write_forked_tail(small):
