@@ -1,0 +1,81 @@
+#!/usr/bin/env python3
+"""Compare another checkout's port with this one's, in turns, on one card.
+
+    git archive <commit> | tar -x -C build/other    # any ignored directory
+    python3 chip_pair.py build/other
+
+Each side runs in a process of its own, in the order other, this, this,
+other: the static attention and int4 matmul checks of ``chip_smoke.py``
+(every case and shape, with their library yardsticks) and its bf16-chunked
+and bf16-whole-prompt serves, each profiled.  Both sides are built from
+their own sources but measured by THIS checkout's ``chip_smoke`` functions,
+so a difference is the code's, not the method's.  Prints one line per side
+and serve; each side's details go to
+``chiprun_out/chip_pair_<turn>_<side>.json``.  Needs one card.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def side(src: str) -> dict:
+    """This process's measurements of the port under ``src``."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs                   # puts ROOT/src on the path
+    sys.path.insert(0, src)                   # the side's package wins
+    import torch
+    from repro_torch.kernels import build, ops
+    build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {"src": src, "card": torch.cuda.get_device_name(0)}
+    for check in (cs.check_flash_attention, cs.check_gptq_matmul):
+        r = check(gen)
+        out[r["name"]] = r.get("per_case") or r["per_shape"]
+    for label, options, must, never in (cs.SERVES[0], cs.SERVES[2]):
+        sv = cs.phase_serve("cuda", kernels=ops.KERNELS, label=label,
+                            options=options, must=must, never=never,
+                            profile=True)
+        sv.pop("tokens")
+        out[label] = sv
+    return out
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--side"]:
+        Path(sys.argv[3]).write_text(json.dumps(side(sys.argv[2])))
+        return 0
+    import torch
+    if len(sys.argv) != 2 or not torch.cuda.is_available():
+        print(__doc__, file=sys.stderr)
+        return 2
+    sides = {"other": str(Path(sys.argv[1]).resolve() / "src"),
+             "this": str(ROOT / "src")}
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    runs = []
+    for i, tag in enumerate(("other", "this", "this", "other")):
+        res = out / f"chip_pair_{i}_{tag}.json"
+        subprocess.run([sys.executable, __file__, "--side", sides[tag],
+                        str(res)], check=True, timeout=900)
+        runs.append((tag, json.loads(res.read_text())))
+    for tag, r in runs:
+        for label in ("bf16-chunked", "bf16-whole-prompt"):
+            sv, p = r[label], r[label]["profile"]
+            print(f"[pair] {tag} {label}: wall_s={sv['wall_s']:.3f} "
+                  f"gen_tok_s={sv['gen_tok_s']:.1f} "
+                  f"step_ms={sv['mean_step_ms']:.1f} "
+                  f"device_busy_ms={p['device_busy_ms']:.1f} "
+                  f"idle_share={p['device_idle_share']:.3f} "
+                  f"ours_ms={json.dumps(p['ours_ms'])} "
+                  f"launches={json.dumps(sv['launches'])}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,13 +6,19 @@
 Phases, each of which fails loudly (any failure exits non-zero):
 
 1. build   — compile the hand-written kernels (``csrc/*.cu``, nvcc for
-             sm_90a, one process per source) and print the build time;
+             sm_90a, one process per source), print the build time, and
+             count the tensor-core instructions (HMMA / HGMMA) that
+             ``cuobjdump --dump-sass`` shows in the bf16 static attention
+             and int4 matmul kernels (none is a failure);
 2. kernels — run each kernel at the serving shapes of full-width
              qwen2-1.5b in bf16 (int8 pools where the kernel reads them)
              against its plain torch version on the card, print its time
              beside the plain version's, the library call's where one
              computes the same function, and its bound (bytes over
-             3.35 TB/s or flops over 989 TFLOP/s);
+             3.35 TB/s or flops over 989 TFLOP/s); the static attention
+             also at a ragged 333 tokens and head dim 64, ``gptq_matmul``
+             at every M of GPTQ_MS for each linear, called twice (the two
+             outputs must be bitwise equal);
 3. model   — full-width qwen2-1.5b cut to 2 layers, int4 weights, bf16
              and int8 pools: the same params and inputs through the decode
              step, the prefill chunk, the unified step and the
@@ -29,9 +35,10 @@ Phases, each of which fails loudly (any failure exits non-zero):
              counters are zeroed just before each serve and read just
              after: every request finishes, every token is in vocabulary,
              each serve launched exactly its own kernels, the allocator
-             audit is clean.  The bf16 and int8 chunked serves are re-run
-             under ``torch.profiler``; the int8 serve may not copy from the
-             device to the host more often per step than the bf16 one.
+             audit is clean.  Each serve is re-run under
+             ``torch.profiler`` (device busy time and idle share); the
+             int8 chunked serve may not copy from the device to the host
+             more often per step than the bf16 one.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -53,6 +60,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 TOL = 2e-2                       # bf16 kernel tolerance (tests/test_kernels.py)
 LOGIT_TOL = 0.1                  # bf16 end-to-end logits, card vs CPU
+SPIN_CYCLES = 2_000_000          # ~1 ms of device clock before each timing
 
 H, KV, D, BS, NB, MB, B, W = 12, 2, 128, 16, 512, 64, 8, 256
 LINEARS = {"wq/wo": (1536, 1536), "wk/wv": (1536, 256),
@@ -75,7 +83,10 @@ def time_ms(fn, iters: int = 10) -> float:
     events and each preceded (outside the timed region) by a write of
     256 MB, so every run finds the 50 MB L2 cold as the serving path does
     (a layer's weights and pages are not re-read before 27 other
-    layers')."""
+    layers'), then by a ~1 ms spin on the device, so the host has queued
+    all of ``fn``'s launches before the device reaches the start event:
+    the time is the kernels', without the host's launch overhead, which
+    is larger than a 10-50 us kernel and varies with the host's load."""
     import torch
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     fn()
@@ -83,6 +94,7 @@ def time_ms(fn, iters: int = 10) -> float:
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -91,6 +103,36 @@ def time_ms(fn, iters: int = 10) -> float:
         e.synchronize()
         total += s.elapsed_time(e)
     return total / iters
+
+
+# The bf16 kernels that must run on the tensor cores: library -> function.
+TENSOR_CORE_KERNELS = {"flash_attention": "flash_attention_mma_kernel",
+                       "gptq_matmul": "gptq_mma_kernel"}
+
+
+def tensor_core_sass(build) -> dict:
+    """Count the tensor-core instructions (HMMA, HGMMA) that ``cuobjdump
+    --dump-sass`` shows in every instantiation of each kernel of
+    TENSOR_CORE_KERNELS in the built libraries; fails if one has none."""
+    cuobjdump = str(Path(build.nvcc()).with_name("cuobjdump"))
+    counts = {}
+    for lib, fn in TENSOR_CORE_KERNELS.items():
+        path = build.BUILD_ROOT / build.sources_hash() / f"lib{lib}.so"
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(path)],
+                              capture_output=True, text=True, timeout=300)
+        if sass.returncode != 0:
+            raise RuntimeError(f"cuobjdump failed on {path}: {sass.stderr}")
+        name = None
+        for line in sass.stdout.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :", 1)[1].strip()
+                if fn in name:
+                    counts[name] = 0
+            elif name in counts and ("HMMA" in line or "HGMMA" in line):
+                counts[name] += 1
+        if not any(fn in n and c > 0 for n, c in counts.items()):
+            raise AssertionError(f"{fn}: no HMMA/HGMMA in {path}")
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -258,34 +300,56 @@ def check_flash_attention_chunk_int8(gen):
 WAVE_B, WAVE_S = 8, 960     # the whole-prompt serve's wave: 8 x 900 -> 960
 
 
+def _sdpa_ms(q, k, v, bias):
+    """One SDPA call (grouped K/V) on the same inputs, the library
+    yardstick: ``is_causal`` for a plain causal square, else the additive
+    mask ``bias``.  None (with the reason printed) where this torch refuses
+    the call."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = {"is_causal": True} if bias is None else {"attn_mask": bias}
+    try:
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **kw))
+    except (TypeError, RuntimeError) as e:
+        log(f"[kernel] flash_attention: SDPA yardstick refused: {e}")
+        return None
+
+
 def check_flash_attention(gen):
     """The static prefill kernel at the whole-prompt serve's wave shape
-    (causal, timed), then at q_offset > 0 with Sq < Sk, a sliding band and
-    ALiBi.  The library yardstick is one SDPA call (causal, grouped K/V)
-    on the wave's inputs."""
+    (causal), then at q_offset > 0 with Sq < Sk, a sliding band, ALiBi, a
+    ragged Sq = Sk = 333 (causal and not) and head dim 64 (qwen1.5-0.5b's
+    16 heads over 16 KV heads, G = 1).  Every case is timed beside one SDPA
+    call on its inputs (the library yardstick; a mask where the case is not
+    a plain causal square) and its bound (the live (q, k) pairs)."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.core.alibi import alibi_slopes
+    from repro_torch.core.gqa import NEG_INF
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     dev = "cuda"
 
-    def qkv(b, sq, sk):
-        return (torch.randn((b, sq, H, D), generator=gen,
-                            device=dev).bfloat16(),
-                torch.randn((b, sk, KV, D), generator=gen,
-                            device=dev).bfloat16(),
-                torch.randn((b, sk, KV, D), generator=gen,
-                            device=dev).bfloat16())
+    def qkv(b, sq, sk, h=H, kv=KV, d=D):
+        return tuple(torch.randn(shape, generator=gen, device=dev).bfloat16()
+                     for shape in ((b, sq, h, d), (b, sk, kv, d),
+                                   (b, sk, kv, d)))
 
-    slopes = alibi_slopes(H, dev)
     cases = [("causal wave", qkv(WAVE_B, WAVE_S, WAVE_S), {}),
              ("q_offset 128, Sq 256 < Sk 384", qkv(2, 256, 384),
               {"q_offset": 128}),
              ("sliding window 128", qkv(2, 512, 512),
               {"sliding_window": 128}),
-             ("ALiBi", qkv(2, 512, 512), {"alibi_slopes": slopes})]
-    worst = 0.0
+             ("ALiBi", qkv(2, 512, 512),
+              {"alibi_slopes": alibi_slopes(H, dev)}),
+             ("ragged Sq = Sk = 333", qkv(2, 333, 333), {}),
+             ("ragged 333, not causal, ALiBi", qkv(2, 333, 333),
+              {"causal": False, "alibi_slopes": alibi_slopes(H, dev)}),
+             ("head dim 64, 16 heads / 16 KV, causal",
+              qkv(2, 512, 512, 16, 16, 64), {}),
+             ("q_offset 64, window 100, Sq 200 < Sk 333", qkv(2, 200, 333),
+              {"q_offset": 64, "sliding_window": 100})]
+    worst, rows = 0.0, []
     for label, (q, k, v), kw in cases:
         out = flash_attention(q, k, v, **kw)
         want = ref.flash_attention_ref(q, k, v, **kw)
@@ -295,45 +359,122 @@ def check_flash_attention(gen):
             raise AssertionError(f"flash_attention {label}: max err {err} "
                                  f"(tol {TOL})")
         worst = max(worst, err)
+        b, sq, h, d = q.shape
+        sk, kvh = k.shape[1], k.shape[2]
+        q_pos = kw.get("q_offset", 0) + torch.arange(sq, device=dev)
+        dist = q_pos[:, None] - torch.arange(sk, device=dev)[None]
+        live = torch.ones_like(dist, dtype=torch.bool)
+        if kw.get("causal", True):
+            live &= dist >= 0
+        if kw.get("sliding_window", 0):
+            live &= dist < kw["sliding_window"]
+        pairs = b * int(live.sum())
+        nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * kvh * d)
+        bias = None
+        if kw:
+            bias = torch.where(live, 0.0, NEG_INF)[None, None].expand(
+                1, h, sq, sk)
+            if "alibi_slopes" in kw:
+                bias = bias - kw["alibi_slopes"][:, None, None] \
+                    * dist.abs()[None].float()
+            bias = bias.bfloat16()
+        row = {"case": label, "q": list(q.shape), "kv": list(k.shape),
+               "max_abs_err": err,
+               "ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
+               "library_ms": _sdpa_ms(q, k, v, bias),
+               "bound": bound_ms(nbytes, 4 * h * d * pairs)}
+        rows.append(row)
+        lib = row["library_ms"]
+        log(f"flash_attention {label}: q{row['q']} kv{row['kv']} "
+            f"kernel_ms={row['ms']:.4f} sdpa_ms="
+            + ("null" if lib is None else f"{lib:.4f}")
+            + f" bound_ms={row['bound'][0]:.5f} ({row['bound'][1]}) "
+            f"max_abs_err={err:.3e}")
     q, k, v = cases[0][1]
-    pairs = WAVE_B * WAVE_S * (WAVE_S + 1) // 2       # causal (q, k) pairs
-    nbytes = 2 * (2 * WAVE_B * WAVE_S * H * D + 2 * WAVE_B * WAVE_S * KV * D)
-    flops = 4 * H * D * pairs
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    try:
-        library = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-    except TypeError:                   # a torch without enable_gqa
-        library = None
+    main = rows[0]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:386",
-            "max_abs_err": worst,
-            "ms": time_ms(lambda: flash_attention(q, k, v)),
+            "max_abs_err": worst, "ms": main["ms"],
             "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v),
                                 iters=2),
-            "bound": bound_ms(nbytes, flops), "library_ms": library,
+            "bound": main["bound"], "library_ms": main["library_ms"],
             "shape": f"q[{WAVE_B},{WAVE_S},{H},{D}] k/v[{WAVE_B},{WAVE_S},"
                      f"{KV},{D}] causal; checked also at "
-                     + "; ".join(c[0] for c in cases[1:])}
+                     + "; ".join(c[0] for c in cases[1:]),
+            "per_case": rows}
+
+
+GPTQ_MS = (1, 8, 16, 64, 200, 256, 7680)   # decode, chunks, ragged, wave
+# (name, K, N, group size, Ms) of every product checked: the four linears,
+# then one whose last k tile, N edge (odd, not a multiple of 4) and group
+# size (not a power of two) are all ragged
+GPTQ_SHAPES = [(lname, K, N, GS, GPTQ_MS) for lname, (K, N) in
+               LINEARS.items()] + [("ragged", 1056, 1001, 96, (8, 200))]
+
+
+def _int4pack(qw, sc, zr):
+    """The library yardstick's operands, made once outside any timing:
+    codes -> uint8 [N, K/2] (even k in the high nibble, as torch's own
+    tests pack it) -> ``torch._convert_weight_to_int4pack``, and
+    [K/gs, N, 2] bf16 (scale, (8 - zero) * scale), since tinygemm computes
+    (q - 8) * s + z' and (q - z) * s = (q - 8) * s + (8 - z) * s."""
+    import torch
+    from repro_torch.core.quant import unpack_int4
+    ct = unpack_int4(qw, qw.shape[0] * 8).t().contiguous()     # [N, K]
+    u8 = (ct[:, 0::2] << 4 | ct[:, 1::2]).to(torch.uint8).contiguous()
+    sz = torch.stack([sc, (8 - zr) * sc], -1).bfloat16().contiguous()
+    return torch._convert_weight_to_int4pack(u8, 8), sz
+
+
+def _library_check(row, call, want, lim) -> str:
+    """Time the library ``call`` into ``row`` if it runs and agrees with
+    the plain version ``want`` within ``lim``; say why not otherwise."""
+    import torch
+    try:
+        got = call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return f"_weight_int4pack_mm refused: {e}"
+    diff = (got.float() - want.float()).abs()
+    if not bool((diff <= lim).all()):
+        return f"disagrees with the plain version: {diff.max().item():.3e}"
+    row["library_ms"] = time_ms(call)
+    return f"max err {diff.max().item():.3e}"
 
 
 def check_gptq_matmul(gen):
+    """Each product of GPTQ_SHAPES against the plain version; two calls
+    must give bitwise-equal outputs (split-K sums in a fixed order).  Each shape is timed beside the plain version, the
+    library call (``torch._weight_int4pack_mm`` on weights repacked once,
+    checked against the plain version first) and a dense bf16 matmul on
+    the dequantized weight (another function: what int4 is meant to
+    beat)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.gptq_matmul import gptq_matmul
     dev = "cuda"
     rows, worst, main = [], 0.0, None
-    for lname, (K, N) in LINEARS.items():
+    lib_fn = getattr(torch, "_weight_int4pack_mm", None)
+    for lname, K, N, gs, ms in GPTQ_SHAPES:
         qw = torch.randint(-2 ** 31, 2 ** 31 - 1, (K // 8, N), generator=gen,
                            device=dev, dtype=torch.int64).int()
-        sc = (torch.rand((K // GS, N), generator=gen, device=dev) * 0.01)
-        zr = torch.randint(0, 16, (K // GS, N), generator=gen,
+        sc = (torch.rand((K // gs, N), generator=gen, device=dev) * 0.01)
+        zr = torch.randint(0, 16, (K // gs, N), generator=gen,
                            device=dev).float()
-        for M in (8, 256):
+        w16 = ref.gptq_matmul_ref(torch.eye(K, device=dev,
+                                            dtype=torch.bfloat16), qw, sc, zr)
+        packed, why = None, "torch has no _weight_int4pack_mm"
+        if lib_fn is not None:
+            try:
+                packed, sz = _int4pack(qw, sc, zr)
+            except RuntimeError as e:
+                why = f"_convert_weight_to_int4pack refused: {e}"
+        for M in ms:
             x = torch.randn((M, K), generator=gen, device=dev).bfloat16()
             y = gptq_matmul(x, qw, sc, zr)
             want = ref.gptq_matmul_ref(x, qw, sc, zr)
+            again = gptq_matmul(x, qw, sc, zr)
             torch.cuda.synchronize()
             diff = (y.float() - want.float()).abs()
             scale = want.float().abs().max().item()
@@ -342,26 +483,30 @@ def check_gptq_matmul(gen):
             if not bool((diff <= lim).all()):
                 raise AssertionError(f"gptq_matmul {lname} M={M}: max err "
                                      f"{err} (tol {TOL} x max|ref| {scale})")
+            if not torch.equal(y, again):
+                raise AssertionError(f"gptq_matmul {lname} M={M}: two calls "
+                                     "differ (not deterministic)")
             worst = max(worst, err / scale)
-            nbytes = M * K * 2 + K * N // 2 + 2 * (K // GS) * N * 4 + M * N * 2
+            nbytes = M * K * 2 + K * N // 2 + 2 * (K // gs) * N * 4 + M * N * 2
             flops = 2 * M * K * N
-            row = {"linear": lname, "M": M, "K": K, "N": N,
+            row = {"linear": lname, "M": M, "K": K, "N": N, "gs": gs,
                    "ms": time_ms(lambda: gptq_matmul(x, qw, sc, zr)),
                    "plain_ms": time_ms(lambda: ref.gptq_matmul_ref(
                        x, qw, sc, zr), iters=3),
-                   "bound": bound_ms(nbytes, flops), "rel_err": err / scale}
-            # a yardstick of another function: the dense bf16 product with
-            # the weight already dequantized (what int4 is meant to beat)
-            w16 = ref.gptq_matmul_ref(torch.eye(K, device=dev,
-                                                dtype=torch.bfloat16),
-                                      qw, sc, zr)
-            row["dense_bf16_matmul_ms"] = time_ms(lambda: x @ w16)
+                   "bound": bound_ms(nbytes, flops), "rel_err": err / scale,
+                   "library_ms": None, "library_note": why,
+                   "dense_bf16_matmul_ms": time_ms(lambda: x @ w16)}
+            if packed is not None:
+                row["library_note"] = _library_check(
+                    row, lambda: lib_fn(x, packed, gs, sz), want, lim)
             rows.append(row)
-            log(f"gptq_matmul {lname:8s} M={M:3d} K={K} N={N}: "
+            lib = row["library_ms"]
+            log(f"gptq_matmul {lname:8s} M={M:4d} K={K} N={N} gs={gs}: "
                 f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                f"bound_ms={row['bound'][0]:.4f} ({row['bound'][1]}) "
+                f"library_ms=" + ("null" if lib is None else f"{lib:.4f}")
+                + f" bound_ms={row['bound'][0]:.4f} ({row['bound'][1]}) "
                 f"dense_bf16_matmul_ms={row['dense_bf16_matmul_ms']:.4f} "
-                f"rel_err={row['rel_err']:.2e}")
+                f"rel_err={row['rel_err']:.2e} [{row['library_note']}]")
             if lname == "gate/up" and M == 8:
                 main = row
     return {"name": "gptq_matmul", "route": "cuda",
@@ -369,7 +514,7 @@ def check_gptq_matmul(gen):
             "replaces": "src/repro/kernels/gptq_matmul.py:75",
             "max_abs_err": worst, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound": main["bound"],
-            "library_ms": None,
+            "library_ms": main["library_ms"],
             "shape": "x[8,1536] @ int4[1536,8960] gs 32 (gate/up, decode); "
                      "max_abs_err relative to max|ref|",
             "per_shape": rows}
@@ -635,7 +780,10 @@ def profile_serve(llm, prompts, sps, outs) -> dict:
             "chunk_attention_kernel<__nv_bfloat16, signed char>":
             "flash_attention_chunk_int8",
             "flash_attention_kernel": "flash_attention",
-            "gptq_matmul_kernel": "gptq_matmul"}
+            "flash_attention_mma_kernel": "flash_attention",
+            "gptq_matmul_kernel": "gptq_matmul",
+            "gptq_mma_kernel": "gptq_matmul",
+            "splitk_reduce_kernel": "gptq_matmul"}
     by, dtoh, ops = {}, 0, 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -693,6 +841,9 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] {len(compiled)} sources compiled in "
         f"{report['build_s']:.1f} s: {compiled}")
+    report["tensor_core_sass"] = sass = tensor_core_sass(build)
+    log(f"[build] cuobjdump --dump-sass, HMMA/HGMMA per kernel: "
+        f"{json.dumps(sass)}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = []
@@ -722,7 +873,7 @@ def main() -> int:
     for label, options, must, never in SERVES:
         serves[label] = serve = phase_serve(
             "cuda", kernels=ops.KERNELS, label=label, options=options,
-            must=must, never=never, profile=label.endswith("chunked"))
+            must=must, never=never, profile=True)
         log(f"[serve] {label}: {serve['config']} x{serve['layers']} layers "
             f"rtn-int4 {json.dumps(options)}: {serve['requests']} requests, "
             f"{serve['gen_tokens']} new tokens in {serve['wall_s']:.2f} s: "

@@ -27,7 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     cand = Path(cuda_home) / "bin" / "nvcc"
     if cand.exists():
@@ -60,7 +60,7 @@ def build_all(verbose: bool = False) -> Dict[str, float]:
         if lib.exists():
             continue
         tmp = out_dir / f".lib{src.stem}.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC)]
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC)]
         if verbose:
             cmd += ["-Xptxas", "-v"]
         cmd += ["-o", str(tmp), str(src)]

@@ -6,7 +6,8 @@
   and int8 pools; one instance each, so a run's launch counts tell which
   branch ran;
 * ``flash_attention`` (``csrc/flash_attention.cu``) replaces its static
-  ``flash_attention`` (whole-prompt prefill).
+  ``flash_attention`` (whole-prompt prefill); its bf16 body runs on the
+  tensor cores and is built for the head dims in ``MMA_HEAD_DIMS`` only.
 
 CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the plain
 versions in ``kernels/ref.py``.
@@ -21,6 +22,7 @@ import torch
 from repro_torch.kernels import build
 
 ROWS_PER_BLOCK = 48   # query rows (tokens x grouped heads) per thread block
+MMA_HEAD_DIMS = (64, 128)   # the bf16 static kernel's instantiations
 
 
 def _block_q(W: int, G: int) -> int:
@@ -120,6 +122,17 @@ class FlashAttentionChunk:
         return out
 
 
+def check_head_dim(D: int, dtype: torch.dtype) -> None:
+    """Raise unless the static kernel takes head dim ``D`` in ``dtype``:
+    bf16 (tensor cores) is instantiated for ``MMA_HEAD_DIMS``, f32 (CUDA
+    cores) takes any multiple of 8."""
+    if dtype == torch.bfloat16 and D not in MMA_HEAD_DIMS:
+        raise ValueError(f"flash_attention: bf16 head_dim {D} is not built; "
+                         f"the tensor-core kernel takes {MMA_HEAD_DIMS}")
+    if D % 8:
+        raise ValueError(f"head_dim {D} must be a multiple of 8")
+
+
 class FlashAttention:
     """Callable wrapper of the static prefill kernel; ``launches`` counts
     kernel launches."""
@@ -156,10 +169,9 @@ class FlashAttention:
                 or H % KV:
             raise ValueError(f"k/v {tuple(k.shape)} do not fit q "
                              f"{tuple(q.shape)}")
-        if D % 8:
-            raise ValueError(f"head_dim {D} must be a multiple of 8")
-        if k.data_ptr() % 16 or v.data_ptr() % 16:
-            raise ValueError("k/v must be 16-byte aligned")
+        check_head_dim(D, q.dtype)
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("q/k/v must be 16-byte aligned")
         if alibi_slopes is not None:
             build.require(alibi_slopes, "alibi_slopes", dtype=torch.float32,
                           ndim=1, device=dev)

@@ -1,6 +1,7 @@
 """Wrapper of the hand-written Hopper W4A16 GPTQ matmul kernel
 (``csrc/gptq_matmul.cu``; replaces the JAX package's Pallas
-``kernels/gptq_matmul.py :: gptq_matmul``).
+``kernels/gptq_matmul.py :: gptq_matmul``), and the planner of its bf16
+tensor-core body.
 
 CUDA tensors only; ``ops.quant_matmul`` sends CPU tensors to the plain
 version in ``kernels/ref.py``.
@@ -8,13 +9,53 @@ version in ``kernels/ref.py``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 PACK = 8
+BK = 64                                  # k per staged tile (gptq_matmul.cu)
+TILES = {1: (16, 64), 4: (64, 128), 8: (128, 128)}   # mt -> (BM, BN)
+DECODE_BLOCKS_PER_SM = 4
+
+
+class Plan(NamedTuple):
+    """How the bf16 body covers one product: m16 tiles per block ``mt``
+    (BM x BN output tiles), ``kt_per`` 64-wide k tiles per split,
+    ``splits`` blocks along K per output tile, ``sr`` scale rows staged
+    per k tile."""
+    mt: int
+    bm: int
+    bn: int
+    kt_per: int
+    splits: int
+    sr: int
+
+    @property
+    def launches(self) -> int:
+        """Kernel launches per call: the product, plus the split-K sum."""
+        return 1 + (self.splits > 1)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, K: int, N: int, gs: int, sms: int) -> Plan:
+    """The tile for M (16 rows for decode, 64, else 128) and the split of
+    K across blocks when the output tiles alone would give the ``sms`` SMs
+    too few blocks: fewer than one each, or for decode (bound by bytes in
+    flight, not by operations) fewer than DECODE_BLOCKS_PER_SM each."""
+    mt = 1 if M <= 16 else 4 if M <= 64 else 8
+    bm, bn = TILES[mt]
+    tiles = max(1, math.ceil(M / bm) * math.ceil(N / bn))
+    kt = math.ceil(K / BK)
+    want = sms * (DECODE_BLOCKS_PER_SM if mt == 1 else 1)
+    splits = 1 if tiles >= want else min(kt, math.ceil(want / tiles))
+    kt_per = math.ceil(kt / splits)
+    return Plan(mt, bm, bn, kt_per, math.ceil(kt / kt_per),
+                min(BK // PACK, (BK - 1) // gs + 2))
 
 
 class GptqMatmul:
@@ -32,12 +73,13 @@ class GptqMatmul:
         self.launches = 0
         self._fn = None
         self._groups_ok: Dict[Tuple, torch.Tensor] = {}
+        self._sms: Dict[torch.device, int] = {}
 
     def _launcher(self):
         if self._fn is None:
             fn = build.load("gptq_matmul").gptq_matmul_launch
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                           + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
@@ -80,12 +122,25 @@ class GptqMatmul:
         if g_idx is not None:
             self._check_groups(g_idx, K, gs)
         y = torch.empty((M, N), dtype=x.dtype, device=dev)
+        partial, mt, sr, kt_per, launches = None, 0, 0, 0, 1
+        if x.dtype == torch.bfloat16:           # the tensor-core body
+            if x.data_ptr() % 16 or qweight.data_ptr() % 16:
+                raise ValueError("x and qweight must be 16-byte aligned")
+            if dev not in self._sms:
+                self._sms[dev] = torch.cuda.get_device_properties(
+                    dev).multi_processor_count
+            p = plan(M, K, N, gs, self._sms[dev])
+            mt, sr, kt_per, launches = p.mt, p.sr, p.kt_per, p.launches
+            if p.splits > 1:
+                partial = torch.empty((p.splits, M, N), dtype=torch.float32,
+                                      device=dev)
         err = self._launcher()(
             build.dtype_code(x), x.data_ptr(), qweight.data_ptr(),
-            scales.data_ptr(), zeros.data_ptr(), y.data_ptr(), M, K, N, gs,
-            build.stream_of(dev))
+            scales.data_ptr(), zeros.data_ptr(), y.data_ptr(),
+            None if partial is None else partial.data_ptr(), M, K, N, gs,
+            mt, sr, kt_per, build.stream_of(dev))
         build.check_launch(self.name, err)
-        self.launches += 1
+        self.launches += launches
         return y
 
 

@@ -1,7 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or any part of the JAX package, and the
-entry points that default to the card refuse to run on a host without
-CUDA instead of falling back to the CPU."""
+"""The port stands alone: no module of ``src/repro_torch``, and neither
+``chip_smoke.py`` nor ``chip_pair.py``, imports JAX or any part of the JAX
+package, and the entry points that default to the card refuse to run on a
+host without CUDA instead of falling back to the CPU."""
 import ast
 from pathlib import Path
 
@@ -10,7 +10,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_pair.py"]
 
 
 def _imported(path: Path):
