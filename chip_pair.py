@@ -5,9 +5,10 @@
     python3 chip_pair.py build/other
 
 Each side runs in a process of its own, in the order other, this, this,
-other: the static attention and int4 matmul checks of ``chip_smoke.py``
-(every case and shape, with their library yardsticks) and its bf16-chunked
-and bf16-whole-prompt serves, each profiled.  Both sides are built from
+other: the kernel checks of ``chip_smoke.py`` (paged decode and chunk
+prefill over both pools, static attention, int4 matmul: every case and
+shape, with their library yardsticks) and its bf16-chunked and
+bf16-whole-prompt serves, each profiled.  Both sides are built from
 their own sources but measured by THIS checkout's ``chip_smoke`` functions,
 so a difference is the code's, not the method's.  Prints one line per side
 and serve; each side's details go to
@@ -34,9 +35,14 @@ def side(src: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"src": src, "card": torch.cuda.get_device_name(0)}
-    for check in (cs.check_flash_attention, cs.check_gptq_matmul):
+    for check in (cs.check_paged_attention, cs.check_paged_attention_quant,
+                  cs.check_flash_attention_chunk,
+                  cs.check_flash_attention_chunk_int8,
+                  cs.check_flash_attention, cs.check_gptq_matmul):
         r = check(gen)
         out[r["name"]] = r.get("per_case") or r["per_shape"]
+        out[r["name"] + ":main"] = {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                                    "library_ms": r["library_ms"]}
     for label, options, must, never in (cs.SERVES[0], cs.SERVES[2]):
         sv = cs.phase_serve("cuda", kernels=ops.KERNELS, label=label,
                             options=options, must=must, never=never,
@@ -65,6 +71,9 @@ def main() -> int:
                         str(res)], check=True, timeout=900)
         runs.append((tag, json.loads(res.read_text())))
     for tag, r in runs:
+        mains = {k.split(":")[0]: round(v["ms"], 4) for k, v in r.items()
+                 if k.endswith(":main")}
+        print(f"[pair] {tag} kernels ms: {json.dumps(mains)}", flush=True)
         for label in ("bf16-chunked", "bf16-whole-prompt"):
             sv, p = r[label], r[label]["profile"]
             print(f"[pair] {tag} {label}: wall_s={sv['wall_s']:.3f} "

@@ -8,17 +8,23 @@ Phases, each of which fails loudly (any failure exits non-zero):
 1. build   — compile the hand-written kernels (``csrc/*.cu``, nvcc for
              sm_90a, one process per source), print the build time, and
              count the tensor-core instructions (HMMA / HGMMA) that
-             ``cuobjdump --dump-sass`` shows in the bf16 static attention
-             and int4 matmul kernels (none is a failure);
+             ``cuobjdump --dump-sass`` shows in every instantiation of the
+             bf16 paged decode, chunk prefill, static attention and int4
+             matmul kernels (none is a failure);
 2. kernels — run each kernel at the serving shapes of full-width
              qwen2-1.5b in bf16 (int8 pools where the kernel reads them)
              against its plain torch version on the card, print its time
              beside the plain version's, the library call's where one
              computes the same function, and its bound (bytes over
-             3.35 TB/s or flops over 989 TFLOP/s); the static attention
-             also at a ragged 333 tokens and head dim 64, ``gptq_matmul``
-             at every M of GPTQ_MS for each linear, called twice (the two
-             outputs must be bitwise equal);
+             3.35 TB/s or flops over 989 TFLOP/s): the paged decode
+             kernels also with a sliding window, ALiBi and sequences that
+             end inside a split, the chunk kernels also with a window,
+             ALiBi and a prefix to the end of the block table (and their
+             2- and 4-warp grids timed at the serve's chunks), the static
+             attention also at a ragged 333 tokens and head dim 64,
+             ``gptq_matmul`` at every M of GPTQ_MS for each linear; every
+             case of these five is called twice and the two outputs must
+             be bitwise equal;
 3. model   — full-width qwen2-1.5b cut to 2 layers, int4 weights, bf16
              and int8 pools: the same params and inputs through the decode
              step, the prefill chunk, the unified step and the
@@ -34,7 +40,8 @@ Phases, each of which fails loudly (any failure exits non-zero):
              (``enable_chunked_prefill=False``).  The kernels' launch
              counters are zeroed just before each serve and read just
              after: every request finishes, every token is in vocabulary,
-             each serve launched exactly its own kernels, the allocator
+             each serve launched exactly its own kernels (the attention
+             kernels exactly ATTENTION_LAUNCHES times), the allocator
              audit is clean.  Each serve is re-run under
              ``torch.profiler`` (device busy time and idle share); the
              int8 chunked serve may not copy from the device to the host
@@ -107,13 +114,16 @@ def time_ms(fn, iters: int = 10) -> float:
 
 # The bf16 kernels that must run on the tensor cores: library -> function.
 TENSOR_CORE_KERNELS = {"flash_attention": "flash_attention_mma_kernel",
-                       "gptq_matmul": "gptq_mma_kernel"}
+                       "gptq_matmul": "gptq_mma_kernel",
+                       "paged_attention": "paged_attention_mma_kernel",
+                       "flash_attention_chunk": "chunk_attention_mma_kernel"}
 
 
 def tensor_core_sass(build) -> dict:
     """Count the tensor-core instructions (HMMA, HGMMA) that ``cuobjdump
     --dump-sass`` shows in every instantiation of each kernel of
-    TENSOR_CORE_KERNELS in the built libraries; fails if one has none."""
+    TENSOR_CORE_KERNELS in the built libraries; fails if a kernel is
+    missing or one of its instantiations has none."""
     cuobjdump = str(Path(build.nvcc()).with_name("cuobjdump"))
     counts = {}
     for lib, fn in TENSOR_CORE_KERNELS.items():
@@ -130,8 +140,9 @@ def tensor_core_sass(build) -> dict:
                     counts[name] = 0
             elif name in counts and ("HMMA" in line or "HGMMA" in line):
                 counts[name] += 1
-        if not any(fn in n and c > 0 for n, c in counts.items()):
-            raise AssertionError(f"{fn}: no HMMA/HGMMA in {path}")
+        mine = {n: c for n, c in counts.items() if fn in n}
+        if not mine or not all(mine.values()):
+            raise AssertionError(f"{fn}: no HMMA/HGMMA in {path}: {mine}")
     return counts
 
 
@@ -139,42 +150,17 @@ def tensor_core_sass(build) -> dict:
 # Phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def check_paged_attention(gen):
-    import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_attention
-    dev = "cuda"
-    q = torch.randn((B, H, D), generator=gen, device=dev).bfloat16()
-    kp = torch.randn((NB, BS, KV, D), generator=gen, device=dev).bfloat16()
-    vp = torch.randn((NB, BS, KV, D), generator=gen, device=dev).bfloat16()
-    bt = torch.randperm(NB, generator=gen, device=dev)[:B * MB] \
-        .reshape(B, MB).int()
-    # 0 (inactive) / partial page / page boundary / long / full table
-    sl = torch.tensor([0, 37, 64, 300, 512, 777, 901, 1024],
-                      dtype=torch.int32, device=dev)
-    out = paged_attention(q, kp, vp, bt, sl)
-    want = ref.paged_attention_ref(q, kp, vp, bt, sl)
-    torch.cuda.synchronize()
-    live = sl > 0
-    err = (out[live].float() - want[live].float()).abs().max().item()
-    zero = out[~live].float().abs().max().item()
-    if not err <= TOL or zero != 0.0:
-        raise AssertionError(f"paged_attention: max err {err} (tol {TOL}), "
-                             f"seq_len 0 rows max {zero} (want 0)")
-    toks = int(sl.sum())
-    nbytes = 2 * (2 * B * H * D) + toks * KV * D * 2 * 2 \
-        + 4 * (B + (toks + BS - 1) // BS)
-    flops = 4 * H * D * toks
-    return {"name": "paged_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-            "replaces": "src/repro/kernels/paged_attention.py:131",
-            "max_abs_err": err,
-            "ms": time_ms(lambda: paged_attention(q, kp, vp, bt, sl)),
-            "plain_ms": time_ms(lambda: ref.paged_attention_ref(
-                q, kp, vp, bt, sl), iters=3),
-            "bound": bound_ms(nbytes, flops), "library_ms": None,
-            "shape": f"q[{B},{H},{D}] pool[{NB},{BS},{KV},{D}] "
-                     f"seq_lens {sl.tolist()}"}
+PAGED_SEQ_LENS = (0, 37, 64, 300, 512, 777, 901, 1024)
+# (label, seq_lens, options): the first is timed; 0 (inactive) / partial
+# page / page boundary / long / full table; then sequences that end inside
+# a split of the walk (128 keys at the serving shape), a window that leaves
+# whole splits outside it, and ALiBi
+PAGED_CASES = (("seq_lens 0..1024", PAGED_SEQ_LENS, {}),
+               ("ends mid-split", (1, 127, 129, 200, 383, 640, 1000, 1023),
+                {}),
+               ("sliding window 200", PAGED_SEQ_LENS,
+                {"sliding_window": 200}),
+               ("ALiBi", PAGED_SEQ_LENS, {"alibi": True}))
 
 
 def _int8_pool(shape, gen):
@@ -187,54 +173,112 @@ def _int8_pool(shape, gen):
                                          device="cuda"))
 
 
-def check_paged_attention_quant(gen):
+def _repeat_equal(name: str, label: str, call, out) -> None:
+    """A second call on the same inputs must give the same bits (the split
+    combine and every sum run in a fixed order)."""
     import torch
+    if not torch.equal(call(), out):
+        raise AssertionError(f"{name} {label}: two calls differ (not "
+                             "deterministic)")
+
+
+def check_paged_attention(gen, int8: bool = False):
+    """The decode kernel over the bf16 pool, or (``int8``) over the int8
+    pool, in every case of PAGED_CASES: live rows within TOL of the plain
+    version, seq_len-0 rows exactly 0, two calls bitwise equal; each case
+    timed beside its bound, the first also beside the plain version."""
+    import torch
+    from repro_torch.core.alibi import alibi_slopes
     from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.paged_attention_quant import \
         paged_attention_quant
     dev = "cuda"
     q = torch.randn((B, H, D), generator=gen, device=dev).bfloat16()
-    kp, ks = _int8_pool((NB, BS, KV, D), gen)
-    vp, vs = _int8_pool((NB, BS, KV, D), gen)
+    if int8:
+        name, kernel, plain = ("paged_attention_quant", paged_attention_quant,
+                               ref.paged_attention_quant_ref)
+        kp, ks = _int8_pool((NB, BS, KV, D), gen)
+        vp, vs = _int8_pool((NB, BS, KV, D), gen)
+        pools = (kp, ks, vp, vs)
+    else:
+        name, kernel, plain = ("paged_attention", paged_attention,
+                               ref.paged_attention_ref)
+        pools = tuple(torch.randn((NB, BS, KV, D), generator=gen,
+                                  device=dev).bfloat16() for _ in range(2))
     bt = torch.randperm(NB, generator=gen, device=dev)[:B * MB] \
         .reshape(B, MB).int()
-    sl = torch.tensor([0, 37, 64, 300, 512, 777, 901, 1024],
-                      dtype=torch.int32, device=dev)
-    args = (q, kp, ks, vp, vs, bt, sl)
-    out = paged_attention_quant(*args)
-    want = ref.paged_attention_quant_ref(*args)
-    torch.cuda.synchronize()
-    live = sl > 0
-    err = (out[live].float() - want[live].float()).abs().max().item()
-    zero = out[~live].float().abs().max().item()
-    if not err <= TOL or zero != 0.0:
-        raise AssertionError(f"paged_attention_quant: max err {err} (tol "
-                             f"{TOL}), seq_len 0 rows max {zero} (want 0)")
-    toks = int(sl.sum())
-    pages = int(((sl + BS - 1) // BS).sum())
-    nbytes = 2 * (2 * B * H * D) + toks * KV * D * 2 + pages * KV * 4 * 2 \
-        + 4 * (B + pages)
-    flops = 4 * H * D * toks
-    return {"name": "paged_attention_quant", "route": "cuda",
+    rows, worst = [], 0.0
+    for label, lens, opt in PAGED_CASES:
+        sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        win = opt.get("sliding_window", 0)
+        slopes = alibi_slopes(H, dev) if opt.get("alibi") else None
+        args = (q, *pools, bt, sl, slopes)
+
+        def call():
+            return kernel(*args, sliding_window=win)
+        out = call()
+        want = plain(*args[:-1], alibi_slopes=slopes, sliding_window=win)
+        torch.cuda.synchronize()
+        live = sl > 0
+        err = (out[live].float() - want[live].float()).abs().max().item()
+        zero = out[~live].float().abs().max().item() if (~live).any() else 0.
+        if not err <= TOL or zero != 0.0:
+            raise AssertionError(f"{name} {label}: max err {err} (tol {TOL})"
+                                 f", seq_len 0 rows max {zero} (want 0)")
+        _repeat_equal(name, label, call, out)
+        worst = max(worst, err)
+        seen = [min(n, win) if win else n for n in lens]
+        toks, pages = sum(seen), sum((n + BS - 1) // BS for n in seen)
+        kv_bytes = toks * KV * D * 2 * (1 if int8 else 2)
+        if int8:
+            kv_bytes += pages * KV * 4 * 2
+        nbytes = 2 * (2 * B * H * D) + kv_bytes + 4 * (B + pages)
+        row = {"case": label, "seq_lens": list(lens), "max_abs_err": err,
+               "ms": time_ms(call),
+               "bound": bound_ms(nbytes, 4 * H * D * toks)}
+        rows.append(row)
+        log(f"{name} {label}: kernel_ms={row['ms']:.4f} "
+            f"bound_ms={row['bound'][0]:.5f} ({row['bound'][1]}) "
+            f"max_abs_err={err:.3e}")
+    main, sl = rows[0], torch.tensor(PAGED_SEQ_LENS, dtype=torch.int32,
+                                     device=dev)
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-            "replaces": "src/repro/kernels/paged_attention_quant.py:62",
-            "max_abs_err": err,
-            "ms": time_ms(lambda: paged_attention_quant(*args)),
-            "plain_ms": time_ms(lambda: ref.paged_attention_quant_ref(*args),
-                                iters=3),
-            "bound": bound_ms(nbytes, flops), "library_ms": None,
-            "shape": f"q[{B},{H},{D}] int8 pool[{NB},{BS},{KV},{D}] + "
-                     f"scales[{NB},{KV}] seq_lens {sl.tolist()}"}
+            "replaces": ("src/repro/kernels/paged_attention_quant.py:62"
+                         if int8 else
+                         "src/repro/kernels/paged_attention.py:131"),
+            "max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": time_ms(lambda: plain(q, *pools, bt, sl), iters=3),
+            "bound": main["bound"], "library_ms": None,
+            "shape": f"q[{B},{H},{D}] " + (f"int8 pool[{NB},{BS},{KV},{D}] + "
+                                           f"scales[{NB},{KV}]" if int8 else
+                                           f"pool[{NB},{BS},{KV},{D}]")
+                     + f" seq_lens {list(PAGED_SEQ_LENS)}; checked also "
+                     + "; ".join(c[0] for c in PAGED_CASES[1:]),
+            "per_case": rows}
 
 
-CHUNK_CASES = ((0, W), (256, W), (300, 100), (768, W))   # (q_offset, len)
+def check_paged_attention_quant(gen):
+    return check_paged_attention(gen, int8=True)
+
+
+# (q_offset, live length, options) of the chunk cases, the timed one last:
+# q_offset 0 / aligned / unaligned, a partial chunk, a prefix that runs to
+# the end of the 64-page table, a window, ALiBi, then a chunk of 256
+# after 768 pooled tokens
+CHUNK_CASES = ((0, W, {}), (256, W, {}), (300, 100, {}), (1000, 24, {}),
+               (300, W, {"sliding_window": 200}), (300, W, {"alibi": True}),
+               (768, W, {}))
 
 
 def check_flash_attention_chunk(gen, int8: bool = False):
     """The chunk kernel over the bf16 pool, or (``int8``) its int8-pool
-    branch, at q_offset 0 / aligned / unaligned, full and partial chunks;
-    timed at the last case, a chunk of 256 after 768 pooled tokens."""
+    branch, in every case of CHUNK_CASES: the live rows within TOL of the
+    plain version, two calls bitwise equal, each case timed beside its
+    bound (the last also beside the plain version)."""
     import torch
+    from repro_torch.core.alibi import alibi_slopes
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
         flash_attention_chunk, flash_attention_chunk_int8)
@@ -254,43 +298,61 @@ def check_flash_attention_chunk(gen, int8: bool = False):
         ks = vs = None
         scales = {}
     bt = torch.randperm(NB, generator=gen, device=dev)[:MB][None].int()
-    worst, timed = 0.0, None
-    for q_off, n in CHUNK_CASES:
+
+    rows, worst = [], 0.0
+    for q_off, n, opt in CHUNK_CASES:
+        label = f"q_offset {q_off} len {n}" + "".join(
+            f" {k} {v}" for k, v in opt.items())
         q = torch.randn((1, W, H, D), generator=gen, device=dev).bfloat16()
         kr = torch.randn((1, W, KV, D), generator=gen, device=dev).bfloat16()
         vr = torch.randn((1, W, KV, D), generator=gen, device=dev).bfloat16()
         off = torch.tensor(q_off, dtype=torch.int32, device=dev)
         tl = torch.tensor(q_off + n, dtype=torch.int32, device=dev)
-        out = kernel(q, kp[0], vp[0], bt, off, tl, kr, vr, **scales)
-        want = ref.chunk_prefill_attention_ref(q, kp, vp, ks, vs, 0, bt,
-                                               off, tl, kr, vr)
+        win = opt.get("sliding_window", 0)
+        slopes = alibi_slopes(H, dev) if opt.get("alibi") else None
+
+        def call():
+            return kernel(q, kp[0], vp[0], bt, off, tl, kr, vr, slopes,
+                          sliding_window=win, **scales)
+        want = ref.chunk_prefill_attention_ref(
+            q, kp, vp, ks, vs, 0, bt, off, tl, kr, vr, alibi_slopes=slopes,
+            sliding_window=win)
+        out = call()
         torch.cuda.synchronize()
         err = (out[:, :n].float() - want[:, :n].float()).abs().max().item()
         if not err <= TOL:
-            raise AssertionError(f"{kernel.name} q_offset={q_off} len={n}: "
-                                 f"max err {err} (tol {TOL})")
+            raise AssertionError(f"{kernel.name} {label}: max err {err} "
+                                 f"(tol {TOL})")
+        _repeat_equal(kernel.name, label, call, out)
         worst = max(worst, err)
-        timed = (q, kr, vr, off, tl, q_off, n)
-    q, kr, vr, off, tl, q_off, n = timed      # a later chunk: 768 + 256
-    pairs = sum(q_off + i + 1 for i in range(n))     # visible (q, k) pairs
-    pool_bytes = q_off * KV * D * 2 * (1 if int8 else 2)
-    if int8:
-        pool_bytes += (q_off // BS) * KV * 4 * 2
-    nbytes = 2 * (2 * W * H * D + 2 * W * KV * D) + pool_bytes
-    flops = 4 * H * D * pairs
+        # visible (query, key) pairs, and the prefix keys any query sees
+        pairs = sum(min(q_off + i + 1, win) if win else q_off + i + 1
+                    for i in range(n))
+        pre = q_off - (max(0, q_off - win + 1) if win else 0)
+        pool_bytes = pre * KV * D * 2 * (1 if int8 else 2)
+        if int8:
+            pool_bytes += ((pre + BS - 1) // BS) * KV * 4 * 2
+        nbytes = 2 * (2 * W * H * D + 2 * W * KV * D) + pool_bytes
+        row = {"case": label, "max_abs_err": err, "ms": time_ms(call),
+               "bound": bound_ms(nbytes, 4 * H * D * pairs)}
+        rows.append(row)
+        log(f"{kernel.name} {label}: kernel_ms={row['ms']:.4f} "
+            f"bound_ms={row['bound'][0]:.5f} ({row['bound'][1]}) "
+            f"max_abs_err={err:.3e}")
+    main = rows[-1]
     return {"name": kernel.name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_chunk.cu",
             "replaces": "src/repro/kernels/flash_attention.py:310"
                         + (" (quantized branch :125-129, :175-177)"
                            if int8 else ""),
-            "max_abs_err": worst,
-            "ms": time_ms(lambda: kernel(q, kp[0], vp[0], bt, off, tl, kr,
-                                         vr, **scales)),
+            "max_abs_err": worst, "ms": main["ms"],
             "plain_ms": time_ms(lambda: ref.chunk_prefill_attention_ref(
                 q, kp, vp, ks, vs, 0, bt, off, tl, kr, vr), iters=3),
-            "bound": bound_ms(nbytes, flops), "library_ms": None,
-            "shape": f"q[1,{W},{H},{D}] q_offset {q_off} total {q_off + n}"
-                     + (" int8 pool" if int8 else "")}
+            "bound": main["bound"], "library_ms": None,
+            "shape": f"q[1,{W},{H},{D}] q_offset 768 total 1024"
+                     + (" int8 pool" if int8 else "") + "; checked also "
+                     + "; ".join(r["case"] for r in rows[:-1]),
+            "per_case": rows}
 
 
 def check_flash_attention_chunk_int8(gen):
@@ -358,6 +420,8 @@ def check_flash_attention(gen):
         if not err <= TOL:
             raise AssertionError(f"flash_attention {label}: max err {err} "
                                  f"(tol {TOL})")
+        _repeat_equal("flash_attention", label,
+                      lambda: flash_attention(q, k, v, **kw), out)
         worst = max(worst, err)
         b, sq, h, d = q.shape
         sk, kvh = k.shape[1], k.shape[2]
@@ -681,6 +745,21 @@ SERVES = (
 )
 
 
+# The attention kernels' launches per full-size serve (one per call: 28
+# layers x the serve's decode steps / chunks); gptq_matmul's count
+# depends on its plan and is checked through must / never only.
+ATTENTION_LAUNCHES = {
+    "bf16-chunked": {"paged_attention": 1092, "paged_attention_quant": 0,
+                     "flash_attention_chunk": 588,
+                     "flash_attention_chunk_int8": 0},
+    "int8-chunked": {"paged_attention": 0, "paged_attention_quant": 1092,
+                     "flash_attention_chunk": 0,
+                     "flash_attention_chunk_int8": 588},
+    "bf16-whole-prompt": {"paged_attention": 868, "paged_attention_quant": 0,
+                          "flash_attention_chunk": 0,
+                          "flash_attention_chunk_int8": 0}}
+
+
 def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
                 max_tokens: int = 32, kernels=(), label: str = "bf16-chunked",
                 options=None, must=(), never=(), profile: bool = False
@@ -754,6 +833,25 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
     return out
 
 
+# Our kernels' device functions (every instantiation) -> wrapper name; an
+# int8 pool ("signed char") names the quantized entry.
+OURS = {"paged_attention_": "paged_attention",
+        "chunk_attention_": "flash_attention_chunk",
+        "flash_attention_": "flash_attention", "gptq_m": "gptq_matmul",
+        "splitk_reduce_kernel": "gptq_matmul"}
+INT8_NAMES = {"paged_attention": "paged_attention_quant",
+              "flash_attention_chunk": "flash_attention_chunk_int8"}
+
+
+def ours_name(key: str):
+    """The wrapper whose kernel a profiler key names, or None."""
+    for frag, name in OURS.items():
+        if frag in key:
+            return INT8_NAMES.get(name, name) if "signed char" in key \
+                else name
+    return None
+
+
 def profile_serve(llm, prompts, sps, outs) -> dict:
     """Serve the same requests again under ``torch.profiler`` (after the
     launch counts were read) and sum the device time by kernel: ours, and
@@ -771,19 +869,6 @@ def profile_serve(llm, prompts, sps, outs) -> dict:
     steps = llm.engine.metrics["work_steps"] - steps0
     if [o.token_ids for o in again] != [o.token_ids for o in outs]:
         raise AssertionError("serve: the profiled re-run changed tokens")
-    ours = {"paged_attention_kernel<__nv_bfloat16, __nv_bfloat16>":
-            "paged_attention",
-            "paged_attention_kernel<__nv_bfloat16, signed char>":
-            "paged_attention_quant",
-            "chunk_attention_kernel<__nv_bfloat16, __nv_bfloat16>":
-            "flash_attention_chunk",
-            "chunk_attention_kernel<__nv_bfloat16, signed char>":
-            "flash_attention_chunk_int8",
-            "flash_attention_kernel": "flash_attention",
-            "flash_attention_mma_kernel": "flash_attention",
-            "gptq_matmul_kernel": "gptq_matmul",
-            "gptq_mma_kernel": "gptq_matmul",
-            "splitk_reduce_kernel": "gptq_matmul"}
     by, dtoh, ops = {}, 0, 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -794,8 +879,7 @@ def profile_serve(llm, prompts, sps, outs) -> dict:
         ops += e.count
         if "Memcpy DtoH" in e.key:
             dtoh += e.count
-        name = next((v for k, v in ours.items() if k in e.key), None)
-        key = name or e.key[:60]
+        key = ours_name(e.key) or e.key[:60]
         ms, n = by.get(key, (0.0, 0))
         by[key] = (ms + us / 1e3, n + e.count)
     busy = sum(ms for ms, _ in by.values())
@@ -805,7 +889,8 @@ def profile_serve(llm, prompts, sps, outs) -> dict:
             "work_steps": steps, "dtoh_copies": dtoh,
             "dtoh_per_step": dtoh / max(steps, 1),
             "device_ops_per_step": ops / max(steps, 1),
-            "ours_ms": {v: by[v][0] for v in ours.values() if v in by},
+            "ours_ms": {v: by[v][0] for v in
+                        (*OURS.values(), *INT8_NAMES.values()) if v in by},
             "top": [{"kernel": k, "ms": ms, "calls": n}
                     for k, (ms, n) in top]}
 
@@ -884,6 +969,10 @@ def main() -> int:
             f"dispatches_per_step={serve['dispatches_per_step']:.2f} "
             f"kv_pool_bytes={serve['kv_pool_bytes']} "
             f"launches={serve['launches']} audit={serve['audit']}")
+        got = {k: serve["launches"][k] for k in ATTENTION_LAUNCHES[label]}
+        if got != ATTENTION_LAUNCHES[label]:
+            raise AssertionError(f"serve {label}: attention launches {got}, "
+                                 f"want {ATTENTION_LAUNCHES[label]}")
         prof = serve["profile"]
         if prof is None:
             continue

@@ -12,6 +12,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 
 def _tensor(a) -> torch.Tensor:
     a = np.asarray(a)
@@ -21,13 +23,18 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True, order="C"))
 
 
-def params_from_numpy(tree: Any, device="cpu") -> Any:
+def params_from_numpy(tree: Any, device="cuda") -> Any:
     """Nested dicts / lists of numpy arrays -> the same structure of
-    torch tensors on ``device``."""
+    torch tensors on ``device`` (the card unless the caller asks for the
+    CPU; raises on a host without one)."""
+    return _from_numpy(tree, resolve_device(device))
+
+
+def _from_numpy(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+        return {k: _from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_numpy(v, device) for v in tree)
+        return type(tree)(_from_numpy(v, device) for v in tree)
     return _tensor(tree).to(device)
 
 

@@ -162,6 +162,9 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_attention_mma_kernel(
   rt::MmaAttnState<D> st;
   rt::mma_attn_init(st);
   const int q_pos0 = q_lo + warp * 16;
+  auto row = [=](int g, int hi) {
+    return rt::MmaRow{q_pos0 + g + hi * 8, slope};
+  };
   auto live = [&](int q_pos, int k_pos) {
     return k_pos < Sk && (!causal || k_pos <= q_pos) &&
            (window <= 0 || q_pos - k_pos < window);
@@ -181,11 +184,11 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_attention_mma_kernel(
                       (causal && k0 + MMA_BK - 1 > q_lo) ||
                       (window > 0 && k0 < q_hi - window + 1);
     if (edge)
-      rt::mma_attend_tile<D, MMA_BK, true>(st, ks, vs, STR, q_pos0, k0,
-                                           scale, slope, live);
+      rt::mma_attend_tile<D, MMA_BK, true>(st, ks, vs, STR, k0, scale, row,
+                                           live);
     else
-      rt::mma_attend_tile<D, MMA_BK, false>(st, ks, vs, STR, q_pos0, k0,
-                                            scale, slope, live);
+      rt::mma_attend_tile<D, MMA_BK, false>(st, ks, vs, STR, k0, scale,
+                                            row, live);
     __syncthreads();          // every warp is done before the stage refills
   }
   rt::cp_async_wait<0>();

@@ -10,8 +10,13 @@
 // of 16 bytes puts the 8 rows of each 8 x 8 matrix in 8 distinct 16-byte
 // bank groups, so ldmatrix is free of bank conflicts.
 //
-// Used by the static prefill kernel (flash_attention.cu); the chunk
-// kernel still runs the CUDA-core rt::attend_tile of common.cuh.
+// Used by the static prefill kernel (flash_attention.cu), the chunk
+// prefill kernel (flash_attention_chunk.cu) and the paged decode kernel
+// (paged_attention.cu).  A warp's 16 rows are 16 query tokens of one head
+// in the two prefill kernels, and the G grouped heads of one KV head
+// (padded to 16) at one position in decode: a per-row hook gives each
+// row's position and ALiBi slope.  Pool tiles (bf16 rows, or int8 codes
+// dequantized to bf16 in shared memory) are staged by stage_pool_rows.
 #pragma once
 
 #include "common.cuh"
@@ -62,15 +67,25 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xFFFFFFFFu, x, 2);
 }
 
+// A warp row's query position and ALiBi slope (0: no bias).
+struct MmaRow {
+  int pos;
+  float slope;
+};
+
 // One staged tile of BK keys at positions k_pos0 .. k_pos0 + BK: scores
-// (scaled, ALiBi by |q_pos - k_pos| when slope != 0), the mask
+// (scaled, ALiBi by |q_pos - k_pos| where the row's slope != 0), the mask
 // live(q_pos, k_pos) only when MASK, the online-softmax update, P @ V.
-// q_pos0 is the position of the warp's row 0.
-template <int D, int BK, bool MASK, typename LiveFn>
+// row(g, hi) gives the position and slope of warp row g + 8 * hi (g < 8,
+// hi 0 or 1: the two rows a lane holds).  Every live key has k_pos <=
+// q_pos in all three callers, so |q_pos - k_pos| is the Pallas kernels'
+// max(q_pos - k_pos, 0) wherever it is not masked.  The static kernel's
+// hook, q_pos0 + g + hi * 8, compiles to the same SASS as the scalar
+// position and slope this routine took before the hook.
+template <int D, int BK, bool MASK, typename RowFn, typename LiveFn>
 __device__ __forceinline__ void mma_attend_tile(
     MmaAttnState<D>& st, const __nv_bfloat16* ks, const __nv_bfloat16* vs,
-    int STR, int q_pos0, int k_pos0, float scale, float slope,
-    LiveFn live) {
+    int STR, int k_pos0, float scale, RowFn row, LiveFn live) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float s[BK / 8][4];
 #pragma unroll
@@ -96,10 +111,11 @@ __device__ __forceinline__ void mma_attend_tile(
   for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int q_pos = q_pos0 + g + (e >> 1) * 8;
+      const MmaRow rw = row(g, e >> 1);
+      const int q_pos = rw.pos;
       const int k_pos = k_pos0 + j * 8 + 2 * t + (e & 1);
       float x = s[j][e] * scale;
-      if (slope != 0.f) x -= slope * (float)abs(q_pos - k_pos);
+      if (rw.slope != 0.f) x -= rw.slope * (float)abs(q_pos - k_pos);
       if (MASK && !live(q_pos, k_pos)) x = NEG_INF;
       s[j][e] = x;
       mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -148,6 +164,80 @@ __device__ __forceinline__ void mma_attend_tile(
       mma_bf16_16816(st.o[2 * dp], a, b);
       mma_bf16_16816(st.o[2 * dp + 1], a, b + 2);
     }
+  }
+}
+
+// Stage ROWS rows of K and V from a bf16 pool or raw tensor into shared
+// bf16 rows of STR values by cp.async: row_of(r) gives row r's element
+// offset (KVRow::off < 0: a row of zeros, nothing read).
+template <int D, int ROWS, int NT, typename RowFn>
+__device__ __forceinline__ void stage_kv_rows(__nv_bfloat16* kd,
+                                              __nv_bfloat16* vd,
+                                              const __nv_bfloat16* k,
+                                              const __nv_bfloat16* v,
+                                              RowFn row_of) {
+  constexpr int CH = D / 8, STR = D + MMA_ATTN_PAD;
+  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+    const int r = i / CH, c = i - r * CH;
+    const KVRow row = row_of(r);
+    const bool ok = row.off >= 0;
+    const size_t o = ok ? (size_t)row.off + c * 8 : 0;
+    cp_async16(kd + r * STR + c * 8, k + o, ok);
+    cp_async16(vd + r * STR + c * 8, v + o, ok);
+  }
+}
+
+// The same from an int8 pool: the codes land in kc / vc (rows of D
+// bytes) and each row's f32 scale (KVRow::scale indexes k_scale /
+// v_scale) in ksc / vsc; dequant_kv_rows then makes the bf16 rows.
+template <int D, int ROWS, int NT, typename RowFn>
+__device__ __forceinline__ void stage_kv_codes(
+    int8_t* kc, int8_t* vc, float* ksc, float* vsc, const int8_t* k,
+    const int8_t* v, const float* k_scale, const float* v_scale,
+    RowFn row_of) {
+  constexpr int CH = D / 16;
+  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+    const int r = i / CH, c = i - r * CH;
+    const KVRow row = row_of(r);
+    const bool ok = row.off >= 0;
+    const size_t o = ok ? (size_t)row.off + c * 16 : 0;
+    cp_async16(kc + r * D + c * 16, k + o, ok);
+    cp_async16(vc + r * D + c * 16, v + o, ok);
+    if (c == 0) {
+      const size_t so = ok ? (size_t)row.scale : 0;
+      cp_async4(ksc + r, k_scale + so, ok);
+      cp_async4(vsc + r, v_scale + so, ok);
+    }
+  }
+}
+
+// Staged int8 rows -> bf16 rows of STR values: code x the row's scale in
+// f32, rounded once to bf16 (the plain version's dequantize-then-cast).
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void dequant_kv_rows(__nv_bfloat16* kd,
+                                                __nv_bfloat16* vd,
+                                                const int8_t* kc,
+                                                const int8_t* vc,
+                                                const float* ksc,
+                                                const float* vsc) {
+  constexpr int CH = D / 16, STR = D + MMA_ATTN_PAD;
+  for (int i = threadIdx.x; i < 2 * ROWS * CH; i += NT) {
+    const bool is_v = i >= ROWS * CH;
+    const int j = is_v ? i - ROWS * CH : i;
+    const int r = j / CH, c = j - r * CH;
+    const float sc = (is_v ? vsc : ksc)[r];
+    const uint4 w = *reinterpret_cast<const uint4*>((is_v ? vc : kc) +
+                                                    r * D + c * 16);
+    float f[16];
+    unpack16(w, f, (const int8_t*)nullptr);
+    uint32_t b[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      b[e] = pack_bf16(f[2 * e] * sc, f[2 * e + 1] * sc);
+    uint4* dst =
+        reinterpret_cast<uint4*>((is_v ? vd : kd) + r * STR + c * 16);
+    dst[0] = make_uint4(b[0], b[1], b[2], b[3]);
+    dst[1] = make_uint4(b[4], b[5], b[6], b[7]);
   }
 }
 

@@ -6,8 +6,11 @@
   and int8 pools; one instance each, so a run's launch counts tell which
   branch ran;
 * ``flash_attention`` (``csrc/flash_attention.cu``) replaces its static
-  ``flash_attention`` (whole-prompt prefill); its bf16 body runs on the
-  tensor cores and is built for the head dims in ``MMA_HEAD_DIMS`` only.
+  ``flash_attention`` (whole-prompt prefill).
+
+The bf16 bodies of both run on the tensor cores and are built for the
+head dims in ``MMA_HEAD_DIMS`` only; their f32 bodies (CUDA cores) take
+any multiple of 8.
 
 CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the plain
 versions in ``kernels/ref.py``.
@@ -21,11 +24,12 @@ import torch
 
 from repro_torch.kernels import build
 
-ROWS_PER_BLOCK = 48   # query rows (tokens x grouped heads) per thread block
-MMA_HEAD_DIMS = (64, 128)   # the bf16 static kernel's instantiations
+ROWS_PER_BLOCK = 48   # f32 bodies: query rows (tokens x heads) per block
+MMA_HEAD_DIMS = (64, 128)   # the bf16 kernels' instantiations
 
 
 def _block_q(W: int, G: int) -> int:
+    """Query tokens per block of the f32 bodies."""
     return max(1, min(W, ROWS_PER_BLOCK // G))
 
 
@@ -91,11 +95,12 @@ class FlashAttentionChunk:
                              f"{tuple(q.shape)}")
         if k_raw.shape != (1, W, KV, D) or v_raw.shape != k_raw.shape:
             raise ValueError(f"k_raw/v_raw must be {(1, W, KV, D)}")
-        vec = 16 if self.int8 else 8           # values per 16-byte load
-        if D % vec:
-            raise ValueError(f"head_dim {D} must be a multiple of {vec}")
-        if any(t.data_ptr() % 16 for t in (k_pool, v_pool, k_raw, v_raw)):
-            raise ValueError("pools and raw K/V must be 16-byte aligned")
+        check_head_dim(D, q.dtype, self.name)
+        if self.int8 and D % 16:
+            raise ValueError(f"{self.name}: head_dim {D} must be a multiple "
+                             "of 16 (16 int8 codes per load)")
+        if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool, k_raw, v_raw)):
+            raise ValueError("q, pools and raw K/V must be 16-byte aligned")
         pools = [k_pool.data_ptr(), v_pool.data_ptr()]
         if self.int8:
             for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
@@ -122,15 +127,16 @@ class FlashAttentionChunk:
         return out
 
 
-def check_head_dim(D: int, dtype: torch.dtype) -> None:
-    """Raise unless the static kernel takes head dim ``D`` in ``dtype``:
-    bf16 (tensor cores) is instantiated for ``MMA_HEAD_DIMS``, f32 (CUDA
-    cores) takes any multiple of 8."""
+def check_head_dim(D: int, dtype: torch.dtype,
+                   name: str = "flash_attention") -> None:
+    """Raise unless kernel ``name`` takes head dim ``D`` in ``dtype``: the
+    bf16 (tensor-core) bodies of the attention kernels are instantiated for
+    ``MMA_HEAD_DIMS``, the f32 (CUDA-core) bodies take any multiple of 8."""
     if dtype == torch.bfloat16 and D not in MMA_HEAD_DIMS:
-        raise ValueError(f"flash_attention: bf16 head_dim {D} is not built; "
-                         f"the tensor-core kernel takes {MMA_HEAD_DIMS}")
+        raise ValueError(f"{name}: bf16 head_dim {D} is not built; the "
+                         f"tensor-core kernel takes {MMA_HEAD_DIMS}")
     if D % 8:
-        raise ValueError(f"head_dim {D} must be a multiple of 8")
+        raise ValueError(f"{name}: head_dim {D} must be a multiple of 8")
 
 
 class FlashAttention:

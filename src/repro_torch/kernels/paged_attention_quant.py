@@ -3,8 +3,9 @@ int8 pool (``csrc/paged_attention.cu``, entry ``paged_attention_quant_launch``;
 replaces the JAX package's Pallas ``kernels/paged_attention_quant.py ::
 paged_attention_quant``).
 
-The kernel is the bf16 decode kernel's body with int8 pool tiles
-dequantized in registers (one f32 scale per block and KV head).  CUDA
+The kernel is the decode kernel's body with int8 pool tiles dequantized
+to bf16 in shared memory (one f32 scale per block and KV head), the same
+split page walk, plan and scratch.  CUDA
 tensors only; ``ops.paged_attention_quant`` sends CPU tensors to the
 plain version in ``kernels/ref.py``.
 """
@@ -16,7 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.paged_attention import MAX_D, MAX_G
+from repro_torch.kernels.paged_attention import check_heads, launch_args
 
 
 class PagedAttentionQuant:
@@ -31,8 +32,8 @@ class PagedAttentionQuant:
     def _launcher(self):
         if self._fn is None:
             fn = build.load("paged_attention").paged_attention_quant_launch
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                           + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11
+                           + [ctypes.c_int] * 10 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
@@ -65,23 +66,26 @@ class PagedAttentionQuant:
                              f"{(B, H, D)}")
         if k_scales.shape != (NB, KV) or v_scales.shape != (NB, KV):
             raise ValueError(f"scales must be {(NB, KV)}")
-        if H % KV or H // KV > MAX_G or D > MAX_D or D % 16:
-            raise ValueError(f"unsupported heads H={H} KV={KV} D={D} (need "
-                             f"G <= {MAX_G}, D <= {MAX_D}, D % 16 == 0)")
-        if k_values.data_ptr() % 16 or v_values.data_ptr() % 16:
-            raise ValueError("pools must be 16-byte aligned")
+        check_heads(H, KV, D, q.dtype, self.name)
+        if D % 16:
+            raise ValueError(f"{self.name}: head_dim {D} must be a multiple "
+                             "of 16 (16 int8 codes per load)")
+        if any(t.data_ptr() % 16 for t in (q, k_values, v_values)):
+            raise ValueError("q and the pools must be 16-byte aligned")
         if block_table.shape[0] != B or seq_lens.shape[0] != B:
             raise ValueError("block_table / seq_lens batch != q batch")
         if alibi_slopes is not None:
             build.require(alibi_slopes, "alibi_slopes", dtype=torch.float32,
                           ndim=1, device=dev)
+        MB = block_table.shape[1]
+        part, counters, pps, splits = launch_args(q, KV, MB, BS)
         out = torch.empty_like(q)
         err = self._launcher()(
             build.dtype_code(q), q.data_ptr(), k_values.data_ptr(),
             k_scales.data_ptr(), v_values.data_ptr(), v_scales.data_ptr(),
             block_table.data_ptr(), seq_lens.data_ptr(),
             alibi_slopes.data_ptr() if alibi_slopes is not None else None,
-            out.data_ptr(), B, H, KV, D, BS, block_table.shape[1],
+            out.data_ptr(), part, counters, B, H, KV, D, BS, MB, pps, splits,
             int(sliding_window), int(alibi_slopes is not None),
             build.stream_of(dev))
         build.check_launch(self.name, err)

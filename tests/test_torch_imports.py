@@ -1,10 +1,12 @@
 """The port stands alone: no module of ``src/repro_torch``, and neither
 ``chip_smoke.py`` nor ``chip_pair.py``, imports JAX or any part of the JAX
-package, and the entry points that default to the card refuse to run on a
-host without CUDA instead of falling back to the CPU."""
+package, and the entry points that default to the card (the bridge from
+the JAX package's weights included) refuse to run on a host without CUDA
+instead of falling back to the CPU."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,6 +34,7 @@ def test_no_jax_or_reference_imports(path):
 def test_cuda_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the CUDA default is valid here")
+    from repro_torch.bridge import params_from_numpy
     from repro_torch.configs.registry import get_reduced
     from repro_torch.models import transformer as T
     from repro_torch.serving import LLM, ServingEngine
@@ -43,6 +46,11 @@ def test_cuda_entry_points_raise_without_cuda():
     params = T.init_params(cfg, 0, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         ServingEngine(cfg, params)
+    tree = {"w": np.zeros((2, 3), np.float32), "layers": [np.ones(4)]}
+    with pytest.raises(RuntimeError, match="cuda"):
+        params_from_numpy(tree)
+    got = params_from_numpy(tree, device="cpu")
+    assert got["w"].device.type == "cpu" and got["layers"][0].shape == (4,)
 
 
 def test_unported_paths_refuse():

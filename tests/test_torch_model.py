@@ -51,9 +51,9 @@ def models():
         params["layers"]["attn"][b] = rng.normal(
             0, 0.5, a.shape).astype(np.float32)
     jp = jax.tree.map(jnp.asarray, params)
-    out = {"dense": (jp, params_from_numpy(params))}
+    out = {"dense": (jp, params_from_numpy(params, device="cpu"))}
     jq = j_rtn(jp, jcfg, group_size=32)
-    out["rtn-int4"] = (jq, params_from_numpy(_np(jq)))
+    out["rtn-int4"] = (jq, params_from_numpy(_np(jq), device="cpu"))
     return jcfg, cfg, out
 
 

@@ -111,7 +111,8 @@ def _drain_both(params, jcfg, cfg, prompts, max_tokens, **kw):
     returns (port LLM, JAX LLM, port outputs, JAX outputs)."""
     jllm = JLLM(jcfg, params, enable_async_step=False, **kw)
     want = jllm.generate(prompts, [JSP(max_tokens=m) for m in max_tokens])
-    llm = LLM(cfg, params_from_numpy(jax.tree.map(np.asarray, params)),
+    llm = LLM(cfg, params_from_numpy(jax.tree.map(np.asarray, params),
+                                     device="cpu"),
               device="cpu", **kw)
     got = llm.generate(prompts, [SamplingParams(max_tokens=m)
                                  for m in max_tokens])
@@ -178,7 +179,8 @@ def test_copy_on_write_forked_tail(small):
     """A forked sequence's shared partial tail is copied on the device
     before its first divergent write (the engine's CoW path)."""
     _, cfg, params = small
-    llm = LLM(cfg, params_from_numpy(jax.tree.map(np.asarray, params)),
+    llm = LLM(cfg, params_from_numpy(jax.tree.map(np.asarray, params),
+                                     device="cpu"),
               device="cpu", **ENGINE_KW)
     eng = llm.engine
     [out] = llm.generate([list(range(1, 21))], SamplingParams(max_tokens=1))
@@ -201,7 +203,8 @@ def test_copy_on_write_forked_tail(small):
 
 def test_abort_mid_prefill_frees_blocks(small):
     _, cfg, params = small
-    llm = LLM(cfg, params_from_numpy(jax.tree.map(np.asarray, params)),
+    llm = LLM(cfg, params_from_numpy(jax.tree.map(np.asarray, params),
+                                     device="cpu"),
               device="cpu", **ENGINE_KW)
     eng = llm.engine
     rid = eng.add(list(range(1, 60)), SamplingParams(max_tokens=4))
