@@ -45,7 +45,24 @@ Phases, each of which fails loudly (any failure exits non-zero):
              audit is clean.  Each serve is re-run under
              ``torch.profiler`` (device busy time and idle share); the
              int8 chunked serve may not copy from the device to the host
-             more often per step than the bf16 one.
+             more often per step than the bf16 one;
+5. gptq    — (b) ``LLM.load("qwen2-1.5b", quant="gptq-int4")`` at full
+             depth on 8 x [4, 512] seeded calibration tokens, the load's
+             seconds split (init, calibration forward plus Hessians, OBQ,
+             pack), exactly 224 static ``flash_attention`` launches and no
+             other, every served leaf on the card, and GPTQ's
+             Hessian-weighted proxy loss summed over the 56 (layer,
+             Hessian) pairs below RTN's; (a) one full-width w_gate through
+             the port's OBQ on the card and on the CPU (codes equal in at
+             least 99.99% of entries, scales and zeros bitwise, proxy loss
+             within 1e-6); (c) the 2-layer full-width GPTQ model's
+             ``T.forward`` logits on the card within LOGIT_TOL of the
+             CPU's, and its mean logit error against the dense model
+             below 1.25 x RTN's; (d) one full-width qwen1.5-0.5b MHA layer
+             converted to 4 KV heads on the card and on the CPU (same
+             groups, merged K/V within 2e-2); then a fourth serve,
+             ``gptq-chunked``: the bf16-chunked traffic on the GPTQ-loaded
+             model, with the bf16-chunked serve's launches, profiled.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -381,8 +398,9 @@ def _sdpa_ms(q, k, v, bias):
 def check_flash_attention(gen):
     """The static prefill kernel at the whole-prompt serve's wave shape
     (causal), then at q_offset > 0 with Sq < Sk, a sliding band, ALiBi, a
-    ragged Sq = Sk = 333 (causal and not) and head dim 64 (qwen1.5-0.5b's
-    16 heads over 16 KV heads, G = 1).  Every case is timed beside one SDPA
+    ragged Sq = Sk = 333 (causal and not), head dim 64 (qwen1.5-0.5b's
+    16 heads over 16 KV heads, G = 1) and the GPTQ load's calibration batch
+    (plain causal, [CALIB_B, CALIB_S]).  Every case is timed beside one SDPA
     call on its inputs (the library yardstick; a mask where the case is not
     a plain causal square) and its bound (the live (q, k) pairs)."""
     import torch
@@ -410,7 +428,9 @@ def check_flash_attention(gen):
              ("head dim 64, 16 heads / 16 KV, causal",
               qkv(2, 512, 512, 16, 16, 64), {}),
              ("q_offset 64, window 100, Sq 200 < Sk 333", qkv(2, 200, 333),
-              {"q_offset": 64, "sliding_window": 100})]
+              {"q_offset": 64, "sliding_window": 100}),
+             (f"calibration [{CALIB_B},{CALIB_S}] causal",
+              qkv(CALIB_B, CALIB_S, CALIB_S), {})]
     worst, rows = 0.0, []
     for label, (q, k, v), kw in cases:
         out = flash_attention(q, k, v, **kw)
@@ -758,20 +778,28 @@ ATTENTION_LAUNCHES = {
     "bf16-whole-prompt": {"paged_attention": 868, "paged_attention_quant": 0,
                           "flash_attention_chunk": 0,
                           "flash_attention_chunk_int8": 0}}
+# the GPTQ-loaded model serves the bf16-chunked traffic and schedule
+GPTQ_SERVE = ("gptq-chunked", {}, *SERVES[0][2:])
+ATTENTION_LAUNCHES["gptq-chunked"] = ATTENTION_LAUNCHES["bf16-chunked"]
 
 
 def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
                 max_tokens: int = 32, kernels=(), label: str = "bf16-chunked",
-                options=None, must=(), never=(), profile: bool = False
-                ) -> dict:
+                options=None, must=(), never=(), profile: bool = False,
+                llm=None) -> dict:
+    """Serve the 8 requests of ``serve_prompts`` on ``llm`` or, when none
+    is given, on ``LLM.load(config, quant="rtn-int4", **options)``."""
     import torch
     from repro_torch.serving import LLM, SamplingParams
-    t0 = time.perf_counter()
-    llm = LLM.load(config, quant="rtn-int4", seed=0, device=dev,
-                   reduced=reduced, **(options or {}))
-    if dev != "cpu":
-        torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
+    if llm is None:
+        t0 = time.perf_counter()
+        llm = LLM.load(config, quant="rtn-int4", seed=0, device=dev,
+                       reduced=reduced, **(options or {}))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    else:
+        load_s = sum(llm.load_s.values())
     vocab = llm.cfg.vocab_size
     llm.generate([list(range(1, 40))], SamplingParams(max_tokens=2))  # warm
     prompts = serve_prompts(vocab)
@@ -895,11 +923,274 @@ def profile_serve(llm, prompts, sps, outs) -> dict:
                     for k, (ms, n) in top]}
 
 
+# --------------------------------------------------------------------------
+# Phase 5: GPTQ (Hessian OBQ over calibration activations)
+# --------------------------------------------------------------------------
+
+CALIB_N, CALIB_B, CALIB_S = 8, 4, 512   # calibration batches of [4, 512]
+OBQ_CODES_EQUAL = 0.9999      # card OBQ vs CPU OBQ, share of equal codes
+OBQ_ERR_REL = 1e-6            # card vs CPU proxy loss, relative
+GPTQ_LOGIT_RATIO = 1.25       # tests/test_quantized_model.py:67
+# merged wk / wv, card vs CPU, relative to the CPU's max |wk|, |wv|: a
+# plain (unweighted) merge reads ~3e-3 of it, f32 rounding ~1e-7
+GROUPING_TOL_REL = 1e-5
+
+
+def gptq_load(kernels, dev: str = "cuda", reduced: bool = False):
+    """(b) ``LLM.load("qwen2-1.5b", quant="gptq-int4")`` at full depth on
+    CALIB_N x [CALIB_B, CALIB_S] seeded calibration tokens.  The launch
+    counters are zeroed just before the load: the calibration forward
+    must launch the static ``flash_attention`` once per layer and batch,
+    and nothing else; every leaf of the served params lies on ``dev``."""
+    import torch
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import LLM
+    from repro_torch.serving.llm import _synthetic_calib
+    cfg = get_reduced("qwen2-1.5b") if reduced else get_config("qwen2-1.5b")
+    calib = _synthetic_calib(cfg, 1, CALIB_N, CALIB_B, CALIB_S)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    llm = LLM.load("qwen2-1.5b", quant="gptq-int4", seed=0, reduced=reduced,
+                   calib_batches=calib, device=dev)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    want = {k.name: 0 for k in kernels}
+    if dev != "cpu":
+        want["flash_attention"] = cfg.num_layers * CALIB_N
+    if launches != want:
+        raise AssertionError(f"gptq load: launches {launches}, want {want}")
+    off = {str(t.device) for t in T._leaves(llm.params)
+           if t.device.type != torch.device(dev).type}
+    if off:
+        raise AssertionError(f"gptq load: params left on {off}")
+    return llm, calib, {"wall_s": wall, "load_s": llm.load_s,
+                        "launches": launches}
+
+
+def _qt_of(layer_params: dict, names, din: int):
+    """The int4 dicts of ``names`` (one layer) as one QuantizedTensor,
+    concatenated along the output axis."""
+    import torch
+    from repro_torch.core.gptq import QuantizedTensor
+    from repro_torch.core.quant import unpack_int4
+    ds = [layer_params[n] for n in names]
+    return QuantizedTensor(
+        q=torch.cat([unpack_int4(d["qweight"], din) for d in ds], 1),
+        scales=torch.cat([d["scales"] for d in ds], 1),
+        zeros=torch.cat([d["zeros"] for d in ds], 1),
+        g_idx=ds[0]["g_idx"], bits=4)
+
+
+def gptq_quality(llm, calib, dev: str = "cuda") -> dict:
+    """(b) GPTQ's Hessian-weighted proxy loss against RTN's (group size
+    GS, ``quantize_params_rtn``) on the same dense weights, for the 56
+    (layer, Hessian) pairs: wq|wk|wv under the attention-input Hessian,
+    w_gate|w_up under the MLP-input one.  The dense weights and Hessians
+    are made again from the load's seed and calibration tokens.  Then
+    (a): layer 0's w_gate [1536, 8960] through the port's OBQ on the card
+    and on the CPU, the same float64 W and H."""
+    import torch
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.core.gptq import quant_error
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantize import (calibration_hessians,
+                                             quantize_params_rtn)
+    cfg = llm.cfg
+    d = cfg.d_model
+    dense = T.init_params(cfg, 0, dev)
+    hess = calibration_hessians(cfg, dense, calib)
+    rtn = T.split_layers(quantize_params_rtn(dense, cfg, GS))
+    dl = T.split_layers(dense)["layers"]
+    rows, e_gptq, e_rtn = [], 0.0, 0.0
+    for i, pair in enumerate(hess):
+        for h, block, names in zip(pair, ("attn", "mlp"),
+                                   (("wq", "wk", "wv"), ("w_gate", "w_up"))):
+            w = torch.cat([dl[i][block][n].reshape(d, -1) for n in names], 1)
+            eg = quant_error(w, _qt_of(llm.params["layers"][i][block], names,
+                                       d), h.h)
+            er = quant_error(w, _qt_of(rtn["layers"][i][block], names, d),
+                             h.h)
+            rows.append({"layer": i, "hessian": block, "gptq": eg,
+                         "rtn": er, "ratio": eg / er})
+            e_gptq += eg
+            e_rtn += er
+    ratios = [r["ratio"] for r in rows]
+    out = {"pairs": len(rows), "gptq_sum": e_gptq, "rtn_sum": e_rtn,
+           "sum_ratio": e_gptq / e_rtn, "ratio_min": min(ratios),
+           "ratio_max": max(ratios), "per_pair": rows}
+    if not e_gptq < e_rtn:
+        raise AssertionError(f"gptq: summed Hessian loss {e_gptq} not below "
+                             f"RTN's {e_rtn}")
+
+    # (a) card OBQ against CPU OBQ, one full-width w_gate
+    qcfg = QuantConfig(bits=4, group_size=GS)
+    w = dl[0]["mlp"]["w_gate"].double()
+    h = hess[0][1].h
+    card, card_s = _timed_obq(w, h, qcfg)
+    cpu, cpu_s = _timed_obq(w.cpu(), h.cpu(), qcfg)
+    equal = float((card.q.cpu() == cpu.q).float().mean())
+    same_sz = (torch.equal(card.scales.cpu(), cpu.scales)
+               and torch.equal(card.zeros.cpu(), cpu.zeros))
+    e_card = quant_error(w, card, h)
+    e_cpu = quant_error(w.cpu(), cpu, h.cpu())
+    rel = abs(e_card - e_cpu) / e_cpu
+    # the load quantized w_gate in one loop with w_up: its codes
+    loaded = _qt_of(llm.params["layers"][0]["mlp"], ("w_gate",), d)
+    out["obq"] = {"shape": list(w.shape), "card_s": card_s,
+                  "cpu_s": cpu_s, "codes_equal": equal,
+                  "scales_zeros_equal": same_sz, "err_card": e_card,
+                  "err_cpu": e_cpu, "err_rel": rel,
+                  "load_codes_equal": float((loaded.q.cpu()
+                                             == cpu.q).float().mean()),
+                  "rtn_err": quant_error(w, _qt_of(rtn["layers"][0]["mlp"],
+                                                   ("w_gate",), d), h)}
+    if not (equal >= OBQ_CODES_EQUAL and same_sz and rel <= OBQ_ERR_REL):
+        raise AssertionError(f"gptq: card OBQ vs CPU OBQ: {out['obq']}")
+    return out
+
+
+def _timed_obq(w, h, qcfg):
+    """The port's OBQ of one weight on w's device, and its seconds."""
+    import torch
+    from repro_torch.core.gptq import gptq_quantize
+    sync = torch.cuda.synchronize if w.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    qt = gptq_quantize(w, h, qcfg)
+    sync()
+    return qt, time.perf_counter() - t0
+
+
+def gptq_logits(calib, dev: str = "cuda", ref_dev: str = "cpu",
+                layers: int = 2) -> dict:
+    """(c) The 2-layer full-width model, GPTQ-quantized on ``dev`` over
+    ``calib``: ``T.forward`` on a held-out [2, 256] batch on ``dev`` and on
+    ``ref_dev`` within LOGIT_TOL; then, on ``dev``, the mean |GPTQ - dense|
+    logit error below GPTQ_LOGIT_RATIO x RTN's."""
+    import torch
+    from repro_torch.bridge import tree_to
+    from repro_torch.configs.base import QuantConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantize import (gptq_quantize_model,
+                                             quantize_params_rtn)
+    cfg = get_config("qwen2-1.5b").replace(num_layers=layers)
+    dense = T.init_params(cfg, 1, dev)
+    gptq = gptq_quantize_model(cfg, dense, calib,
+                               QuantConfig(bits=4, group_size=GS))
+    rtn = quantize_params_rtn(dense, cfg, GS)
+    gen = torch.Generator().manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 256),
+                                     generator=gen)}
+    with torch.no_grad():
+        lf = T.forward(cfg, dense, batch).float()
+        lg = T.forward(cfg, gptq, batch).float()
+        lr = T.forward(cfg, rtn, batch).float()
+        ref = T.forward(cfg, tree_to(gptq, ref_dev), batch).float()
+    err = (lg.cpu() - ref.cpu()).abs().max().item()
+    eg = (lg - lf).abs().mean().item()
+    er = (lr - lf).abs().mean().item()
+    out = {"layers": layers, "card_vs_cpu_max_abs_err": err,
+           "max_abs_logit": ref.abs().max().item(), "tolerance": LOGIT_TOL,
+           "mean_abs_err_gptq": eg, "mean_abs_err_rtn": er,
+           "ratio": eg / er, "ratio_limit": GPTQ_LOGIT_RATIO,
+           "greedy_agreement_gptq_dense": float(
+               (lg.argmax(-1) == lf.argmax(-1)).float().mean()),
+           "greedy_agreement_rtn_dense": float(
+               (lr.argmax(-1) == lf.argmax(-1)).float().mean())}
+    if not (err <= LOGIT_TOL and bool(torch.isfinite(lg).all())):
+        raise AssertionError(f"gptq logits: card vs CPU {out}")
+    if not eg < GPTQ_LOGIT_RATIO * er:
+        raise AssertionError(f"gptq logits: GPTQ error not below "
+                             f"{GPTQ_LOGIT_RATIO} x RTN's: {out}")
+    return out
+
+
+def gqa_conversion(dev: str = "cuda", kv: int = 4) -> dict:
+    """(d) One full-width qwen1.5-0.5b MHA layer (16 heads, head dim 64),
+    key activations of [4, 512] tokens, converted to ``kv`` KV heads by
+    activation similarity on ``dev`` and on the CPU: the same groups,
+    merged wk / wv within GROUPING_TOL_REL of the CPU's largest entry, a
+    limit that a plain (unweighted) merge must exceed."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.grouping import convert_mha_to_gqa
+    from repro_torch.models import transformer as T
+    cfg = get_config("qwen1.5-0.5b").replace(num_layers=1)
+    params = T.init_params(cfg, 2, dev)
+    a = {k: params["layers"]["attn"][k][0] for k in ("wq", "wk", "wv")}
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen)
+    x = params["embed"][toks.to(dev)].float()
+    H, Dh = cfg.num_heads, cfg.resolved_head_dim
+    acts = torch.einsum("bsd,dhk->hbsk", x, a["wk"]).reshape(H, -1, Dh)
+    t0 = time.perf_counter()
+    got = convert_mha_to_gqa(a["wq"], a["wk"], a["wv"], acts, kv)
+    card_s = time.perf_counter() - t0
+    want = convert_mha_to_gqa(*(a[k].cpu() for k in ("wq", "wk", "wv")),
+                              acts.cpu(), kv)
+    err = max((got.wk.cpu() - want.wk).abs().max().item(),
+              (got.wv.cpu() - want.wv).abs().max().item())
+    tol = GROUPING_TOL_REL * max(want.wk.abs().max().item(),
+                                 want.wv.abs().max().item())
+    # what a wrong merge (plain mean, same groups) reads: the limit must fail it
+    plain = convert_mha_to_gqa(*(a[k].cpu() for k in ("wq", "wk", "wv")),
+                               acts.cpu(), kv, weighted=False)
+    wrong = max((plain.wk - want.wk).abs().max().item(),
+                (plain.wv - want.wv).abs().max().item())
+    out = {"heads": H, "head_dim": Dh, "kv_heads": kv,
+           "groups": got.groups, "same_groups": got.groups == want.groups,
+           "merged_max_abs_err": err, "tolerance": tol,
+           "plain_merge_max_abs_err": wrong,
+           "intra_sim": got.intra_sim, "inter_sim": got.inter_sim,
+           "wk": list(got.wk.shape), "card_s": card_s}
+    if not (out["same_groups"] and err <= tol < wrong):
+        raise AssertionError(f"grouping: card vs CPU {out}")
+    return out
+
+
 def agreement(a, b) -> float:
     """Share of generated tokens two serves agree on, position by
     position (printed, never asserted: near-ties flip greedy tokens)."""
     pairs = [(x, y) for ta, tb in zip(a, b) for x, y in zip(ta, tb)]
     return sum(x == y for x, y in pairs) / max(len(pairs), 1)
+
+
+def phase_gptq(report: dict, kernels):
+    """Phase 5, on the card: (b) the full GPTQ load and its proxy loss
+    against RTN's, (a) card OBQ against CPU OBQ, (c) 2-layer logits, (d)
+    a full-width MHA -> GQA conversion.  Returns the loaded ``LLM``."""
+    g = report["gptq"] = {}
+    t0 = time.perf_counter()
+    llm, calib, g["load"] = gptq_load(kernels)
+    ls = g["load"]["load_s"]
+    log(f"[gptq] LLM.load qwen2-1.5b gptq-int4 x{llm.cfg.num_layers} layers, "
+        f"calibration {CALIB_N} x [{CALIB_B}, {CALIB_S}] tokens: "
+        f"wall_s={g['load']['wall_s']:.2f} "
+        + " ".join(f"{k}_s={v:.2f}" for k, v in ls.items())
+        + f" launches={json.dumps(g['load']['launches'])}")
+    g["quality"] = q = gptq_quality(llm, calib)
+    o = q["obq"]
+    log(f"[gptq] Hessian loss over {q['pairs']} (layer, Hessian) pairs: "
+        f"gptq_sum={q['gptq_sum']:.6e} rtn_sum={q['rtn_sum']:.6e} "
+        f"ratio={q['sum_ratio']:.4f} per-pair ratio "
+        f"{q['ratio_min']:.4f}..{q['ratio_max']:.4f}")
+    log(f"[gptq] OBQ of w_gate {o['shape']}: card_s={o['card_s']:.3f} "
+        f"cpu_s={o['cpu_s']:.3f} codes_equal={o['codes_equal']:.6f} "
+        f"scales_zeros_equal={o['scales_zeros_equal']} "
+        f"err_rel={o['err_rel']:.3e} (gptq {o['err_card']:.6e}, rtn "
+        f"{o['rtn_err']:.6e}); codes equal to the load's (one loop with "
+        f"w_up): {o['load_codes_equal']:.6f}")
+    g["logits"] = lg = gptq_logits(calib)
+    log(f"[gptq] 2-layer full-width logits: {json.dumps(lg)}")
+    g["grouping"] = gr = gqa_conversion()
+    log(f"[gptq] MHA -> GQA qwen1.5-0.5b layer: {json.dumps(gr)}")
+    g["phase_s"] = time.perf_counter() - t0
+    return llm
 
 
 def main() -> int:
@@ -955,12 +1246,16 @@ def main() -> int:
             f"({time.perf_counter() - t0:.1f} s)")
 
     serves = report["serve"] = {}
-    for label, options, must, never in SERVES:
+    gptq_llm = None
+    for label, options, must, never in (*SERVES, GPTQ_SERVE):
+        if label == "gptq-chunked":
+            gptq_llm = phase_gptq(report, ops.KERNELS)
         serves[label] = serve = phase_serve(
             "cuda", kernels=ops.KERNELS, label=label, options=options,
-            must=must, never=never, profile=True)
+            must=must, never=never, profile=True, llm=gptq_llm)
+        quant = "gptq-int4" if gptq_llm is not None else "rtn-int4"
         log(f"[serve] {label}: {serve['config']} x{serve['layers']} layers "
-            f"rtn-int4 {json.dumps(options)}: {serve['requests']} requests, "
+            f"{quant} {json.dumps(options)}: {serve['requests']} requests, "
             f"{serve['gen_tokens']} new tokens in {serve['wall_s']:.2f} s: "
             f"gen_tok_s={serve['gen_tok_s']:.1f} "
             f"total_tok_s={serve['total_tok_s']:.1f} "
@@ -994,7 +1289,7 @@ def main() -> int:
     log(f"[serve] int8 / bf16 kv_pool_bytes = {int8['kv_pool_bytes']} / "
         f"{bf16['kv_pool_bytes']} = {ratio:.4f}; DtoH copies per step int8 "
         f"{dtoh[0]:.2f}, bf16 {dtoh[1]:.2f}")
-    for other in ("int8-chunked", "bf16-whole-prompt"):
+    for other in ("int8-chunked", "bf16-whole-prompt", "gptq-chunked"):
         log(f"[serve] greedy agreement bf16-chunked vs {other}: "
             f"{agreement(bf16['tokens'], serves[other]['tokens']):.3f}")
     if ratio > 0.51:
@@ -1009,6 +1304,7 @@ def main() -> int:
     for k in kernels:
         by_serve = {lb: sv["launches"][k["name"]]
                     for lb, sv in serves.items()}
+        by_serve["gptq-load"] = report["gptq"]["load"]["launches"][k["name"]]
         record.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],

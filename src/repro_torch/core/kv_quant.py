@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.paged_cache import (_scatter_rows, copy_blocks,
                                           gather_kv, gather_kv_bounded,
                                           write_decode_kv, write_prefill_kv)
@@ -101,11 +102,13 @@ def cache_to_state(cache: KVCache) -> dict:
 
 
 def make_kv_pool_quant(num_layers: int, num_blocks: int, block_size: int,
-                       num_kv_heads: int, head_dim: int, device="cpu"
+                       num_kv_heads: int, head_dim: int, device="cuda"
                        ) -> Tuple[torch.Tensor, torch.Tensor,
                                   torch.Tensor, torch.Tensor]:
     """(k_values, v_values [L, NB, BS, KV, D] int8, k_scales, v_scales
-    [L, NB, KV] f32), all zero."""
+    [L, NB, KV] f32), all zero, on the card unless the caller asks for
+    the CPU."""
+    device = resolve_device(device)
     vshape = (num_layers, num_blocks, block_size, num_kv_heads, head_dim)
     sshape = (num_layers, num_blocks, num_kv_heads)
     return (torch.zeros(vshape, dtype=torch.int8, device=device),

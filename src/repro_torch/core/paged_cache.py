@@ -24,6 +24,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 # --------------------------------------------------------------------------
 # Host-side allocator
 # --------------------------------------------------------------------------
@@ -311,8 +313,10 @@ class BlockAllocator:
 
 def make_kv_pool(num_layers: int, num_blocks: int, block_size: int,
                  num_kv_heads: int, head_dim: int, dtype=torch.bfloat16,
-                 device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pre-allocated pool: (k_pool, v_pool) each [L, num_blocks, bs, KV, D]."""
+                 device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-allocated pool: (k_pool, v_pool) each [L, num_blocks, bs, KV, D],
+    on the card unless the caller asks for the CPU."""
+    device = resolve_device(device)
     shape = (num_layers, num_blocks, block_size, num_kv_heads, head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))

@@ -25,6 +25,35 @@ def pack_int4(q: np.ndarray) -> np.ndarray:
     return (q << shifts).sum(axis=1).astype(np.uint32).view(np.int32)
 
 
+def pack_codes(q: torch.Tensor) -> torch.Tensor:
+    """[..., K, N] integer codes (< 16, K a multiple of 8) -> [..., K/8,
+    N] int32 on q's device, the layout of ``pack_int4``."""
+    *lead, K, N = q.shape
+    if K % PACK:
+        raise ValueError(f"in features {K} not a multiple of {PACK}")
+    q = q.reshape(*lead, K // PACK, PACK, N).to(torch.int64)
+    shifts = 4 * torch.arange(PACK, dtype=torch.int64, device=q.device)
+    words = (q << shifts[:, None]).sum(dim=-2)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32,
+                       words).to(torch.int32)
+
+
+def make_quant_params(qt) -> Dict[str, torch.Tensor]:
+    """The int4 dict of one quantized linear, from a
+    ``core.gptq.QuantizedTensor``: {qweight [K/8, N] i32, scales / zeros
+    [K/gs, N] f32, g_idx [K] i32}.  The groups must be contiguous and
+    whole (g_idx == arange(K) // gs), as the int4 matmul kernel reads
+    them."""
+    K = qt.q.shape[0]
+    gs = K // qt.scales.shape[0]
+    want = torch.arange(K, device=qt.g_idx.device) // gs
+    if K % qt.scales.shape[0] or not torch.equal(qt.g_idx.long(), want):
+        raise ValueError("int4 weights need contiguous whole groups "
+                         "(g_idx == arange(K) // group_size)")
+    return {"qweight": pack_codes(qt.q), "scales": qt.scales.float(),
+            "zeros": qt.zeros.float(), "g_idx": qt.g_idx.to(torch.int32)}
+
+
 def unpack_int4(packed: torch.Tensor, din: int) -> torch.Tensor:
     """[in//8, out] int32 -> [in, out] int32 codes in [0, 16).
 

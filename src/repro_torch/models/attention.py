@@ -1,6 +1,7 @@
 """Attention layer of the dense decoders on the Opt-GQA core: the q/k/v
-projections, the whole-prompt prefill with its cache write, and the paged
-decode path over the block-table pool (bf16 or int8).
+projections, the full-sequence path of the plain forward, the
+whole-prompt prefill with its cache write, and the paged decode path over
+the block-table pool (bf16 or int8).
 
 This slice ports the full-attention branch; the sliding-window ring cache
 and the sharded (shard_map) islands of the JAX package wait for later
@@ -56,6 +57,19 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions):
 def _slopes(cfg: ModelConfig, device):
     return alibi_slopes(cfg.num_heads, device) if cfg.pos_emb == "alibi" \
         else None
+
+
+def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+               kind: str = "full", pos_offset=0) -> torch.Tensor:
+    """Full-sequence path (the plain forward and GPTQ's calibration
+    replay). x: [B, S, d] at positions pos_offset .. pos_offset + S - 1
+    -> [B, S, d]; no cache."""
+    S = x.shape[1]
+    q, k, v = _qkv(cfg, p, x, pos_offset + torch.arange(S, device=x.device))
+    win = cfg.sliding_window if kind == "sliding" else 0
+    o = ops.flash_attention(q, k, v, _slopes(cfg, x.device),
+                            causal=not cfg.is_encoder, sliding_window=win)
+    return linear(o.reshape(*o.shape[:2], -1), p["wo"])
 
 
 def attn_prefill(cfg: ModelConfig, p: Params, x: torch.Tensor, *, kind: str,

@@ -1,18 +1,26 @@
-"""Model-level int4 quantization: round-to-nearest (RTN) of every matmul
-weight, in torch on the params' device, bit-exact with the JAX package's
-``quantize_params_rtn``.
+"""Model-level int4 quantization transforms, in torch on the params'
+device.
 
-``gptq-int4`` (Hessian OBQ over calibration activations, ``core/gptq.py``)
-is not ported yet (ROADMAP A7).
+``quantize_params_rtn`` — round-to-nearest int4 of every matmul weight,
+bit-exact with the JAX package's (the RTN baseline).
+
+``gptq_quantize_model`` — the real thing: replays the dense model layer
+by layer on calibration tokens, accumulates the Hessians at the inputs of
+``wq`` and ``w_gate``, and runs the OBQ loop of ``core/gptq.py``.  The
+artifact format is RTN's.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.core.quant import PACK
+from repro_torch.configs.base import ModelConfig, QuantConfig
+from repro_torch.core.gptq import (HessianAccumulator, QuantizedTensor,
+                                   gptq_quantize)
+from repro_torch.core.quant import make_quant_params, pack_codes
+from repro_torch.models import transformer as T
 
 # the dense decoders' linears; the other families' targets come with them
 QUANT_TARGETS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
@@ -32,12 +40,8 @@ def _rtn_pack(w2: torch.Tensor, group_size: int) -> Dict[str, torch.Tensor]:
     zero = torch.round(-wmin / scale)
     q = torch.clamp(torch.round(wg / scale.unsqueeze(-2)
                                 + zero.unsqueeze(-2)), 0, 15)
-    q = q.reshape(*lead, K // PACK, PACK, N).to(torch.int64)
-    shifts = 4 * torch.arange(PACK, dtype=torch.int64, device=w2.device)
-    words = (q << shifts[:, None]).sum(dim=-2)             # [..., K/8, N]
-    packed = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
     g_idx = (torch.arange(K, dtype=torch.int32, device=w2.device) // gs)
-    return {"qweight": packed.to(torch.int32), "scales": scale,
+    return {"qweight": pack_codes(q.reshape(*lead, K, N)), "scales": scale,
             "zeros": zero, "g_idx": g_idx.expand(*lead, K).contiguous()}
 
 
@@ -83,3 +87,105 @@ def quantize_params_rtn(params: Dict[str, Any], cfg: ModelConfig,
 
     return walk(params, False)
 
+
+# --------------------------------------------------------------------------
+# True GPTQ over calibration data (dense models).
+# --------------------------------------------------------------------------
+
+def calibration_hessians(cfg: ModelConfig, params: Dict[str, Any],
+                         calib_batches: Sequence[Dict[str, Any]]
+                         ) -> List[Tuple[HessianAccumulator,
+                                         HessianAccumulator]]:
+    """Replay the unquantized layers on ``calib_batches`` (each
+    {"tokens": [B, S]}, tensors or numpy arrays) through ``T.apply_layer``,
+    the layer body ``T.forward`` runs, and accumulate per layer the Hessians of the attention input
+    (``wq``'s) and the MLP input (``w_gate``'s), on the params' device.
+    Each layer feeds the next its unquantized output, as in the JAX
+    package."""
+    T._require_dense(cfg)
+    dev = params["embed"].device
+    hess = [(HessianAccumulator(cfg.d_model, dev),
+             HessianAccumulator(cfg.d_model, dev))
+            for _ in range(cfg.num_layers)]
+    with torch.no_grad():
+        for batch in calib_batches:
+            x = T._embed_inputs(cfg, params, batch)
+            for i, (h_attn, h_mlp) in enumerate(hess):
+                acc = {"attn": h_attn, "mlp": h_mlp}
+                x = T.apply_layer(cfg, T._layer(params, i), x,
+                                  cfg.layer_kind(i),
+                                  tap=lambda name, h: acc[name].update(
+                                      h.float()))
+    return hess
+
+
+def _gptq_shared(ws: Dict[str, torch.Tensor], hessian: Optional[torch.Tensor],
+                 din: int, qcfg: QuantConfig) -> Dict[str, QuantizedTensor]:
+    """OBQ of weights that share one input (and so one Hessian) in a
+    single loop: concatenated along the output axis, since each output
+    column's path depends only on H, the permutation and that column."""
+    w2 = {k: w.reshape(din, -1) for k, w in ws.items()}
+    qt = gptq_quantize(torch.cat(list(w2.values()), 1), hessian, qcfg)
+    out, c0 = {}, 0
+    for k, w in w2.items():
+        c1 = c0 + w.shape[1]
+        out[k] = QuantizedTensor(q=qt.q[:, c0:c1], scales=qt.scales[:, c0:c1],
+                                 zeros=qt.zeros[:, c0:c1], g_idx=qt.g_idx,
+                                 bits=qt.bits)
+        c0 = c1
+    return out
+
+
+def _clock(dev) -> float:
+    """Host seconds once the device's queue has drained."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.perf_counter()
+
+
+def gptq_quantize_model(cfg: ModelConfig, params: Dict[str, Any],
+                        calib_batches: Sequence[Dict[str, Any]],
+                        qcfg: Optional[QuantConfig] = None, *,
+                        timings: Optional[dict] = None) -> Dict[str, Any]:
+    """Hessian-weighted GPTQ of a dense model's linears, on the params'
+    device.  ``wq/wk/wv`` share the attention-input Hessian and
+    ``w_gate/w_up`` the MLP-input one; ``wo`` and ``w_down`` take the
+    identity Hessian (RTN), as in the JAX package.  ``timings``, if
+    given, receives the seconds of "calibration" (forward + Hessians),
+    "obq" and "pack"."""
+    qcfg = qcfg or cfg.quant or QuantConfig()
+    dev = params["embed"].device
+    t0 = _clock(dev)
+    hess = calibration_hessians(cfg, params, calib_batches)
+    t1 = _clock(dev)
+
+    d, hd = cfg.d_model, cfg.num_heads * cfg.resolved_head_dim
+    qts = []
+    for i, (h_attn, h_mlp) in enumerate(hess):
+        lp = T._layer(params, i)
+        a, m = lp["attn"], lp["mlp"]
+        qts.append({
+            **_gptq_shared({k: a[k] for k in ("wq", "wk", "wv")}, h_attn.h,
+                           d, qcfg),
+            **_gptq_shared({"wo": a["wo"]}, None, hd, qcfg),
+            **_gptq_shared({k: m[k] for k in ("w_gate", "w_up")}, h_mlp.h,
+                           d, qcfg),
+            **_gptq_shared({"w_down": m["w_down"]}, None,
+                           m["w_down"].shape[0], qcfg)})
+    del hess
+    t2 = _clock(dev)
+
+    new_layers = []
+    for i, q in enumerate(qts):
+        lp = T._layer(params, i)
+        attn = dict(lp["attn"])
+        mlp = dict(lp["mlp"])
+        for k, qt in q.items():
+            (attn if k in attn else mlp)[k] = make_quant_params(qt)
+        new_layers.append({**lp, "attn": attn, "mlp": mlp})
+    out = dict(params)
+    out["layers"] = T._stack(new_layers)
+    if timings is not None:
+        timings.update(calibration=t1 - t0, obq=t2 - t1,
+                       pack=_clock(dev) - t2)
+    return out

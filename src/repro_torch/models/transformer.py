@@ -1,5 +1,6 @@
-"""Dense decoder assembly for serving: init / decode state / whole-prompt
-prefill / decode step / megastep / prefill chunk / unified step.
+"""Dense decoder assembly: init / the plain full-sequence forward /
+decode state / whole-prompt prefill / decode step / megastep / prefill
+chunk / unified step.
 
 The JAX package scans over layer-stacked params with ``lax.scan``; here a
 Python loop walks the layers.  ``params["layers"]`` keeps the JAX layout
@@ -10,7 +11,7 @@ pools are updated in place.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,8 +24,8 @@ from repro_torch.core.kv_quant import (cache_from_state, cache_to_state,
 from repro_torch.core.paged_cache import make_kv_pool
 from repro_torch.core.sampling import sample_from_logits
 from repro_torch.kernels import ops
-from repro_torch.models.attention import (_qkv, _slopes, attn_decode,
-                                         attn_init, attn_prefill)
+from repro_torch.models.attention import (_qkv, _slopes, attn_apply,
+                                         attn_decode, attn_init, attn_prefill)
 from repro_torch.models.layers import (apply_norm, embed_init, linear,
                                        mlp_apply, mlp_init, norm_init,
                                        unembed)
@@ -102,6 +103,8 @@ def split_layers(params: Params) -> Params:
 def _leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
     return [tree]
 
 
@@ -133,6 +136,49 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
         return tree.to(dtype) if tree.is_floating_point() else tree
 
     return walk(params)
+
+
+# --------------------------------------------------------------------------
+# Layer application (plain forward)
+# --------------------------------------------------------------------------
+
+def apply_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, kind: str,
+                tap: Optional[Callable[[str, torch.Tensor], None]] = None
+                ) -> torch.Tensor:
+    """One pre-norm layer.  ``tap``, if given, sees the input of each
+    block's linears: ``tap("attn", h)`` and ``tap("mlp", h)``."""
+    h = apply_norm(lp["attn_norm"], x, cfg.norm, cfg.norm_eps)
+    if tap is not None:
+        tap("attn", h)
+    x = x + attn_apply(cfg, lp["attn"], h, kind=kind)
+    h = apply_norm(lp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
+    if tap is not None:
+        tap("mlp", h)
+    return x + mlp_apply(lp["mlp"], h, cfg.act)
+
+
+def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
+                  ) -> torch.Tensor:
+    """Token frontend (the audio and vision frontends wait for A11);
+    tokens may be a tensor or a numpy array."""
+    if cfg.frontend != "none":
+        raise NotImplementedError(f"{cfg.frontend!r} frontends are not "
+                                  "ported yet (ROADMAP A11)")
+    emb = params["embed"]
+    tokens = torch.as_tensor(batch["tokens"]).to(emb.device).long()
+    return emb[tokens].to(act_dtype(cfg))
+
+
+def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
+            ) -> torch.Tensor:
+    """Full causal forward -> logits [B, S, V] in the activation dtype, a
+    Python loop over the layers (no remat: no training yet, A12)."""
+    _require_dense(cfg)
+    x = _embed_inputs(cfg, params, batch)
+    for i in range(cfg.num_layers):
+        x = apply_layer(cfg, _layer(params, i), x, cfg.layer_kind(i))
+    x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    return unembed(x, params["embed"], params.get("head"))
 
 
 # --------------------------------------------------------------------------

@@ -5,6 +5,10 @@
     llm = LLM.load("qwen2-1.5b", quant="rtn-int4", seed=0)   # on the card
     outs = llm.generate(prompts, SamplingParams(max_tokens=32))
 
+    # GPTQ (Hessian OBQ) over calibration tokens, on the card:
+    llm = LLM.load("qwen2-1.5b", quant="gptq-int4", seed=0,
+                   calib_batches=[{"tokens": toks}, ...])
+
     # int8 paged KV (half the pool bytes of bf16) and/or whole-prompt
     # prefill waves instead of chunked prefill:
     llm = LLM.load("qwen2-1.5b", quant="rtn-int4", kv_cache_dtype="int8",
@@ -17,11 +21,14 @@ published checkpoint, so ``load`` serves random weights made from
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.configs.registry import get_config, get_reduced
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import ServingEngine
@@ -30,6 +37,19 @@ from repro_torch.serving.params import RequestOutput, SamplingParams
 QUANT_MODES = (None, "rtn-int4", "gptq-int4")
 
 Prompt = Sequence[int]
+
+
+def _synthetic_calib(cfg: ModelConfig, seed: int, n_batches: int = 2,
+                     batch: int = 2, seq: int = 32) -> List[dict]:
+    """Random-token calibration batches for GPTQ when none are supplied
+    (good enough for smoke-scale models; pass real data for quality).
+    Drawn on the CPU from a ``torch.Generator`` seeded with ``seed``, so a
+    load on the card calibrates on the tokens a CPU load does; not
+    bit-equal to the JAX package's ``jax.random`` draw."""
+    gen = torch.Generator().manual_seed(seed)
+    return [{"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                     generator=gen)}
+            for _ in range(n_batches)]
 
 
 class LLM:
@@ -42,41 +62,59 @@ class LLM:
         self.engine = ServingEngine(cfg, params, detokenizer=detokenizer,
                                     device=device, **engine_kw)
         self.params = self.engine.runner.params
+        self.load_s: dict = {}     # seconds per step, filled by ``load``
 
     @classmethod
     def load(cls, config_name: str, *, quant: Optional[str] = None,
              kv_cache_dtype: str = "bf16", reduced: bool = False,
-             seed: int = 0,
-             quant_group_size: int = 32, device="cuda",
+             overrides: Optional[dict] = None, seed: int = 0,
+             quant_group_size: int = 32,
+             calib_batches: Optional[list] = None, device="cuda",
              **engine_kw) -> "LLM":
         """Build a ready-to-serve ``LLM`` from a registry config name.
 
         quant: None | "rtn-int4" (round-to-nearest int4 of every matmul
-        weight, done in torch on ``device``); "gptq-int4" is not ported
-        yet (ROADMAP A7).  kv_cache_dtype: "bf16" (the pool holds the
-        activation dtype) or "int8" (int8 values plus one f32 scale per
-        block and KV head).  reduced: the tiny same-family CPU config.
+        weight) | "gptq-int4" (Hessian OBQ over ``calib_batches``, a list
+        of {"tokens": [B, S]} tensors or numpy arrays; synthetic tokens
+        from ``seed`` when None), either done in torch on ``device``.
+        kv_cache_dtype: "bf16" (the pool holds the activation dtype) or
+        "int8" (int8 values plus one f32 scale per block and KV head).
+        reduced: the tiny same-family CPU config.  overrides:
+        ``ModelConfig.replace`` fields applied after config resolution.
         engine_kw: forwarded to ``ServingEngine`` (max_slots, num_blocks,
         max_blocks_per_seq, max_num_batched_tokens, max_horizon,
         enable_chunked_prefill — False runs whole-prompt prefill waves —
-        prefill_bucket [whole-prompt mode only], ...).
+        prefill_bucket [whole-prompt mode only], ...).  The returned
+        ``LLM``'s ``load_s`` holds the seconds of each step of the load.
         """
         if quant not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {quant!r}; "
                              f"expected one of {QUANT_MODES}")
-        if quant == "gptq-int4":
-            raise NotImplementedError(
-                "gptq-int4 is not ported to repro_torch yet (ROADMAP A7); "
-                "use quant='rtn-int4'")
         dev = resolve_device(device)
-        cfg = get_reduced(config_name) if reduced else get_config(config_name)
+        cfg = (get_reduced(config_name, **(overrides or {})) if reduced
+               else get_config(config_name))
+        if overrides and not reduced:
+            cfg = cfg.replace(**overrides)
+        t0 = time.perf_counter()
         params = T.init_params(cfg, seed, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        load_s = {"init": time.perf_counter() - t0}
         if quant == "rtn-int4":
             from repro_torch.models.quantize import quantize_params_rtn
             params = quantize_params_rtn(params, cfg,
                                          group_size=quant_group_size)
-        return cls(cfg, params, seed=seed, kv_cache_dtype=kv_cache_dtype,
-                   device=dev, **engine_kw)
+        elif quant == "gptq-int4":
+            from repro_torch.models.quantize import gptq_quantize_model
+            calib = calib_batches or _synthetic_calib(cfg, seed)
+            params = gptq_quantize_model(
+                cfg, params, calib,
+                QuantConfig(bits=4, group_size=quant_group_size),
+                timings=load_s)
+        llm = cls(cfg, params, seed=seed, kv_cache_dtype=kv_cache_dtype,
+                  device=dev, **engine_kw)
+        llm.load_s = load_s
+        return llm
 
     # ------------------------------------------------------------ serving
     @staticmethod

@@ -36,6 +36,9 @@ def test_cuda_entry_points_raise_without_cuda():
         pytest.skip("this host has a card: the CUDA default is valid here")
     from repro_torch.bridge import params_from_numpy
     from repro_torch.configs.registry import get_reduced
+    from repro_torch.core.gptq import HessianAccumulator
+    from repro_torch.core.kv_quant import make_kv_pool_quant
+    from repro_torch.core.paged_cache import make_kv_pool
     from repro_torch.models import transformer as T
     from repro_torch.serving import LLM, ServingEngine
     cfg = get_reduced("qwen2-1.5b", num_heads=12, num_kv_heads=2)
@@ -43,6 +46,14 @@ def test_cuda_entry_points_raise_without_cuda():
         T.init_params(cfg, 0)
     with pytest.raises(RuntimeError, match="cuda"):
         LLM.load("qwen2-1.5b", reduced=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        LLM.load("qwen2-1.5b", quant="gptq-int4", reduced=True)
+    for alloc in (make_kv_pool, make_kv_pool_quant):
+        with pytest.raises(RuntimeError, match="cuda"):
+            alloc(1, 2, 4, 1, 8)
+        assert alloc(1, 2, 4, 1, 8, device="cpu")[0].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        HessianAccumulator(8)
     params = T.init_params(cfg, 0, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         ServingEngine(cfg, params)
@@ -59,9 +70,11 @@ def test_unported_paths_refuse():
     from repro_torch.serving import LLM, ServingEngine
     with pytest.raises(NotImplementedError, match="A11"):
         get_config("falcon-mamba-7b")
-    with pytest.raises(NotImplementedError, match="A7"):
-        LLM.load("qwen2-1.5b", quant="gptq-int4", reduced=True,
-                 device="cpu")
+    # gptq-int4 is served now: a CPU load calibrates on synthetic tokens
+    llm = LLM.load("qwen2-1.5b", quant="gptq-int4", reduced=True,
+                   device="cpu")
+    assert "qweight" in llm.params["layers"][0]["mlp"]["w_down"]
+    assert set(llm.load_s) == {"init", "calibration", "obq", "pack"}
     cfg = get_reduced("qwen2-1.5b", num_heads=12, num_kv_heads=2)
     params = T.init_params(cfg, 0, device="cpu")
     for kw in ({"enable_async_step": True}, {"enable_unified_step": False},

@@ -137,7 +137,8 @@ def test_copy_blocks_quant_and_gathers_match_jax():
 
 
 def test_cache_modes_and_sizes_match_jax():
-    kv, ks_, vv, vs = kq.make_kv_pool_quant(L, NB, BS, KV, D)
+    kv, ks_, vv, vs = kq.make_kv_pool_quant(L, NB, BS, KV, D,
+                                             device="cpu")
     jk, jv, jks, jvs = jkq.make_kv_pool_quant(L, NB, BS, KV, D)
     cache = kq.KVCache(kv, vv, ks_, vs)
     jcache = jkq.KVCache(jk, jv, jks, jvs)
