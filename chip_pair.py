@@ -43,6 +43,8 @@ def side(src: str) -> dict:
         out[r["name"]] = r.get("per_case") or r["per_shape"]
         out[r["name"] + ":main"] = {"ms": r["ms"], "plain_ms": r["plain_ms"],
                                     "library_ms": r["library_ms"]}
+    # the two synchronous serves (cs.SYNC), like for like with trees
+    # whose engine had no async step
     for label, options, must, never in (cs.SERVES[0], cs.SERVES[2]):
         sv = cs.phase_serve("cuda", kernels=ops.KERNELS, label=label,
                             options=options, must=must, never=never,

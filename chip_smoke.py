@@ -25,6 +25,11 @@ Phases, each of which fails loudly (any failure exits non-zero):
              ``gptq_matmul`` at every M of GPTQ_MS for each linear; every
              case of these five is called twice and the two outputs must
              be bitwise equal;
+   sampling — ``core.sampling``'s threefry stream on the card against the
+             CPU over 9 rows of the full vocabulary: the uniforms bitwise
+             equal, and ``sample_from_logits`` on the same logits (greedy,
+             temperature 0.8, top-k 20, top-p 0.9 rows mixed) the same
+             tokens;
 3. model   — full-width qwen2-1.5b cut to 2 layers, int4 weights, bf16
              and int8 pools: the same params and inputs through the decode
              step, the prefill chunk, the unified step and the
@@ -34,25 +39,35 @@ Phases, each of which fails loudly (any failure exits non-zero):
 4. serve   — ``LLM.load("qwen2-1.5b", quant="rtn-int4", seed=0, ...)`` at
              full depth serves 8 greedy requests (20 to ~900 prompt tokens,
              two sharing a 64-token prefix, up to 32 new tokens each)
-             three times: chunked prefill over the bf16 pool, chunked
-             prefill over the int8 pool (``kv_cache_dtype="int8"``), and
-             whole-prompt prefill waves over the bf16 pool
-             (``enable_chunked_prefill=False``).  The kernels' launch
-             counters are zeroed just before each serve and read just
-             after: every request finishes, every token is in vocabulary,
-             each serve launched exactly its own kernels (the attention
-             kernels exactly ATTENTION_LAUNCHES times), the allocator
-             audit is clean.  Each serve is re-run under
-             ``torch.profiler`` (device busy time and idle share); the
-             int8 chunked serve may not copy from the device to the host
-             more often per step than the bf16 one;
+             four times: on the synchronous engine (``SYNC``) chunked
+             prefill over the bf16 pool, chunked prefill over the int8
+             pool (``kv_cache_dtype="int8"``) and whole-prompt prefill
+             waves over the bf16 pool (``enable_chunked_prefill=False``);
+             then ``bf16-chunked-async``, the engine's defaults (async
+             pipelined step, telemetry and guards on) on the bf16-chunked
+             traffic.  The kernels' launch counters are zeroed just before
+             each serve and read just after: every request finishes, every
+             token is in vocabulary, each serve launched exactly its own
+             kernels (the attention kernels 28 times the runner's own
+             count of decode steps, chunks and waves, and the synchronous
+             ones exactly ATTENTION_LAUNCHES times), the allocator audit is
+             clean; TTFT and inter-token percentiles come from the
+             engine's histograms, host and device ms per step from
+             ``attribution()``.  Each serve is re-run under
+             ``torch.profiler`` (device busy time and idle share, copies
+             from or to pageable host memory); the int8 chunked serve may
+             not copy from the device to the host more often per step than
+             the bf16 one; the async serve must give bf16-chunked's tokens,
+             take pipelined steps and make no pageable copy;
 5. gptq    — (b) ``LLM.load("qwen2-1.5b", quant="gptq-int4")`` at full
              depth on 8 x [4, 512] seeded calibration tokens, the load's
              seconds split (init, calibration forward plus Hessians, OBQ,
              pack), exactly 224 static ``flash_attention`` launches and no
              other, every served leaf on the card, and GPTQ's
              Hessian-weighted proxy loss summed over the 56 (layer,
-             Hessian) pairs below RTN's; (a) one full-width w_gate through
+             Hessian) pairs below RTN's, layer 0's two Hessians within
+             HESSIAN_TOL_REL of a float64 CPU replay of the same tokens;
+             (a) one full-width w_gate through
              the port's OBQ on the card and on the CPU (codes equal in at
              least 99.99% of entries, scales and zeros bitwise, proxy loss
              within 1e-6); (c) the 2-layer full-width GPTQ model's
@@ -605,6 +620,59 @@ def check_gptq_matmul(gen):
 
 
 # --------------------------------------------------------------------------
+# The threefry sampling stream on the card and on the CPU
+# --------------------------------------------------------------------------
+
+SAMPLE_ROWS = 9
+
+
+def phase_sampling(dev: str = "cuda") -> dict:
+    """``core.sampling`` on the card against the CPU over SAMPLE_ROWS rows
+    of qwen2-1.5b's full vocabulary: the uniforms (integer arithmetic and
+    one exact f32 subtraction) bitwise equal; then ``sample_from_logits``
+    on the same logits (made on the CPU, copied to the card), temperature
+    0.8 rows with top-k 20 and / or top-p 0.9 mixed with greedy rows, the
+    same tokens.  Times the sampled and the all-greedy call on the card
+    (the threefry stream's cost)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import sampling as S
+    V = get_config("qwen2-1.5b").vocab_size
+    n = SAMPLE_ROWS
+    keys = np.stack([S.threefry_seed(1000 + i) for i in range(n)])
+    counts = np.arange(n, dtype=np.int32) * 7
+    u_cpu = S.uniform(S.fold_in(keys, counts), V)
+    u_card = S.uniform(S.fold_in(keys, counts, dev), V).cpu()
+    uniforms_equal = torch.equal(u_cpu.view(torch.int32),
+                                 u_card.view(torch.int32))
+    g_err = (S.gumbel(S.fold_in(keys, counts, dev), V).cpu()
+             - S.gumbel(S.fold_in(keys, counts), V)).abs().max().item()
+    rng = np.random.default_rng(0)
+    logits = torch.from_numpy((rng.normal(size=(n, V)) * 3)
+                              .astype(np.float32))
+    temps = np.array([0, .8, .8, 0, .8, .8, 0, .8, .8], np.float32)
+    top_ks = np.array([0, 20, 0, 0, 20, 0, 0, 20, 20], np.int32)
+    top_ps = np.array([1, 1, .9, 1, .9, 1, 1, 1, .9], np.float32)
+    rows = (keys, counts, temps, top_ks, top_ps)
+    want = S.sample_from_logits(logits, *rows)
+    card = logits.to(dev)
+    got = S.sample_from_logits(card, *rows).cpu()
+    greedy = (keys, counts, np.zeros_like(temps), top_ks, top_ps)
+    out = {"rows": n, "vocab": V, "uniforms_equal": uniforms_equal,
+           "gumbel_max_abs_err": g_err, "tokens_cpu": want.tolist(),
+           "tokens_card": got.tolist(),
+           "tokens_equal": torch.equal(got, want),
+           "sampled_call_ms": time_ms(
+               lambda: S.sample_from_logits(card, *rows)),
+           "greedy_call_ms": time_ms(
+               lambda: S.sample_from_logits(card, *greedy))}
+    if not (uniforms_equal and out["tokens_equal"]):
+        raise AssertionError(f"sampling: card vs CPU {out}")
+    return out
+
+
+# --------------------------------------------------------------------------
 # Phase 3: the 2-layer full-width model on the card and on the CPU
 # --------------------------------------------------------------------------
 
@@ -746,28 +814,36 @@ def serve_prompts(vocab: int, lens=(20, 64 + 40, 64 + 300, 150, 420, 600,
     return ps
 
 
-# The three serves: (label, LLM.load options, kernels that must launch,
-# kernels that must not).  Each runs its own path: the int8 serve never
-# touches a bf16-pool attention kernel, the whole-prompt serve never the
-# chunk kernel.
+# The synchronous engine (read back every step, no span tracer): the
+# first four serves run it, the fifth the engine's defaults.
+SYNC = {"enable_async_step": False, "enable_telemetry": False}
+BF16_CHUNKED_KERNELS = (
+    {"paged_attention", "flash_attention_chunk", "gptq_matmul"},
+    {"paged_attention_quant", "flash_attention_chunk_int8",
+     "flash_attention"})
+# The serves: (label, LLM.load options, kernels that must launch, kernels
+# that must not).  Each runs its own path: the int8 serve never touches a
+# bf16-pool attention kernel, the whole-prompt serve never the chunk
+# kernel.  The last runs the engine's defaults (async pipelined step,
+# telemetry and guards on) on bf16-chunked's traffic.
 SERVES = (
-    ("bf16-chunked", {},
-     {"paged_attention", "flash_attention_chunk", "gptq_matmul"},
-     {"paged_attention_quant", "flash_attention_chunk_int8",
-      "flash_attention"}),
-    ("int8-chunked", {"kv_cache_dtype": "int8"},
+    ("bf16-chunked", SYNC, *BF16_CHUNKED_KERNELS),
+    ("int8-chunked", {**SYNC, "kv_cache_dtype": "int8"},
      {"paged_attention_quant", "flash_attention_chunk_int8", "gptq_matmul"},
      {"paged_attention", "flash_attention_chunk", "flash_attention"}),
-    ("bf16-whole-prompt", {"enable_chunked_prefill": False},
+    ("bf16-whole-prompt", {**SYNC, "enable_chunked_prefill": False},
      {"flash_attention", "paged_attention", "gptq_matmul"},
      {"flash_attention_chunk", "flash_attention_chunk_int8",
       "paged_attention_quant"}),
+    ("bf16-chunked-async", {}, *BF16_CHUNKED_KERNELS),
 )
 
 
-# The attention kernels' launches per full-size serve (one per call: 28
-# layers x the serve's decode steps / chunks); gptq_matmul's count
-# depends on its plan and is checked through must / never only.
+# The synchronous serves' attention launches (one per call: 28 layers x
+# the serve's decode steps / chunks), fixed by their schedule; every serve
+# is also held to 28 x the runner's own count of decode steps, chunks and
+# waves.  gptq_matmul's count depends on its plan and is checked through
+# must / never only.
 ATTENTION_LAUNCHES = {
     "bf16-chunked": {"paged_attention": 1092, "paged_attention_quant": 0,
                      "flash_attention_chunk": 588,
@@ -778,8 +854,9 @@ ATTENTION_LAUNCHES = {
     "bf16-whole-prompt": {"paged_attention": 868, "paged_attention_quant": 0,
                           "flash_attention_chunk": 0,
                           "flash_attention_chunk_int8": 0}}
-# the GPTQ-loaded model serves the bf16-chunked traffic and schedule
-GPTQ_SERVE = ("gptq-chunked", {}, *SERVES[0][2:])
+# the GPTQ-loaded model (its engine synchronous) serves the bf16-chunked
+# traffic and schedule
+GPTQ_SERVE = ("gptq-chunked", SYNC, *SERVES[0][2:])
 ATTENTION_LAUNCHES["gptq-chunked"] = ATTENTION_LAUNCHES["bf16-chunked"]
 
 
@@ -805,18 +882,41 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
     prompts = serve_prompts(vocab)
     sps = [SamplingParams(max_tokens=max_tokens - 3 * i) for i in range(8)]
     eng = llm.engine
-    base = {k: eng.metrics[k] for k in ("gen_tokens", "prompt_tokens",
-                                        "work_steps", "device_dispatches",
-                                        "decode_steps", "prefill_chunks")}
+    # chip_pair.py also serves older trees of the port through this
+    # function: what their engine lacks (the runner's step counts, the
+    # metrics registry, the span tracer) is left out of their record
+    new_engine = hasattr(eng, "obs")
+    base = {k: eng.metrics.get(k, 0)
+            for k in ("gen_tokens", "prompt_tokens", "work_steps",
+                      "device_dispatches", "decode_steps", "prefill_chunks",
+                      "async_steps")}
+    steps0 = dict(eng.runner.steps) if new_engine else {}
+    # latency percentiles over this serve only
+    hist = {k: eng.obs.get(f"repro_{k}_ms")
+            for k in ("request_ttft", "itl")} if new_engine else {}
+    for h in hist.values():
+        h.clear_samples()
     for k in kernels:
         k.launches = 0
+    t0_ns = time.perf_counter_ns()
     t0 = time.perf_counter()
     outs = llm.generate(prompts, sps)
     if dev != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
-    m = {k: eng.metrics[k] - v for k, v in base.items()}
+    m = {k: eng.metrics.get(k, 0) - v for k, v in base.items()}
+    steps = {k: eng.runner.steps[k] - steps0[k] for k in steps0}
+    latency = {f"{k.split('_')[-1]}_p{q}_ms": h.percentile(q)
+               for k, h in hist.items() for q in (50, 99)}
+    attribution = {}
+    if new_engine and eng.tracer.enabled:
+        attribution = eng.attribution(window=max(m["work_steps"], 1))
+        # the host's waits on the device for tokens (the "readback" spans)
+        attribution["readback_ms_per_step"] = sum(
+            sp.dur for sp in eng.tracer.spans()
+            if sp.name == "readback" and sp.ts >= t0_ns) / 1e6 \
+            / max(m["work_steps"], 1)
     bad = [o.request_id for o in outs
            if not o.finished or o.finish_reason not in ("length", "stop")]
     toks = [t for o in outs for t in o.token_ids]
@@ -833,6 +933,20 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
         raise AssertionError(f"serve {label}: kernels {missing} never "
                              f"launched, {stray} launched off their path: "
                              f"{launches}")
+    if kernels and new_engine:
+        # each attention call launches its kernel once per layer
+        L = llm.cfg.num_layers
+        int8 = eng.kv_cache_dtype == "int8"
+        want = {"paged_attention_quant" if int8 else "paged_attention":
+                L * steps["decode"],
+                "flash_attention_chunk_int8" if int8
+                else "flash_attention_chunk": L * steps["chunk"],
+                "flash_attention": L * steps["wave"]}
+        got = {k: launches.get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"serve {label}: attention launches {got}, "
+                                 f"want {want} ({L} x the runner's steps "
+                                 f"{steps})")
     audit = eng.alloc.audit()
     if audit["live_blocks"] != 0:
         raise AssertionError(f"serve {label}: allocator audit not clean: "
@@ -851,6 +965,8 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
            / max(m["work_steps"], 1),
            "decode_steps": m["decode_steps"],
            "prefill_chunks": m["prefill_chunks"],
+           "async_steps": m["async_steps"], "runner_steps": steps,
+           "latency": latency, "attribution": attribution,
            "kv_pool_bytes": eng.runner.kv_pool_bytes(),
            "blocks_reused": eng.alloc.stats["reused"], "audit": audit,
            "launches": launches,
@@ -884,8 +1000,9 @@ def profile_serve(llm, prompts, sps, outs) -> dict:
     """Serve the same requests again under ``torch.profiler`` (after the
     launch counts were read) and sum the device time by kernel: ours, and
     every other kernel PyTorch launched; count the device-to-host copies
-    per engine step.  Also checks the re-run's tokens against the first
-    run's (greedy: identical)."""
+    per engine step and the copies from or to pageable host memory.  Also
+    checks the re-run's tokens against the first run's (greedy:
+    identical)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     steps0 = llm.engine.metrics["work_steps"]
@@ -897,7 +1014,7 @@ def profile_serve(llm, prompts, sps, outs) -> dict:
     steps = llm.engine.metrics["work_steps"] - steps0
     if [o.token_ids for o in again] != [o.token_ids for o in outs]:
         raise AssertionError("serve: the profiled re-run changed tokens")
-    by, dtoh, ops = {}, 0, 0
+    by, dtoh, pageable, ops = {}, 0, 0, 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -907,6 +1024,10 @@ def profile_serve(llm, prompts, sps, outs) -> dict:
         ops += e.count
         if "Memcpy DtoH" in e.key:
             dtoh += e.count
+        # a copy from or to pageable host memory blocks the host on the
+        # stream: it would stall the async engine's pipeline
+        if "Memcpy" in e.key and "Pageable" in e.key:
+            pageable += e.count
         key = ours_name(e.key) or e.key[:60]
         ms, n = by.get(key, (0.0, 0))
         by[key] = (ms + us / 1e3, n + e.count)
@@ -916,6 +1037,7 @@ def profile_serve(llm, prompts, sps, outs) -> dict:
             "device_idle_share": 1.0 - busy / (wall * 1e3),
             "work_steps": steps, "dtoh_copies": dtoh,
             "dtoh_per_step": dtoh / max(steps, 1),
+            "pageable_copies": pageable,
             "device_ops_per_step": ops / max(steps, 1),
             "ours_ms": {v: by[v][0] for v in
                         (*OURS.values(), *INT8_NAMES.values()) if v in by},
@@ -953,7 +1075,7 @@ def gptq_load(kernels, dev: str = "cuda", reduced: bool = False):
         k.launches = 0
     t0 = time.perf_counter()
     llm = LLM.load("qwen2-1.5b", quant="gptq-int4", seed=0, reduced=reduced,
-                   calib_batches=calib, device=dev)
+                   calib_batches=calib, device=dev, **SYNC)
     if dev != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1021,7 +1143,8 @@ def gptq_quality(llm, calib, dev: str = "cuda") -> dict:
     ratios = [r["ratio"] for r in rows]
     out = {"pairs": len(rows), "gptq_sum": e_gptq, "rtn_sum": e_rtn,
            "sum_ratio": e_gptq / e_rtn, "ratio_min": min(ratios),
-           "ratio_max": max(ratios), "per_pair": rows}
+           "ratio_max": max(ratios), "per_pair": rows,
+           "hessians_vs_cpu": hessian_replay(cfg, dense, calib, hess[0])}
     if not e_gptq < e_rtn:
         raise AssertionError(f"gptq: summed Hessian loss {e_gptq} not below "
                              f"RTN's {e_rtn}")
@@ -1050,6 +1173,78 @@ def gptq_quality(llm, calib, dev: str = "cuda") -> dict:
                                                    ("w_gate",), d), h)}
     if not (equal >= OBQ_CODES_EQUAL and same_sz and rel <= OBQ_ERR_REL):
         raise AssertionError(f"gptq: card OBQ vs CPU OBQ: {out['obq']}")
+    return out
+
+
+# card (bf16 activations) vs a CPU float64 replay, relative Frobenius; on
+# an H100 the full-width layer 0 reads 1.02e-3 (attention input) and
+# 4.21e-3 (MLP input)
+HESSIAN_TOL_REL = 1e-2
+
+
+def hessian_replay(cfg, dense, calib, card_pair) -> dict:
+    """C7: layer 0's two calibration Hessians as the card built them
+    (``card_pair``: attention input, MLP input) against a float64 replay
+    on the CPU of the same calibration tokens through the same layer,
+    written out here (RMSNorm, q/k/v with bias, NeoX RoPE, causal GQA
+    attention, wo, residual): relative Frobenius difference of each."""
+    import torch
+    from repro_torch.models import transformer as T
+    lp = {k: {n: t.cpu().double() for n, t in v.items()}
+          for k, v in T._layer(dense, 0).items()}
+    a = lp["attn"]
+
+    def rms(x, w):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True)
+                               + cfg.norm_eps) * w
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    d = cfg.d_model
+    acc = [torch.zeros((d, d), dtype=torch.float64) for _ in range(2)]
+    n = 0
+    t0 = time.perf_counter()
+    for batch in calib:
+        toks = torch.as_tensor(batch["tokens"]).long()
+        x = dense["embed"][toks.to(dense["embed"].device)].cpu().double()
+        B, S, _ = x.shape
+        h = rms(x, lp["attn_norm"]["w"])
+        q = torch.einsum("bsd,dhk->bshk", h, a["wq"])
+        k = torch.einsum("bsd,dhk->bshk", h, a["wk"])
+        v = torch.einsum("bsd,dhk->bshk", h, a["wv"])
+        if cfg.qkv_bias:
+            q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
+        d2 = Dh // 2
+        freqs = cfg.rope_theta ** (-torch.arange(d2, dtype=torch.float64)
+                                   / d2)
+        ang = torch.arange(S, dtype=torch.float64)[:, None] * freqs
+        cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+
+        def rope(t):
+            t1, t2 = t[..., :d2], t[..., d2:]
+            return torch.cat([t1 * cos - t2 * sin, t1 * sin + t2 * cos], -1)
+        q, k = rope(q), rope(k)
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / Dh ** 0.5
+        sc = sc.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1),
+                            float("-inf"))
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), v)
+        x = x + torch.einsum("bshk,hkd->bsd", o, a["wo"])
+        h2 = rms(x, lp["mlp_norm"]["w"])
+        for i, t in enumerate((h, h2)):
+            t = t.reshape(-1, d)
+            acc[i] += t.T @ t
+        n += B * S
+    rows = {}
+    for name, card, cpu in zip(("attn", "mlp"), card_pair, acc):
+        cpu = cpu * (2.0 / n)
+        diff = (card.h.cpu() - cpu).norm() / cpu.norm()
+        rows[name] = {"rel_frobenius": diff.item(),
+                      "max_abs_diff": (card.h.cpu() - cpu).abs().max().item(),
+                      "max_abs": cpu.abs().max().item()}
+    out = {"tokens": n, "cpu_s": time.perf_counter() - t0,
+           "limit": HESSIAN_TOL_REL, **rows}
+    if not all(r["rel_frobenius"] <= HESSIAN_TOL_REL for r in rows.values()):
+        raise AssertionError(f"gptq: layer-0 Hessians card vs CPU {out}")
     return out
 
 
@@ -1153,6 +1348,55 @@ def gqa_conversion(dev: str = "cuda", kv: int = 4) -> dict:
     return out
 
 
+def check_async_serve(serve: dict, sync: dict) -> None:
+    """The async pipelined serve against the synchronous bf16-chunked
+    serve of the same traffic: the same greedy tokens (fixed shapes and
+    bitwise-repeatable kernels, so a difference is the pipeline's fault),
+    pipelined steps taken, and no copy from or to pageable host memory
+    (which would block the host behind the in-flight dispatch)."""
+    if serve["tokens"] != sync["tokens"]:
+        raise AssertionError(
+            "serve bf16-chunked-async: tokens differ from bf16-chunked's "
+            f"(agreement {agreement(serve['tokens'], sync['tokens']):.3f})")
+    if not serve["async_steps"] > 0:
+        raise AssertionError("serve bf16-chunked-async: no pipelined step")
+    if serve["profile"]["pageable_copies"] != 0:
+        raise AssertionError(
+            f"serve bf16-chunked-async: {serve['profile']['pageable_copies']}"
+            " pageable memcpys under the profiler (want 0)")
+    log(f"[serve] bf16-chunked-async: tokens equal bf16-chunked's; "
+        f"async_steps={serve['async_steps']}, no pageable memcpy; wall "
+        f"{serve['wall_s']:.3f} s against {sync['wall_s']:.3f} s")
+
+
+def pair_async_sync(dev: str = "cuda", reduced: bool = False) -> dict:
+    """The bf16-chunked traffic on the synchronous engine and on the
+    async one (the defaults), two engines loaded side by side from the
+    same seed and served in turns sync, async, async, sync after a warm
+    serve each, so both see the same host: the walls of each turn."""
+    import torch
+    from repro_torch.serving import LLM, SamplingParams
+    llms = {"sync": LLM.load("qwen2-1.5b", quant="rtn-int4", seed=0,
+                             device=dev, reduced=reduced, **SYNC),
+            "async": LLM.load("qwen2-1.5b", quant="rtn-int4", seed=0,
+                              device=dev, reduced=reduced)}
+    prompts = serve_prompts(llms["sync"].cfg.vocab_size)
+    sps = [SamplingParams(max_tokens=32 - 3 * i) for i in range(8)]
+    for llm in llms.values():
+        llm.generate(prompts, sps)
+    walls = {"sync": [], "async": []}
+    for mode in ("sync", "async", "async", "sync"):
+        t0 = time.perf_counter()
+        llms[mode].generate(prompts, sps)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+    for llm in llms.values():
+        llm.close()
+    return {"walls_s": walls,
+            "async_over_sync": sum(walls["async"]) / sum(walls["sync"])}
+
+
 def agreement(a, b) -> float:
     """Share of generated tokens two serves agree on, position by
     position (printed, never asserted: near-ties flip greedy tokens)."""
@@ -1174,6 +1418,8 @@ def phase_gptq(report: dict, kernels):
         + " ".join(f"{k}_s={v:.2f}" for k, v in ls.items())
         + f" launches={json.dumps(g['load']['launches'])}")
     g["quality"] = q = gptq_quality(llm, calib)
+    log(f"[gptq] layer-0 Hessians, card vs CPU float64 replay: "
+        f"{json.dumps(q['hessians_vs_cpu'])}")
     o = q["obq"]
     log(f"[gptq] Hessian loss over {q['pairs']} (layer, Hessian) pairs: "
         f"gptq_sum={q['gptq_sum']:.6e} rtn_sum={q['rtn_sum']:.6e} "
@@ -1237,6 +1483,9 @@ def main() -> int:
     log("[kernels] " + ", ".join(k["name"] for k in kernels)
         + " built, launched and within tolerance of their plain versions")
 
+    report["sampling"] = smp = phase_sampling()
+    log(f"[sampling] threefry on the card vs the CPU: {json.dumps(smp)}")
+
     report["model"] = {}
     for kv in ("bf16", "int8"):
         t0 = time.perf_counter()
@@ -1263,11 +1512,17 @@ def main() -> int:
             f"steps={serve['work_steps']} "
             f"dispatches_per_step={serve['dispatches_per_step']:.2f} "
             f"kv_pool_bytes={serve['kv_pool_bytes']} "
+            f"async_steps={serve['async_steps']} "
+            f"runner_steps={json.dumps(serve['runner_steps'])} "
             f"launches={serve['launches']} audit={serve['audit']}")
-        got = {k: serve["launches"][k] for k in ATTENTION_LAUNCHES[label]}
-        if got != ATTENTION_LAUNCHES[label]:
-            raise AssertionError(f"serve {label}: attention launches {got}, "
-                                 f"want {ATTENTION_LAUNCHES[label]}")
+        log(f"[serve] {label}: latency {json.dumps(serve['latency'])} "
+            f"attribution {json.dumps(serve['attribution'])}")
+        if label in ATTENTION_LAUNCHES:
+            got = {k: serve["launches"][k] for k in ATTENTION_LAUNCHES[label]}
+            if got != ATTENTION_LAUNCHES[label]:
+                raise AssertionError(
+                    f"serve {label}: attention launches {got}, want "
+                    f"{ATTENTION_LAUNCHES[label]}")
         prof = serve["profile"]
         if prof is None:
             continue
@@ -1278,6 +1533,7 @@ def main() -> int:
             f"dtoh_copies={prof['dtoh_copies']} over "
             f"{prof['work_steps']} steps "
             f"({prof['dtoh_per_step']:.2f}/step) "
+            f"pageable_copies={prof['pageable_copies']} "
             f"device_ops_per_step={prof['device_ops_per_step']:.0f} "
             f"ours_ms={json.dumps(prof['ours_ms'])}")
         for row in prof["top"]:
@@ -1292,6 +1548,10 @@ def main() -> int:
     for other in ("int8-chunked", "bf16-whole-prompt", "gptq-chunked"):
         log(f"[serve] greedy agreement bf16-chunked vs {other}: "
             f"{agreement(bf16['tokens'], serves[other]['tokens']):.3f}")
+    check_async_serve(serves["bf16-chunked-async"], bf16)
+    report["async_vs_sync"] = pair = pair_async_sync()
+    log(f"[serve] bf16-chunked traffic in turns sync, async, async, sync: "
+        f"{json.dumps(pair)}")
     if ratio > 0.51:
         raise AssertionError(f"serve: int8 pool is {ratio:.4f} of the bf16 "
                              "pool (limit 0.51)")

@@ -1,6 +1,7 @@
 """Dense decoder assembly: init / the plain full-sequence forward /
 decode state / whole-prompt prefill / decode step / megastep / prefill
-chunk / unified step.
+chunk / unified step, and its variant chained on the device for the async
+engine.
 
 The JAX package scans over layer-stacked params with ``lax.scan``; here a
 Python loop walks the layers.  ``params["layers"]`` keeps the JAX layout
@@ -13,7 +14,6 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -277,16 +277,17 @@ def decode_step(cfg: ModelConfig, params: Params,
     return _final_logits(cfg, params, x), state
 
 
-def _sample(logits, sampling: Dict[str, np.ndarray], counts, guard):
+def _sample(logits, sampling: Dict[str, Any], counts, guard):
     return sample_from_logits(logits, sampling["keys"], counts,
                               sampling["temps"], sampling["top_ks"],
                               sampling["top_ps"],
-                              poison=sampling.get("poison"), guard=guard)
+                              poison=sampling.get("poison"), guard=guard,
+                              plan=sampling.get("plan"))
 
 
 def decode_megastep(cfg: ModelConfig, params: Params,
                     state: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                    sampling: Dict[str, np.ndarray], active: torch.Tensor,
+                    sampling: Dict[str, Any], active: torch.Tensor,
                     n_steps: int, *, max_horizon: int,
                     rt: Optional[dict] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -294,18 +295,20 @@ def decode_megastep(cfg: ModelConfig, params: Params,
     device; the host reads the [max_horizon, B] buffer back once.
 
     ``n_steps`` is host-known (the scheduler's steps-until-boundary), so
-    the loop runs exactly that many steps.  sampling: the host's per-slot
-    numpy arrays (keys, counts, temps, top_ks, top_ps[, poison]); step t
-    samples at stream position counts + t.  active [B] bool on the
-    device: inactive slots keep their token and seq_len.  Rows >= n_steps
-    of the returned buffer are zero.
+    the loop runs exactly that many steps.  sampling: the per-slot rows
+    (keys, counts, temps, top_ks, top_ps[, poison]) as host numpy arrays
+    or device tensors, with an optional host ``"plan"``
+    (``sampling.sampling_plan``); step t samples at stream position
+    counts + t, a device add.  active [B] bool on the device: inactive
+    slots keep their token and seq_len.  Rows >= n_steps of the returned
+    buffer are zero.
     """
     guard = bool((rt or {}).get("sampling_guard"))
     out = torch.zeros((max_horizon, tokens.shape[0]), dtype=torch.int32,
                       device=tokens.device)
     active_i = active.to(torch.int32)
     toks = tokens
-    counts = np.asarray(sampling["counts"])
+    counts = torch.as_tensor(sampling["counts"]).to(tokens.device)
     for t in range(int(n_steps)):
         logits, state = decode_step(cfg, params, state, toks, rt)
         nxt = _sample(logits, sampling, counts + t, guard)
@@ -365,7 +368,7 @@ def prefill_chunk(cfg: ModelConfig, params: Params, cache, tokens:
 
 def unified_step(cfg: ModelConfig, params: Params,
                  state: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                 sampling: Dict[str, np.ndarray], active: torch.Tensor,
+                 sampling: Dict[str, Any], active: torch.Tensor,
                  chunk_tokens: torch.Tensor, chunk_block_table: torch.Tensor,
                  pos_offset, total_len, rt: Optional[dict] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -385,3 +388,28 @@ def unified_step(cfg: ModelConfig, params: Params,
     nxt = _sample(logits, sampling, sampling["counts"],
                   bool((rt or {}).get("sampling_guard")))
     return nxt, state
+
+
+def unified_step_chained(cfg: ModelConfig, params: Params,
+                         state: Dict[str, torch.Tensor],
+                         prev_tokens: torch.Tensor, chain_idx: torch.Tensor,
+                         use_prev: torch.Tensor, tokens: torch.Tensor,
+                         sampling: Dict[str, Any], active: torch.Tensor,
+                         chunk_tokens: torch.Tensor,
+                         chunk_block_table: torch.Tensor, pos_offset,
+                         total_len, rt: Optional[dict] = None
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``unified_step`` with the decode feed tokens chained on the device,
+    the async pipelined engine's step: row ``r`` is fed
+    ``prev_tokens[chain_idx[r]]`` — the previous dispatch's ``[B + 1]``
+    output buffer, still being produced when this one is enqueued (row B
+    is the chunk sample) — where ``use_prev[r]``, else the host-known
+    ``tokens[r]``.  The gathered token is clamped at 0: a row the guard
+    sampled as -1 must not index the embedding (its successor is garbage
+    the engine discards at reconcile)."""
+    fed = torch.where(use_prev,
+                      prev_tokens.index_select(0, chain_idx.long())
+                      .clamp(min=0), tokens)
+    return unified_step(cfg, params, state, fed, sampling, active,
+                        chunk_tokens, chunk_block_table, pos_offset,
+                        total_len, rt)

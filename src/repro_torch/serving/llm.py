@@ -14,6 +14,10 @@
     llm = LLM.load("qwen2-1.5b", quant="rtn-int4", kv_cache_dtype="int8",
                    enable_chunked_prefill=False)
 
+The engine runs the reference's default mode: the async pipelined step,
+telemetry and the non-finite guard on (``enable_async_step=False`` reads
+back every step; see ``ServingEngine`` for every argument).
+
 Prompts are token-id lists (the repo has no tokenizer).  The repo has no
 published checkpoint, so ``load`` serves random weights made from
 ``seed``; ``LLM(cfg, params, ...)`` serves any params in the JAX layout
@@ -66,7 +70,8 @@ class LLM:
 
     @classmethod
     def load(cls, config_name: str, *, quant: Optional[str] = None,
-             kv_cache_dtype: str = "bf16", reduced: bool = False,
+             kv_cache_dtype: str = "bf16",
+             checkpoint: Optional[str] = None, reduced: bool = False,
              overrides: Optional[dict] = None, seed: int = 0,
              quant_group_size: int = 32,
              calib_batches: Optional[list] = None, device="cuda",
@@ -81,15 +86,25 @@ class LLM:
         "int8" (int8 values plus one f32 scale per block and KV head).
         reduced: the tiny same-family CPU config.  overrides:
         ``ModelConfig.replace`` fields applied after config resolution.
-        engine_kw: forwarded to ``ServingEngine`` (max_slots, num_blocks,
-        max_blocks_per_seq, max_num_batched_tokens, max_horizon,
-        enable_chunked_prefill — False runs whole-prompt prefill waves —
-        prefill_bucket [whole-prompt mode only], ...).  The returned
-        ``LLM``'s ``load_s`` holds the seconds of each step of the load.
+        checkpoint: the reference's checkpoint directory; not ported yet
+        (ROADMAP A1), so any value but None raises.
+        engine_kw: forwarded to ``ServingEngine``, every argument of the
+        reference's engine (max_slots, num_blocks, max_blocks_per_seq,
+        max_num_batched_tokens, max_horizon, enable_chunked_prefill,
+        enable_unified_step, enable_async_step, use_fused,
+        prefill_bucket, rt; robustness: max_waiting, shed_policy,
+        enable_guards, fault_injector, max_dispatch_retries,
+        retry_backoff_s; observability: enable_telemetry, trace_capacity,
+        profile_labels).  The returned ``LLM``'s ``load_s`` holds the
+        seconds of each step of the load.
         """
         if quant not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {quant!r}; "
                              f"expected one of {QUANT_MODES}")
+        if checkpoint is not None:
+            raise NotImplementedError(
+                "LLM.load(checkpoint=...) is not ported to repro_torch yet "
+                "(ROADMAP A1)")
         dev = resolve_device(device)
         cfg = (get_reduced(config_name, **(overrides or {})) if reduced
                else get_config(config_name))

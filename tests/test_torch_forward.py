@@ -167,7 +167,7 @@ def test_llm_load_gptq_greedy_drain_token_exact_vs_jax(models, monkeypatch,
     want = jllm.generate(prompts, [JSP(max_tokens=m) for m in max_tokens])
     llm = LLM.load("qwen2-1.5b", quant="gptq-int4", reduced=True,
                    overrides=CFG_KW, seed=0, calib_batches=calib,
-                   device="cpu", **kw)
+                   enable_async_step=False, device="cpu", **kw)
     got = llm.generate(prompts, [SamplingParams(max_tokens=m)
                                  for m in max_tokens])
     assert set(llm.load_s) == {"init", "calibration", "obq", "pack"}

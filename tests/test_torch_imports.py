@@ -4,6 +4,7 @@ package, and the entry points that default to the card (the bridge from
 the JAX package's weights included) refuse to run on a host without CUDA
 instead of falling back to the CPU."""
 import ast
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -57,6 +58,24 @@ def test_cuda_entry_points_raise_without_cuda():
     params = T.init_params(cfg, 0, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         ServingEngine(cfg, params)
+    # the engine's defaults are the reference's (async pipelined step,
+    # telemetry and guards on), with the card as the device
+    from repro.serving.engine import ServingEngine as JEngine
+    ref = inspect.signature(JEngine).parameters
+    sig = inspect.signature(ServingEngine).parameters
+    assert set(sig) == set(ref) | {"device"}
+    assert {k: sig[k].default for k in ref} == \
+        {k: p.default for k, p in ref.items()}
+    assert sig["device"].default == "cuda"
+    assert sig["enable_async_step"].default is True
+    assert sig["enable_telemetry"].default is True
+    assert sig["enable_guards"].default is True
+    for kw in ({"enable_async_step": False}, {"enable_telemetry": False},
+               {"enable_unified_step": False}):
+        with pytest.raises(RuntimeError, match="cuda"):
+            ServingEngine(cfg, params, **kw)
+        with pytest.raises(RuntimeError, match="cuda"):
+            LLM.load("qwen2-1.5b", reduced=True, **kw)
     tree = {"w": np.zeros((2, 3), np.float32), "layers": [np.ones(4)]}
     with pytest.raises(RuntimeError, match="cuda"):
         params_from_numpy(tree)
@@ -65,11 +84,18 @@ def test_cuda_entry_points_raise_without_cuda():
 
 
 def test_unported_paths_refuse():
+    """What is still unported is refused by name: a non-dense config
+    (A11), ``LLM.load(checkpoint=...)`` (A1) and ``rt["prefill_chunk"]``
+    (A3).  The async step, the two-call and per-token oracles, fault
+    injection and telemetry are served."""
     from repro_torch.configs.registry import get_config, get_reduced
     from repro_torch.models import transformer as T
-    from repro_torch.serving import LLM, ServingEngine
+    from repro_torch.serving import LLM, FaultInjector, ServingEngine
     with pytest.raises(NotImplementedError, match="A11"):
         get_config("falcon-mamba-7b")
+    with pytest.raises(NotImplementedError, match="A1"):
+        LLM.load("qwen2-1.5b", reduced=True, device="cpu",
+                 checkpoint="ckpt")
     # gptq-int4 is served now: a CPU load calibrates on synthetic tokens
     llm = LLM.load("qwen2-1.5b", quant="gptq-int4", reduced=True,
                    device="cpu")
@@ -77,10 +103,22 @@ def test_unported_paths_refuse():
     assert set(llm.load_s) == {"init", "calibration", "obq", "pack"}
     cfg = get_reduced("qwen2-1.5b", num_heads=12, num_kv_heads=2)
     params = T.init_params(cfg, 0, device="cpu")
-    for kw in ({"enable_async_step": True}, {"enable_unified_step": False},
-               {"enable_unified_step": False, "kv_cache_dtype": "int8"}):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(cfg, params, device="cpu", **kw)
+    eng = ServingEngine(cfg, params, device="cpu")
+    assert eng.async_step and eng.unified and eng.guards
+    assert eng.tracer.enabled
+    for kw in ({"enable_unified_step": False},
+               {"enable_unified_step": False, "kv_cache_dtype": "int8"},
+               {"use_fused": False}):
+        eng = ServingEngine(cfg, params, device="cpu", **kw)
+        assert not eng.unified and not eng.async_step
+    eng = ServingEngine(cfg, params, device="cpu", enable_guards=False)
+    assert "sampling_guard" not in eng.rt
+    fi = FaultInjector()
+    eng = ServingEngine(cfg, params, device="cpu", fault_injector=fi,
+                        max_waiting=4, shed_policy="shed-oldest",
+                        enable_telemetry=False)
+    assert eng.faults is fi and eng.max_waiting == 4
+    assert not eng.tracer.enabled
     # the chunked variant of whole-prompt prefill waits for A3
     st = T.make_decode_state(cfg, 1, 4, 2, device="cpu")
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),

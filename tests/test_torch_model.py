@@ -335,8 +335,8 @@ def test_greedy_guard_and_filter_match_jax():
 
 
 def test_seeded_sampling_is_a_function_of_key_and_count():
-    """Temperature sampling cannot match JAX's threefry bits; within the
-    port it depends only on each row's (key, count), not on the batch."""
+    """Temperature sampling depends only on each row's (key, count), not
+    on the batch (its bits against JAX's: tests/test_torch_sampling.py)."""
     rng = np.random.default_rng(6)
     logits = torch.from_numpy(rng.normal(size=(3, 40)).astype(np.float32))
     keys = np.array([[1, 2], [3, 4], [1, 2]], np.uint32)
@@ -348,5 +348,5 @@ def test_seeded_sampling_is_a_function_of_key_and_count():
                                 temps, tk, tp)
     assert a.tolist() == b[[2, 1, 0]].tolist()
     assert int(a[0]) == int(a[2])          # same row, same key and count
-    u = samp._uniform(keys, counts, 40, "cpu")
+    u = samp.uniform(samp.fold_in(keys, counts), 40)
     assert float(u.min()) > 0 and float(u.max()) < 1

@@ -1,7 +1,7 @@
 """The port's serving stack against the JAX package on the CPU: identical
 scheduler plans over a seeded arrival trace, greedy ``LLM`` drains
-token-exact against the JAX engine (``enable_async_step=False``) on the
-same bridged params — chunked or whole-prompt prefill, bf16 or int8 KV
+token-exact against the JAX engine (both ``enable_async_step=False``) on
+the same bridged params — chunked or whole-prompt prefill, bf16 or int8 KV
 pool (int8 compared with int8 only) — copy-on-write on the device pools,
 and a clean allocator audit after every drain."""
 import jax
@@ -107,13 +107,14 @@ def _prompts():
 
 
 def _drain_both(params, jcfg, cfg, prompts, max_tokens, **kw):
-    """The same greedy requests through the JAX engine and the port's;
-    returns (port LLM, JAX LLM, port outputs, JAX outputs)."""
+    """The same greedy requests through the JAX engine and the port's,
+    both synchronous; returns (port LLM, JAX LLM, port outputs, JAX
+    outputs)."""
     jllm = JLLM(jcfg, params, enable_async_step=False, **kw)
     want = jllm.generate(prompts, [JSP(max_tokens=m) for m in max_tokens])
     llm = LLM(cfg, params_from_numpy(jax.tree.map(np.asarray, params),
                                      device="cpu"),
-              device="cpu", **kw)
+              device="cpu", enable_async_step=False, **kw)
     got = llm.generate(prompts, [SamplingParams(max_tokens=m)
                                  for m in max_tokens])
     return llm, jllm, got, want
