@@ -78,6 +78,29 @@ Phases, each of which fails loudly (any failure exits non-zero):
              groups, merged K/V within 2e-2); then a fourth serve,
              ``gptq-chunked``: the bf16-chunked traffic on the GPTQ-loaded
              model, with the bf16-chunked serve's launches, profiled.
+6. moe     — qwen2-moe-a2.7b (60 routed experts, top-4, 4 shared; 16
+             query heads over 16 KV heads, G = 1): the paged decode
+             kernels (bf16 and int8 pools) and the chunk kernels (both
+             branches) in every case of PAGED_CASES / CHUNK_CASES at its
+             heads, as in phase 2; one full-width layer's ``moe_apply``
+             (``torch._grouped_mm`` over the sorted assignments) at 8 and
+             256 rows against ``moe_apply_dense_ref`` within TOL of the
+             largest entry, bitwise repeatable, timed beside the bound of
+             the experts it touches; the full-width model cut to 2 layers
+             in f32 card vs CPU (as phase 3, within MOE_LOGIT_TOL); then
+             three full-depth serves of ``LLM.load("qwen2-moe-a2.7b",
+             seed=0, ...)`` with bf16 weights on serve_prompts' traffic:
+             ``moe-chunked-async`` (the defaults), ``moe-chunked``
+             (``SYNC``) and ``moe-int8-chunked``, each launching only its
+             own attention kernels, 24 times the runner's decode steps
+             and chunks, with its load seconds and peak
+             ``torch.cuda.max_memory_allocated``, profiled; the async
+             serve must give moe-chunked's tokens with no pageable copy.
+             Last, the checkpoint reader: full-width qwen2-1.5b cut to 2
+             layers written in the JAX package's checkpoint layout
+             (``write_checkpoint``) and served through
+             ``LLM.load(checkpoint=...)``, token-exact against the same
+             params in memory.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -214,12 +237,14 @@ def _repeat_equal(name: str, label: str, call, out) -> None:
                              "deterministic)")
 
 
-def check_paged_attention(gen, int8: bool = False):
+def check_paged_attention(gen, int8: bool = False, heads=(H, KV)):
     """The decode kernel over the bf16 pool, or (``int8``) over the int8
-    pool, in every case of PAGED_CASES: live rows within TOL of the plain
-    version, seq_len-0 rows exactly 0, two calls bitwise equal; each case
-    timed beside its bound, the first also beside the plain version."""
+    pool, in every case of PAGED_CASES at ``heads`` (query heads, KV
+    heads): live rows within TOL of the plain version, seq_len-0 rows
+    exactly 0, two calls bitwise equal; each case timed beside its bound,
+    the first also beside the plain version."""
     import torch
+    H, KV = heads
     from repro_torch.core.alibi import alibi_slopes
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
@@ -282,7 +307,7 @@ def check_paged_attention(gen, int8: bool = False):
                          "src/repro/kernels/paged_attention.py:131"),
             "max_abs_err": worst, "ms": main["ms"],
             "plain_ms": time_ms(lambda: plain(q, *pools, bt, sl), iters=3),
-            "bound": main["bound"], "library_ms": None,
+            "bound": main["bound"], "library_ms": None, "heads": [H, KV],
             "shape": f"q[{B},{H},{D}] " + (f"int8 pool[{NB},{BS},{KV},{D}] + "
                                            f"scales[{NB},{KV}]" if int8 else
                                            f"pool[{NB},{BS},{KV},{D}]")
@@ -291,8 +316,8 @@ def check_paged_attention(gen, int8: bool = False):
             "per_case": rows}
 
 
-def check_paged_attention_quant(gen):
-    return check_paged_attention(gen, int8=True)
+def check_paged_attention_quant(gen, heads=(H, KV)):
+    return check_paged_attention(gen, int8=True, heads=heads)
 
 
 # (q_offset, live length, options) of the chunk cases, the timed one last:
@@ -304,12 +329,14 @@ CHUNK_CASES = ((0, W, {}), (256, W, {}), (300, 100, {}), (1000, 24, {}),
                (768, W, {}))
 
 
-def check_flash_attention_chunk(gen, int8: bool = False):
+def check_flash_attention_chunk(gen, int8: bool = False, heads=(H, KV)):
     """The chunk kernel over the bf16 pool, or (``int8``) its int8-pool
-    branch, in every case of CHUNK_CASES: the live rows within TOL of the
-    plain version, two calls bitwise equal, each case timed beside its
-    bound (the last also beside the plain version)."""
+    branch, in every case of CHUNK_CASES at ``heads`` (query heads, KV
+    heads): the live rows within TOL of the plain version, two calls
+    bitwise equal, each case timed beside its bound (the last also beside
+    the plain version)."""
     import torch
+    H, KV = heads
     from repro_torch.core.alibi import alibi_slopes
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
@@ -380,15 +407,15 @@ def check_flash_attention_chunk(gen, int8: bool = False):
             "max_abs_err": worst, "ms": main["ms"],
             "plain_ms": time_ms(lambda: ref.chunk_prefill_attention_ref(
                 q, kp, vp, ks, vs, 0, bt, off, tl, kr, vr), iters=3),
-            "bound": main["bound"], "library_ms": None,
+            "bound": main["bound"], "library_ms": None, "heads": [H, KV],
             "shape": f"q[1,{W},{H},{D}] q_offset 768 total 1024"
                      + (" int8 pool" if int8 else "") + "; checked also "
                      + "; ".join(r["case"] for r in rows[:-1]),
             "per_case": rows}
 
 
-def check_flash_attention_chunk_int8(gen):
-    return check_flash_attention_chunk(gen, int8=True)
+def check_flash_attention_chunk_int8(gen, heads=(H, KV)):
+    return check_flash_attention_chunk(gen, int8=True, heads=heads)
 
 
 WAVE_B, WAVE_S = 8, 960     # the whole-prompt serve's wave: 8 x 900 -> 960
@@ -676,11 +703,20 @@ def phase_sampling(dev: str = "cuda") -> dict:
 # Phase 3: the 2-layer full-width model on the card and on the CPU
 # --------------------------------------------------------------------------
 
+# card vs CPU logits of the 2-layer MoE model in f32: the sums run in
+# another order (rounding ~1e-6 of logits of size ~5); bf16 is not used
+# because MoE routing turns its rounding into other experts
+MOE_LOGIT_TOL = 1e-3
+
+
 def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2,
-                kv: str = "bf16") -> dict:
+                kv: str = "bf16", config: str = "qwen2-1.5b") -> dict:
     """The same params, pools and inputs through the decode step, a chunk
     at q_offset 160, the unified step and a whole-prompt ``T.prefill``
-    wave on ``dev`` and on ``ref_dev``; ``kv`` picks the pool format."""
+    wave on ``dev`` and on ``ref_dev``; ``kv`` picks the pool format.
+    ``config``'s full width cut to ``layers``: a dense config with int4
+    (RTN) weights and bf16 activations, held to LOGIT_TOL; an MoE config
+    with f32 weights and activations, held to MOE_LOGIT_TOL."""
     import numpy as np
     import torch
     from repro_torch.bridge import tree_to
@@ -689,8 +725,13 @@ def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2,
                                            dequantize_blocks, quantize_blocks)
     from repro_torch.models import transformer as T
     from repro_torch.models.quantize import quantize_params_rtn
-    cfg = get_config("qwen2-1.5b").replace(num_layers=layers)
-    params = quantize_params_rtn(T.init_params(cfg, 1, ref_dev), cfg, GS)
+    cfg = get_config(config).replace(num_layers=layers)
+    if cfg.num_experts:
+        cfg = cfg.replace(dtype="float32")
+        params, tol = T.init_params(cfg, 1, dev), MOE_LOGIT_TOL
+    else:
+        params = quantize_params_rtn(T.init_params(cfg, 1, ref_dev), cfg, GS)
+        tol = LOGIT_TOL
     rng = np.random.default_rng(0)
     nb, mb, slots = 128, MB, B
     bs = cfg.paging.block_size
@@ -784,21 +825,24 @@ def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2,
     for (k0, _), (k1, step) in zip(p0, p1):
         diff = (k1 - k0).abs()
         pool_err = max(pool_err, diff.max().item())
-        pool_ok &= bool((diff <= TOL * k0.abs().max() + step).all())
+        pool_ok &= bool((diff <= min(TOL, tol) * k0.abs().max()
+                         + step).all())
     rows = torch.cat([live, torch.ones(1, dtype=torch.bool)])
     agree = float((n1[rows] == n0[rows]).float().mean())
     wave_agree = float((w1.argmax(-1) == w0.argmax(-1)).float().mean())
-    if not (err <= LOGIT_TOL and pool_ok):
-        raise AssertionError(f"model {kv}: logits max err {err} (tol "
-                             f"{LOGIT_TOL}, max|logit| {scale}), pool err "
+    if not (err <= tol and pool_ok):
+        raise AssertionError(f"model {config} {kv}: logits max err {err} "
+                             f"(tol {tol}, max|logit| {scale}), pool err "
                              f"{pool_err}")
     if not all(torch.isfinite(t).all() for t in (d1, c1, w1)):
-        raise AssertionError(f"model {kv}: non-finite logits on the card")
-    return {"layers": layers, "kv_cache_dtype": kv,
+        raise AssertionError(f"model {config} {kv}: non-finite logits on "
+                             "the card")
+    return {"config": config, "dtype": cfg.dtype, "layers": layers,
+            "kv_cache_dtype": kv,
             "logit_max_abs_err": err, "max_abs_logit": scale,
             "pool_max_abs_err": pool_err, "greedy_agreement": agree,
             "prefill_wave_greedy_agreement": wave_agree,
-            "tolerance": LOGIT_TOL}
+            "tolerance": tol}
 
 
 # --------------------------------------------------------------------------
@@ -863,20 +907,26 @@ ATTENTION_LAUNCHES["gptq-chunked"] = ATTENTION_LAUNCHES["bf16-chunked"]
 def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
                 max_tokens: int = 32, kernels=(), label: str = "bf16-chunked",
                 options=None, must=(), never=(), profile: bool = False,
-                llm=None) -> dict:
+                llm=None, quant="rtn-int4") -> dict:
     """Serve the 8 requests of ``serve_prompts`` on ``llm`` or, when none
-    is given, on ``LLM.load(config, quant="rtn-int4", **options)``."""
+    is given, on ``LLM.load(config, quant=quant, **options)``; on the card
+    the peak of ``torch.cuda.max_memory_allocated`` over the load and
+    over the whole phase is recorded."""
     import torch
     from repro_torch.serving import LLM, SamplingParams
+    card = dev != "cpu"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
     if llm is None:
         t0 = time.perf_counter()
-        llm = LLM.load(config, quant="rtn-int4", seed=0, device=dev,
+        llm = LLM.load(config, quant=quant, seed=0, device=dev,
                        reduced=reduced, **(options or {}))
-        if dev != "cpu":
+        if card:
             torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
     else:
         load_s = sum(llm.load_s.values())
+    load_peak = torch.cuda.max_memory_allocated() if card else None
     vocab = llm.cfg.vocab_size
     llm.generate([list(range(1, 40))], SamplingParams(max_tokens=2))  # warm
     prompts = serve_prompts(vocab)
@@ -956,6 +1006,9 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
            "config": llm.cfg.name, "layers": llm.cfg.num_layers,
            "requests": len(outs), "prompt_lens": [len(p) for p in prompts],
            "load_s": load_s, "wall_s": wall,
+           "load_max_memory_allocated": load_peak,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()
+           if card else None,
            "gen_tokens": m["gen_tokens"], "prompt_tokens": m["prompt_tokens"],
            "gen_tok_s": m["gen_tokens"] / wall,
            "total_tok_s": (m["gen_tokens"] + m["prompt_tokens"]) / wall,
@@ -1349,23 +1402,25 @@ def gqa_conversion(dev: str = "cuda", kv: int = 4) -> dict:
 
 
 def check_async_serve(serve: dict, sync: dict) -> None:
-    """The async pipelined serve against the synchronous bf16-chunked
-    serve of the same traffic: the same greedy tokens (fixed shapes and
+    """The async pipelined serve against the synchronous serve of the same
+    traffic (bf16-chunked-async against bf16-chunked, moe-chunked-async
+    against moe-chunked): the same greedy tokens (fixed shapes and
     bitwise-repeatable kernels, so a difference is the pipeline's fault),
     pipelined steps taken, and no copy from or to pageable host memory
     (which would block the host behind the in-flight dispatch)."""
+    a, b = serve["label"], sync["label"]
     if serve["tokens"] != sync["tokens"]:
         raise AssertionError(
-            "serve bf16-chunked-async: tokens differ from bf16-chunked's "
-            f"(agreement {agreement(serve['tokens'], sync['tokens']):.3f})")
+            f"serve {a}: tokens differ from {b}'s (agreement "
+            f"{agreement(serve['tokens'], sync['tokens']):.3f})")
     if not serve["async_steps"] > 0:
-        raise AssertionError("serve bf16-chunked-async: no pipelined step")
+        raise AssertionError(f"serve {a}: no pipelined step")
     if serve["profile"]["pageable_copies"] != 0:
         raise AssertionError(
-            f"serve bf16-chunked-async: {serve['profile']['pageable_copies']}"
-            " pageable memcpys under the profiler (want 0)")
-    log(f"[serve] bf16-chunked-async: tokens equal bf16-chunked's; "
-        f"async_steps={serve['async_steps']}, no pageable memcpy; wall "
+            f"serve {a}: {serve['profile']['pageable_copies']} pageable "
+            "memcpys under the profiler (want 0)")
+    log(f"[serve] {a}: tokens equal {b}'s; async_steps="
+        f"{serve['async_steps']}, no pageable memcpy; wall "
         f"{serve['wall_s']:.3f} s against {sync['wall_s']:.3f} s")
 
 
@@ -1439,6 +1494,238 @@ def phase_gptq(report: dict, kernels):
     return llm
 
 
+# --------------------------------------------------------------------------
+# Phase 6: the MoE family (qwen2-moe-a2.7b) and the checkpoint reader
+# --------------------------------------------------------------------------
+
+MOE = "qwen2-moe-a2.7b"
+MOE_HEADS = (16, 16)          # its 16 query heads over 16 KV heads: G = 1
+# the attention kernels at the MoE model's heads: (check, label)
+MOE_KERNEL_CHECKS = (
+    (check_paged_attention, "paged_attention[G=1]"),
+    (check_paged_attention_quant, "paged_attention_quant[G=1]"),
+    (check_flash_attention_chunk, "flash_attention_chunk[G=1]"),
+    (check_flash_attention_chunk_int8, "flash_attention_chunk_int8[G=1]"))
+MOE_ROWS = (8, 256)           # a decode step's rows, a chunk's
+MOE_BF16 = {"paged_attention", "flash_attention_chunk"}
+MOE_INT8 = {"paged_attention_quant", "flash_attention_chunk_int8"}
+# The MoE serves (bf16 weights, the reference's only MoE mode), full
+# depth, on serve_prompts' traffic: (label, LLM.load options, kernels that
+# must launch, kernels that must not).  No int4 matmul, no static
+# attention: chunked prefill over the paged pool only.
+MOE_SERVES = (
+    ("moe-chunked-async", {}, MOE_BF16,
+     MOE_INT8 | {"flash_attention", "gptq_matmul"}),
+    ("moe-chunked", SYNC, MOE_BF16,
+     MOE_INT8 | {"flash_attention", "gptq_matmul"}),
+    ("moe-int8-chunked", {**SYNC, "kv_cache_dtype": "int8"}, MOE_INT8,
+     MOE_BF16 | {"flash_attention", "gptq_matmul"}))
+
+
+def check_moe_ffn(gen) -> dict:
+    """One full-width layer's ``moe_apply`` in bf16 (60 experts, top-4,
+    4 shared) at MOE_ROWS tokens against ``moe_apply_dense_ref`` (every
+    expert on every token) on the card: outputs within TOL of the largest
+    entry, two calls bitwise equal.  Both take ``_route``'s ids; the ids
+    must be k distinct real experts per token.  Timed beside the dense
+    reference and the bound, whose bytes are the experts this routing
+    touches (3 x d x f bf16 each) plus the shared experts, the router and
+    x in and out; its operations 2 x rows x k x 3 x d x f plus the shared
+    and router products.  The routed products are ``torch._grouped_mm``
+    (the reference's ``ragged_dot`` is XLA, not a Pallas kernel)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    cfg = get_config(MOE)
+    d, f, k = cfg.d_model, cfg.moe_d_ff, cfg.moe_top_k
+    fs = cfg.num_shared_experts * f
+    lp = T.cast_params(M.moe_init(torch.Generator(device="cuda")
+                                  .manual_seed(3), cfg, "cuda"),
+                       torch.bfloat16)
+    rows_out = []
+    for n in MOE_ROWS:
+        x = torch.randn((n, 1, d), generator=gen, device="cuda").bfloat16()
+        ids, _ = M._route(cfg, lp, x.reshape(-1, d))
+        srt = ids.sort(-1).values
+        if not (bool((srt[:, 1:] != srt[:, :-1]).all())
+                and int(ids.min()) >= 0 and int(ids.max()) < cfg.num_experts):
+            raise AssertionError(f"moe_apply rows {n}: routing ids {ids}")
+        out = M.moe_apply(cfg, lp, x)
+        want = M.moe_apply_dense_ref(cfg, lp, x)
+        torch.cuda.synchronize()
+        scale = want.float().abs().max().item()
+        err = (out.float() - want.float()).abs().max().item()
+        if not err <= TOL * scale:
+            raise AssertionError(f"moe_apply rows {n}: max err {err} (tol "
+                                 f"{TOL} x max|ref| {scale})")
+        _repeat_equal("moe_apply", f"rows {n}",
+                      lambda: M.moe_apply(cfg, lp, x), out)
+        touched = int(ids.unique().numel())
+        nbytes = 2 * (touched * 3 * d * f + 3 * d * fs + d * cfg.num_experts
+                      + 2 * n * d)
+        flops = 2 * n * (k * 3 * d * f + 3 * d * fs + d * cfg.num_experts)
+        row = {"rows": n, "experts_touched": touched, "max_abs_err": err,
+               "max_abs_ref": scale,
+               "ms": time_ms(lambda: M.moe_apply(cfg, lp, x)),
+               "plain_ms": time_ms(lambda: M.moe_apply_dense_ref(cfg, lp, x),
+                                   iters=3),
+               "bound": bound_ms(nbytes, flops)}
+        rows_out.append(row)
+        log(f"[moe] one layer's moe_apply, {n} rows x 1, bf16: "
+            f"experts touched {touched} of {cfg.num_experts}, "
+            f"ms={row['ms']:.4f} dense_ref_ms={row['plain_ms']:.4f} "
+            f"bound_ms={row['bound'][0]:.5f} ({row['bound'][1]}) "
+            f"max_abs_err={err:.3e} (max|ref| {scale:.3e})")
+    return {"name": "moe_apply (torch._grouped_mm)", "rows": rows_out}
+
+
+def write_checkpoint(directory: Path, step: int, params) -> None:
+    """The JAX package's ``Checkpointer`` layout, written with numpy:
+    ``step_<N:08d>/manifest.json`` and one ``.npy`` per leaf of the
+    ``params`` tree (``params.<dotted path>``, characters outside
+    ``[A-Za-z0-9_.-]`` as ``_``)."""
+    import re
+    import numpy as np
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {p: v for k, t in tree.items()
+                    for p, v in flat(t, f"{prefix}.{k}" if prefix
+                                     else k).items()}
+        return {prefix: tree}
+    leaves = flat(params)
+    out = directory / f"step_{step:08d}"
+    out.mkdir(parents=True)
+    for path, t in leaves.items():
+        name = re.sub(r"[^A-Za-z0-9_.-]", "_", f"params.{path}") + ".npy"
+        np.save(out / name, t.cpu().numpy())
+    (out / "manifest.json").write_text(json.dumps(
+        {"step": step, "trees": {"params": sorted(leaves)}, "extra": {}}))
+
+
+CKPT_LAYERS = 2
+
+
+def phase_checkpoint(dev: str = "cuda") -> dict:
+    """Full-width qwen2-1.5b cut to CKPT_LAYERS layers: seeded f32 params
+    written by ``write_checkpoint`` under ``build/`` (removed after), read
+    back by ``LLM.load(checkpoint=...)`` on ``dev``; its greedy tokens on
+    serve_prompts' traffic (8 new tokens each) must equal those of an
+    ``LLM`` built on the same params in memory."""
+    import shutil
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import LLM, SamplingParams
+    cfg = get_config("qwen2-1.5b").replace(num_layers=CKPT_LAYERS)
+    params = T.init_params(cfg, 4, dev)
+    directory = ROOT / "build" / "checkpoint_smoke"
+    shutil.rmtree(directory, ignore_errors=True)
+    prompts = serve_prompts(cfg.vocab_size)
+    sps = SamplingParams(max_tokens=8)
+    try:
+        t0 = time.perf_counter()
+        write_checkpoint(directory, 7, params)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(p.stat().st_size for p in directory.rglob("*"))
+        t0 = time.perf_counter()
+        llm = LLM.load("qwen2-1.5b", checkpoint=str(directory), device=dev,
+                       overrides={"num_layers": CKPT_LAYERS}, **SYNC)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = [o.token_ids for o in llm.generate(prompts, sps)]
+        llm.close()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    ref = LLM(cfg, params, seed=0, device=dev, **SYNC)
+    want = [o.token_ids for o in ref.generate(prompts, sps)]
+    ref.close()
+    out = {"config": cfg.name, "layers": CKPT_LAYERS, "bytes": nbytes,
+           "write_s": write_s, "load_s": load_s, "tokens_equal": got == want,
+           "tokens": got}
+    if got != want:
+        raise AssertionError(f"checkpoint: greedy tokens differ from the "
+                             f"in-memory params' ({agreement(got, want):.3f})")
+    return out
+
+
+def log_serve(label: str, serve: dict, quant) -> None:
+    """One serve's record, and its profiled re-run's, on the log."""
+    log(f"[serve] {label}: {serve['config']} x{serve['layers']} layers "
+        f"{quant} {json.dumps(serve['options'])}: {serve['requests']} "
+        f"requests, {serve['gen_tokens']} new tokens in "
+        f"{serve['wall_s']:.2f} s: gen_tok_s={serve['gen_tok_s']:.1f} "
+        f"total_tok_s={serve['total_tok_s']:.1f} "
+        f"mean_step_ms={serve['mean_step_ms']:.2f} "
+        f"steps={serve['work_steps']} "
+        f"dispatches_per_step={serve['dispatches_per_step']:.2f} "
+        f"kv_pool_bytes={serve['kv_pool_bytes']} "
+        f"async_steps={serve['async_steps']} "
+        f"runner_steps={json.dumps(serve['runner_steps'])} "
+        f"launches={serve['launches']} audit={serve['audit']}")
+    log(f"[serve] {label}: load_s={serve['load_s']:.2f} "
+        f"load_max_memory_allocated={serve['load_max_memory_allocated']} "
+        f"max_memory_allocated={serve['max_memory_allocated']} "
+        f"latency {json.dumps(serve['latency'])} "
+        f"attribution {json.dumps(serve['attribution'])}")
+    prof = serve["profile"]
+    log(f"[profile] {label} re-run under torch.profiler: "
+        f"wall_ms={prof['wall_ms']:.1f} "
+        f"device_busy_ms={prof['device_busy_ms']:.1f} "
+        f"device_idle_share={prof['device_idle_share']:.3f} "
+        f"dtoh_copies={prof['dtoh_copies']} over "
+        f"{prof['work_steps']} steps "
+        f"({prof['dtoh_per_step']:.2f}/step) "
+        f"pageable_copies={prof['pageable_copies']} "
+        f"device_ops_per_step={prof['device_ops_per_step']:.0f} "
+        f"ours_ms={json.dumps(prof['ours_ms'])}")
+    for row in prof["top"]:
+        log(f"[profile]   {row['ms']:9.2f} ms  {row['calls']:6d} calls  "
+            f"{row['kernel']}")
+
+
+def phase_moe(report: dict, gen, kernels) -> list:
+    """Phase 6 on the card: the attention kernels at the MoE model's
+    heads, one layer's expert product, the 2-layer f32 model card vs CPU,
+    the three full-depth MoE serves (each with its launches counted from
+    zero), then the checkpoint reader.  Returns the kernel checks."""
+    m = report["moe"] = {}
+    checks = []
+    for check, label in MOE_KERNEL_CHECKS:
+        k = check(gen, heads=MOE_HEADS)
+        k["label"] = label
+        checks.append(k)
+        log(f"[kernel] {label}: kernel_ms={k['ms']:.4f} "
+            f"plain_ms={k['plain_ms']:.4f} "
+            f"bound_ms={k['bound'][0]:.5f} ({k['bound'][1]}) "
+            f"max_abs_err={k['max_abs_err']:.3e} [{k['shape']}]")
+    m["kernels"] = checks
+    m["ffn"] = check_moe_ffn(gen)
+    t0 = time.perf_counter()
+    m["model"] = res = phase_model("cuda", config=MOE)
+    log(f"[model] 2-layer full-width {MOE} f32, card vs CPU: "
+        f"{json.dumps(res)} ({time.perf_counter() - t0:.1f} s)")
+    serves = m["serve"] = {}
+    for label, options, must, never in MOE_SERVES:
+        serves[label] = serve = phase_serve(
+            "cuda", config=MOE, quant=None, kernels=kernels, label=label,
+            options=options, must=must, never=never, profile=True)
+        log_serve(label, serve, "bf16")
+    check_async_serve(serves["moe-chunked-async"], serves["moe-chunked"])
+    same = agreement(serves["moe-chunked"]["tokens"],
+                     serves["moe-int8-chunked"]["tokens"])
+    log(f"[serve] greedy agreement moe-chunked vs moe-int8-chunked: "
+        f"{same:.3f}")
+    m["checkpoint"] = ck = phase_checkpoint()
+    log(f"[checkpoint] qwen2-1.5b x{ck['layers']} written ({ck['bytes']} "
+        f"bytes, {ck['write_s']:.2f} s) and read by LLM.load(checkpoint=..)"
+        f" in {ck['load_s']:.2f} s: greedy tokens equal the in-memory "
+        "params'")
+    return checks
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1502,43 +1789,15 @@ def main() -> int:
         serves[label] = serve = phase_serve(
             "cuda", kernels=ops.KERNELS, label=label, options=options,
             must=must, never=never, profile=True, llm=gptq_llm)
-        quant = "gptq-int4" if gptq_llm is not None else "rtn-int4"
-        log(f"[serve] {label}: {serve['config']} x{serve['layers']} layers "
-            f"{quant} {json.dumps(options)}: {serve['requests']} requests, "
-            f"{serve['gen_tokens']} new tokens in {serve['wall_s']:.2f} s: "
-            f"gen_tok_s={serve['gen_tok_s']:.1f} "
-            f"total_tok_s={serve['total_tok_s']:.1f} "
-            f"mean_step_ms={serve['mean_step_ms']:.2f} "
-            f"steps={serve['work_steps']} "
-            f"dispatches_per_step={serve['dispatches_per_step']:.2f} "
-            f"kv_pool_bytes={serve['kv_pool_bytes']} "
-            f"async_steps={serve['async_steps']} "
-            f"runner_steps={json.dumps(serve['runner_steps'])} "
-            f"launches={serve['launches']} audit={serve['audit']}")
-        log(f"[serve] {label}: latency {json.dumps(serve['latency'])} "
-            f"attribution {json.dumps(serve['attribution'])}")
+        log_serve(label, serve,
+                  "gptq-int4" if gptq_llm is not None else "rtn-int4")
         if label in ATTENTION_LAUNCHES:
             got = {k: serve["launches"][k] for k in ATTENTION_LAUNCHES[label]}
             if got != ATTENTION_LAUNCHES[label]:
                 raise AssertionError(
                     f"serve {label}: attention launches {got}, want "
                     f"{ATTENTION_LAUNCHES[label]}")
-        prof = serve["profile"]
-        if prof is None:
-            continue
-        log(f"[profile] {label} re-run under torch.profiler: "
-            f"wall_ms={prof['wall_ms']:.1f} "
-            f"device_busy_ms={prof['device_busy_ms']:.1f} "
-            f"device_idle_share={prof['device_idle_share']:.3f} "
-            f"dtoh_copies={prof['dtoh_copies']} over "
-            f"{prof['work_steps']} steps "
-            f"({prof['dtoh_per_step']:.2f}/step) "
-            f"pageable_copies={prof['pageable_copies']} "
-            f"device_ops_per_step={prof['device_ops_per_step']:.0f} "
-            f"ours_ms={json.dumps(prof['ours_ms'])}")
-        for row in prof["top"]:
-            log(f"[profile]   {row['ms']:9.2f} ms  {row['calls']:6d} calls  "
-                f"{row['kernel']}")
+    del gptq_llm
     bf16, int8 = serves["bf16-chunked"], serves["int8-chunked"]
     ratio = int8["kv_pool_bytes"] / bf16["kv_pool_bytes"]
     dtoh = (int8["profile"]["dtoh_per_step"], bf16["profile"]["dtoh_per_step"])
@@ -1560,13 +1819,21 @@ def main() -> int:
                              f"{dtoh[0]:.2f} times per step, the bf16 one "
                              f"{dtoh[1]:.2f}: a hidden host sync")
 
+    moe_checks = phase_moe(report, gen, ops.KERNELS)
+
     record = []
-    for k in kernels:
-        by_serve = {lb: sv["launches"][k["name"]]
-                    for lb, sv in serves.items()}
-        by_serve["gptq-load"] = report["gptq"]["load"]["launches"][k["name"]]
+    for k in kernels + moe_checks:
+        if "label" in k:          # the MoE model's heads: its serves
+            by_serve = {lb: sv["launches"][k["name"]]
+                        for lb, sv in report["moe"]["serve"].items()}
+        else:
+            by_serve = {lb: sv["launches"][k["name"]]
+                        for lb, sv in serves.items()}
+            by_serve["gptq-load"] = \
+                report["gptq"]["load"]["launches"][k["name"]]
         record.append({
-            "name": k["name"], "route": k["route"], "source": k["source"],
+            "name": k.get("label", k["name"]), "route": k["route"],
+            "source": k["source"],
             "replaces": k["replaces"],
             "launches": sum(by_serve.values()),
             "launches_by_serve": by_serve,
@@ -1574,7 +1841,7 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
             "bound_by": k["bound"][1], "library_ms": k["library_ms"],
             "shape": k["shape"]})
-    report["kernels"] = kernels
+    report["kernels"] = kernels + moe_checks
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

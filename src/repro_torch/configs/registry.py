@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the dense decoders it serves today.
+"""Architecture registry of the port: the configs it serves today (the
+dense decoders and the MoE decoder).
 
 The JAX package registers ten families; the port adds each one with the
 slice that ports its model code (ROADMAP A11).  Asking for a family that
@@ -8,16 +9,17 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import qwen1_5_0_5b, qwen2_1_5b
+from repro_torch.configs import qwen1_5_0_5b, qwen2_1_5b, qwen2_moe_a2_7b
 from repro_torch.configs.base import ModelConfig, reduced
 
 ARCHS: Dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (qwen2_1_5b, qwen1_5_0_5b)}
+    m.CONFIG.name: m.CONFIG for m in (qwen2_1_5b, qwen1_5_0_5b,
+                                       qwen2_moe_a2_7b)}
 
 # families of the JAX package that the port has not reached yet
-NOT_PORTED = ("h2o-danube-3-4b", "command-r-plus-104b", "qwen2-moe-a2.7b",
-              "kimi-k2-1t-a32b", "falcon-mamba-7b", "recurrentgemma-2b",
-              "hubert-xlarge", "llava-next-mistral-7b")
+NOT_PORTED = ("h2o-danube-3-4b", "command-r-plus-104b", "kimi-k2-1t-a32b",
+              "falcon-mamba-7b", "recurrentgemma-2b", "hubert-xlarge",
+              "llava-next-mistral-7b")
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,2 +1,2 @@
-"""Dense decoder model code of the port: layers, attention, assembly and
-int4 quantization."""
+"""Decoder model code of the port (dense and MoE): layers, attention, the
+MoE FFN, assembly and int4 quantization."""

@@ -26,6 +26,29 @@ from repro_torch.models import transformer as T
 QUANT_TARGETS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
 
 
+def require_rtn_family(cfg: ModelConfig) -> None:
+    """The reference's RTN int4 of an MoE model loads but cannot serve:
+    it packs the shared experts' ws_* into int4 dicts, which its MoE FFN
+    then multiplies as dense arrays (ROADMAP C8).  The port serves MoE
+    with bf16 weights only, as the reference can."""
+    if cfg.num_experts:
+        raise ValueError(
+            f"rtn-int4 is not served for MoE models ({cfg.name}): the "
+            "reference packs the shared experts' ws_gate / ws_up / ws_down "
+            "to int4 and its MoE FFN cannot apply them (ROADMAP C8); use "
+            "quant=None")
+
+
+def require_gptq_family(cfg: ModelConfig) -> None:
+    """GPTQ takes the dense family only (the reference also takes its vlm
+    and audio families, which the port does not serve yet), with the
+    reference's message."""
+    if cfg.family != "dense":
+        raise ValueError(
+            f"gptq-int4 supports dense-family models, not "
+            f"{cfg.family!r} ({cfg.name}); use quant='rtn-int4'")
+
+
 def _rtn_pack(w2: torch.Tensor, group_size: int) -> Dict[str, torch.Tensor]:
     """RTN int4 pack of [..., K, N] weights (leading dims are layer
     stacks); every leaf of the result keeps the leading dims."""
@@ -71,7 +94,8 @@ def quantize_params_rtn(params: Dict[str, Any], cfg: ModelConfig,
                         group_size: int = 128) -> Dict[str, Any]:
     """Replace every QUANT_TARGETS leaf with its int4 dict
     {qweight [.., K/8, N] i32, scales/zeros [.., K/gs, N] f32,
-    g_idx [.., K] i32}."""
+    g_idx [.., K] i32}.  Refuses MoE models (ROADMAP C8)."""
+    require_rtn_family(cfg)
 
     def walk(tree, stacked):
         out = {}
@@ -102,7 +126,8 @@ def calibration_hessians(cfg: ModelConfig, params: Dict[str, Any],
     (``wq``'s) and the MLP input (``w_gate``'s), on the params' device.
     Each layer feeds the next its unquantized output, as in the JAX
     package."""
-    T._require_dense(cfg)
+    T._require_ported(cfg)
+    require_gptq_family(cfg)
     dev = params["embed"].device
     hess = [(HessianAccumulator(cfg.d_model, dev),
              HessianAccumulator(cfg.d_model, dev))

@@ -1,4 +1,4 @@
-"""Dense decoder assembly: init / the plain full-sequence forward /
+"""Decoder assembly (dense and MoE): init / the plain full-sequence forward /
 decode state / whole-prompt prefill / decode step / megastep / prefill
 chunk / unified step, and its variant chained on the device for the async
 engine.
@@ -29,6 +29,7 @@ from repro_torch.models.attention import (_qkv, _slopes, attn_apply,
 from repro_torch.models.layers import (apply_norm, embed_init, linear,
                                        mlp_apply, mlp_init, norm_init,
                                        unembed)
+from repro_torch.models.moe import moe_apply, moe_init
 
 Params = Dict[str, Any]
 
@@ -44,12 +45,17 @@ def supports_chunked_prefill(cfg: ModelConfig) -> bool:
     return kinds == {"full"} and not cfg.is_encoder
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.num_experts \
+# the families the port serves, and whether each has routed experts
+PORTED_FAMILIES = {"dense": False, "moe": True}
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if PORTED_FAMILIES.get(cfg.family) != bool(cfg.num_experts) \
             or not supports_chunked_prefill(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: only dense full-attention decoders are ported to "
-            "repro_torch so far (ROADMAP A11: other model families)")
+            f"{cfg.name}: only dense and MoE full-attention decoders are "
+            "ported to repro_torch so far (ROADMAP A11: other model "
+            "families)")
 
 
 # --------------------------------------------------------------------------
@@ -62,20 +68,32 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    return {"attn_norm": norm_init(cfg.d_model, cfg.norm, device),
-            "mlp_norm": norm_init(cfg.d_model, cfg.norm, device),
-            "attn": attn_init(gen, cfg, device),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, device)}
+def init_layer(gen: Optional[torch.Generator], cfg: ModelConfig, device
+               ) -> Params:
+    p: Params = {"attn_norm": norm_init(cfg.d_model, cfg.norm, device),
+                 "mlp_norm": norm_init(cfg.d_model, cfg.norm, device),
+                 "attn": attn_init(gen, cfg, device)}
+    if cfg.num_experts:
+        p["moe"] = moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, device)
+    return p
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
-    """Random f32 params from ``seed`` in the JAX package's layout (the
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                dtype: Optional[torch.dtype] = None) -> Params:
+    """Random params from ``seed`` in the JAX package's layout (the
     numbers differ from ``jax.random``'s; tests bridge JAX params
-    instead)."""
-    _require_dense(cfg)
+    instead): f32, or with ``dtype`` every weight but the norms cast to
+    it as it is drawn.  Each layer is drawn, cast and copied into
+    preallocated layer stacks before the next, so a load peaks near the
+    stored size plus one f32 layer (qwen2-moe in bf16: 28.6 GB, not the
+    57 GB of an all-f32 tree).  ``device="meta"`` gives the shapes
+    only."""
+    _require_ported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     params: Params = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
                                           dev),
                       "final_norm": norm_init(cfg.d_model, cfg.norm, dev)}
@@ -83,9 +101,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
         params["head"] = torch.randn((cfg.d_model, cfg.vocab_size),
                                      generator=gen, device=dev) \
             * cfg.d_model ** -0.5
-    params["layers"] = _stack([init_layer(gen, cfg, dev)
-                               for _ in range(cfg.num_layers)])
+    if dtype is not None:
+        params = cast_params(params, dtype)
+    stacks = None
+    for i in range(cfg.num_layers):
+        layer = init_layer(gen, cfg, dev)
+        if dtype is not None:
+            layer = cast_params(layer, dtype)
+        if stacks is None:
+            stacks = _map(lambda t: torch.empty(
+                (cfg.num_layers, *t.shape), dtype=t.dtype, device=dev),
+                layer)
+        _map(lambda dst, src: dst[i].copy_(src), stacks, layer)
+    params["layers"] = stacks
     return params
+
+
+def _map(fn, tree, *rest):
+    """fn over the leaves of ``tree`` (and the same leaves of ``rest``)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def split_layers(params: Params) -> Params:
@@ -119,13 +156,19 @@ def _layer(params: Params, i: int) -> Params:
     return layers[i] if isinstance(layers, list) else _index(layers, i)
 
 
+def keeps_dtype(path: str) -> bool:
+    """``cast_params``'s rule for the leaf at a dotted ``path`` (or under a
+    key): norm weights stay f32, since the norms read them in f32."""
+    return any(k.endswith("norm") for k in path.split("."))
+
+
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
     """Cast every weight that the model only ever uses cast to the
     activation dtype (dense matrices, embeddings, biases) once, up front.
     Bit-identical to casting at each product; norm weights stay f32 (the
     norms read them in f32) and int4 dicts stay as they are."""
     def walk(tree, key=""):
-        if key.endswith("norm"):
+        if keeps_dtype(key):
             return tree
         if isinstance(tree, dict):
             if "qweight" in tree:
@@ -154,7 +197,15 @@ def apply_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, kind: str,
     h = apply_norm(lp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
     if tap is not None:
         tap("mlp", h)
-    return x + mlp_apply(lp["mlp"], h, cfg.act)
+    return x + ffn(cfg, lp, h)
+
+
+def ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+    """The layer's FFN on h [B, S, d]: the routed and shared experts of
+    an MoE layer, else the SwiGLU MLP."""
+    if "moe" in lp:
+        return moe_apply(cfg, lp["moe"], h)
+    return mlp_apply(lp["mlp"], h, cfg.act)
 
 
 def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
@@ -173,7 +224,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
             ) -> torch.Tensor:
     """Full causal forward -> logits [B, S, V] in the activation dtype, a
     Python loop over the layers (no remat: no training yet, A12)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = _embed_inputs(cfg, params, batch)
     for i in range(cfg.num_layers):
         x = apply_layer(cfg, _layer(params, i), x, cfg.layer_kind(i))
@@ -193,7 +244,7 @@ def make_decode_state(cfg: ModelConfig, max_seqs: int, num_blocks: int,
     [L, NB, BS, KV, D]: of ``dtype`` (the activation dtype by default),
     or with ``kv_cache_dtype="int8"`` int8 values plus the (k, v) scale
     pools [L, NB, KV] f32."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     kv_mode = normalize_kv_cache_dtype(kv_cache_dtype)
     dev = resolve_device(device)
     dims = (cfg.num_layers, num_blocks, cfg.paging.block_size,
@@ -227,7 +278,7 @@ def prefill(cfg: ModelConfig, params: Params, state: Dict[str, torch.Tensor],
     set to ctx_lens.  Homogeneous full-attention stacks only; the
     ``rt["prefill_chunk"]`` variant (chunks read back from the pool) is
     not ported (ROADMAP A3)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     if (rt or {}).get("prefill_chunk"):
         raise NotImplementedError(
             "rt['prefill_chunk'] (chunked whole-prompt prefill) is not "
@@ -246,7 +297,7 @@ def prefill(cfg: ModelConfig, params: Params, state: Dict[str, torch.Tensor],
                                   ctx_lens=ctx_lens)
         x = x + mix
         hn = apply_norm(lp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], hn, cfg.act)
+        x = x + ffn(cfg, lp, hn)
     state.update(cache_to_state(cache))
     idx = (ctx_lens.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
     return _final_logits(cfg, params, x.gather(1, idx)[:, 0]), state
@@ -271,7 +322,7 @@ def decode_step(cfg: ModelConfig, params: Params,
                                  seq_lens=seq_lens)
         x = x + mix
         hn = apply_norm(lp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], hn, cfg.act)
+        x = x + ffn(cfg, lp, hn[:, None])[:, 0]        # the [B, 1, d] route
     state = dict(state)
     state.update(cache_to_state(cache))
     return _final_logits(cfg, params, x), state
@@ -339,7 +390,7 @@ def prefill_chunk(cfg: ModelConfig, params: Params, cache, tokens:
     pool's live prefix plus its own raw K/V.  Returns (logits [1, V] of
     the last live token, cache).
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = tokens.device
     W = tokens.shape[1]
     pos_offset = _scalar_i32(pos_offset, dev)
@@ -360,7 +411,7 @@ def prefill_chunk(cfg: ModelConfig, params: Params, cache, tokens:
             block_table, pos_offset, total_len, k, v, slopes)
         x = x + linear(o.reshape(*o.shape[:2], -1), lp["attn"]["wo"])
         hn = apply_norm(lp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], hn, cfg.act)
+        x = x + ffn(cfg, lp, hn)
     last_i = (total_len.long() - pos_offset.long() - 1).clamp(0, W - 1)
     last = x.index_select(1, last_i.reshape(1))[:, 0]               # [1, d]
     return _final_logits(cfg, params, last), cache

@@ -188,9 +188,11 @@ class ServingEngine:
         self._g_step_ema = self.obs.gauge(
             "repro_step_time_ema_ms",
             help="straggler watchdog's EMA of work-step wall time")
-        # every config the port serves keeps its prefill state in the
-        # paged pool (transformer._require_dense), so any of them may chunk
-        self.chunked = bool(enable_chunked_prefill)
+        # chunked prefill needs every layer's prefill state to live in the
+        # paged pool; every config the port serves today does
+        # (transformer._require_ported), the other families will not
+        self.chunked = bool(enable_chunked_prefill) \
+            and T.supports_chunked_prefill(cfg)
         alloc = BlockAllocator(
             num_blocks, cfg.paging.block_size,
             enable_prefix_reuse=cfg.paging.enable_prefix_reuse,

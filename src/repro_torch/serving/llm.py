@@ -14,14 +14,22 @@
     llm = LLM.load("qwen2-1.5b", quant="rtn-int4", kv_cache_dtype="int8",
                    enable_chunked_prefill=False)
 
+    # the MoE decoder (60 routed experts, top-4, plus shared ones), with
+    # bf16 weights as the reference serves it
+    llm = LLM.load("qwen2-moe-a2.7b", seed=0)
+
+    # weights from a checkpoint directory the JAX package's Checkpointer
+    # wrote (the latest step_*), quantized after the restore
+    llm = LLM.load("qwen2-1.5b", checkpoint="ckpt/", quant="rtn-int4")
+
 The engine runs the reference's default mode: the async pipelined step,
 telemetry and the non-finite guard on (``enable_async_step=False`` reads
 back every step; see ``ServingEngine`` for every argument).
 
-Prompts are token-id lists (the repo has no tokenizer).  The repo has no
-published checkpoint, so ``load`` serves random weights made from
-``seed``; ``LLM(cfg, params, ...)`` serves any params in the JAX layout
-(for example bridged from the JAX package with ``bridge.params_from_numpy``).
+Prompts are token-id lists (the repo has no tokenizer).  Without a
+``checkpoint``, ``load`` serves random weights made from ``seed``;
+``LLM(cfg, params, ...)`` serves any params in the JAX layout (for
+example bridged from the JAX package with ``bridge.params_from_numpy``).
 """
 from __future__ import annotations
 
@@ -32,9 +40,14 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.reader import restore_params
 from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.configs.registry import get_config, get_reduced
 from repro_torch.models import transformer as T
+from repro_torch.models.quantize import (gptq_quantize_model,
+                                         quantize_params_rtn,
+                                         require_gptq_family,
+                                         require_rtn_family)
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.params import RequestOutput, SamplingParams
 
@@ -84,10 +97,15 @@ class LLM:
         from ``seed`` when None), either done in torch on ``device``.
         kv_cache_dtype: "bf16" (the pool holds the activation dtype) or
         "int8" (int8 values plus one f32 scale per block and KV head).
+        MoE configs serve with ``quant=None`` only: the reference refuses
+        ``gptq-int4`` for them and cannot serve its ``rtn-int4`` (ROADMAP
+        C8), so both raise ``ValueError`` before anything is loaded.
         reduced: the tiny same-family CPU config.  overrides:
         ``ModelConfig.replace`` fields applied after config resolution.
-        checkpoint: the reference's checkpoint directory; not ported yet
-        (ROADMAP A1), so any value but None raises.
+        checkpoint: a directory the JAX package's ``Checkpointer`` wrote;
+        its latest step's ``params`` replace the seeded init (each leaf
+        checked against the config's shapes), and quantization runs
+        after the restore, as in the reference.
         engine_kw: forwarded to ``ServingEngine``, every argument of the
         reference's engine (max_slots, num_blocks, max_blocks_per_seq,
         max_num_batched_tokens, max_horizon, enable_chunked_prefill,
@@ -101,26 +119,33 @@ class LLM:
         if quant not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {quant!r}; "
                              f"expected one of {QUANT_MODES}")
-        if checkpoint is not None:
-            raise NotImplementedError(
-                "LLM.load(checkpoint=...) is not ported to repro_torch yet "
-                "(ROADMAP A1)")
         dev = resolve_device(device)
         cfg = (get_reduced(config_name, **(overrides or {})) if reduced
                else get_config(config_name))
         if overrides and not reduced:
             cfg = cfg.replace(**overrides)
+        if quant == "rtn-int4":
+            require_rtn_family(cfg)
+        elif quant == "gptq-int4":
+            require_gptq_family(cfg)
+        # unquantized weights are served cast to the activation dtype: store
+        # them so from the start (a bf16 qwen2-moe peaks near its 28.6 GB)
+        dtype = T.act_dtype(cfg) if quant is None else None
         t0 = time.perf_counter()
-        params = T.init_params(cfg, seed, dev)
+        if checkpoint is not None:
+            params = restore_params(checkpoint,
+                                    T.init_params(cfg, device="meta"), dev,
+                                    dtype)
+        else:
+            params = T.init_params(cfg, seed, dev, dtype=dtype)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        load_s = {"init": time.perf_counter() - t0}
+        load_s = {"restore" if checkpoint is not None else "init":
+                  time.perf_counter() - t0}
         if quant == "rtn-int4":
-            from repro_torch.models.quantize import quantize_params_rtn
             params = quantize_params_rtn(params, cfg,
                                          group_size=quant_group_size)
         elif quant == "gptq-int4":
-            from repro_torch.models.quantize import gptq_quantize_model
             calib = calib_batches or _synthetic_calib(cfg, seed)
             params = gptq_quantize_model(
                 cfg, params, calib,

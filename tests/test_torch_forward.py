@@ -156,7 +156,7 @@ def test_llm_load_gptq_greedy_drain_token_exact_vs_jax(models, monkeypatch,
     jcfg, cfg, _, calib, _ = models
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
     bridged = params_from_numpy(_np(jparams), device="cpu")
-    monkeypatch.setattr(T, "init_params", lambda c, seed, dev: bridged)
+    monkeypatch.setattr(T, "init_params", lambda c, seed, dev, **kw: bridged)
     kw = dict(enable_chunked_prefill=chunked, prefill_bucket=16, **ENGINE_KW)
     rng = np.random.default_rng(8)
     prompts = [list(rng.integers(1, 250, n)) for n in (30, 45, 12, 70)]

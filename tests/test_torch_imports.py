@@ -36,6 +36,7 @@ def test_cuda_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the CUDA default is valid here")
     from repro_torch.bridge import params_from_numpy
+    from repro_torch.checkpoint.reader import restore_params
     from repro_torch.configs.registry import get_reduced
     from repro_torch.core.gptq import HessianAccumulator
     from repro_torch.core.kv_quant import make_kv_pool_quant
@@ -55,6 +56,8 @@ def test_cuda_entry_points_raise_without_cuda():
         assert alloc(1, 2, 4, 1, 8, device="cpu")[0].device.type == "cpu"
     with pytest.raises(RuntimeError, match="cuda"):
         HessianAccumulator(8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        restore_params("ckpt", T.init_params(cfg, device="meta"))
     params = T.init_params(cfg, 0, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         ServingEngine(cfg, params)
@@ -84,16 +87,18 @@ def test_cuda_entry_points_raise_without_cuda():
 
 
 def test_unported_paths_refuse():
-    """What is still unported is refused by name: a non-dense config
-    (A11), ``LLM.load(checkpoint=...)`` (A1) and ``rt["prefill_chunk"]``
-    (A3).  The async step, the two-call and per-token oracles, fault
-    injection and telemetry are served."""
+    """What is still unported is refused by name: a config of a family
+    not ported yet (A11) and ``rt["prefill_chunk"]`` (A3).
+    ``LLM.load(checkpoint=...)`` reads the reference's checkpoints (A1)
+    and, as the reference, refuses a directory without a step.  The async
+    step, the two-call and per-token oracles, fault injection and
+    telemetry are served."""
     from repro_torch.configs.registry import get_config, get_reduced
     from repro_torch.models import transformer as T
     from repro_torch.serving import LLM, FaultInjector, ServingEngine
     with pytest.raises(NotImplementedError, match="A11"):
         get_config("falcon-mamba-7b")
-    with pytest.raises(NotImplementedError, match="A1"):
+    with pytest.raises(FileNotFoundError, match="no step_"):
         LLM.load("qwen2-1.5b", reduced=True, device="cpu",
                  checkpoint="ckpt")
     # gptq-int4 is served now: a CPU load calibrates on synthetic tokens
