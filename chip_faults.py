@@ -1,0 +1,215 @@
+#!/usr/bin/env python3
+"""Plant faults that ``chip_smoke.py``'s checks must catch, on one card.
+
+    python3 chip_faults.py
+
+Reads what two of ``chip_smoke``'s checks measure, first on the sound
+port, then with a fault planted, and holds each reading to the check's
+own limit:
+
+- the static attention kernel's cases (phases 2 and 7): the largest
+  absolute error (``TOL``) and the largest error of a query row over
+  that row's RMS (``FLASH_REL_TOL``).  Each fault is planted in a copy of
+  the port's sources under a temporary directory, built there and
+  checked in a process of its own: the band skips its first key tile
+  (``k_begin`` one tile late), or its edge tiles go unmasked;
+- the full-depth h2o-danube-3-4b serve (``serve_danube``): every served
+  token against teacher forcing, the share equal
+  (``TEACHER_AGREEMENT``) and the teacher's largest logit gap to a
+  served token (``TEACHER_GAP``).  Each fault is planted in this process
+  by replacing the ring decode: V read one slot off, the window halved,
+  or the new token written one slot ahead (its own slot stale).
+
+Prints each reading beside its limit and exits 0 only if the sound port
+passes every limit and every planted fault fails at least one.  Details
+go to ``chiprun_out/chip_faults.json``.  Needs one card.
+"""
+from __future__ import annotations
+
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+FLASH_CU = "kernels/csrc/flash_attention.cu"
+# (name, text of flash_attention.cu's tensor-core kernel, its replacement)
+KERNEL_FAULTS = (
+    ("band skips its first key tile",
+     "max(0, q_lo - window + 1) / MMA_BK * MMA_BK : 0",
+     "max(0, q_lo - window + 1) / MMA_BK * MMA_BK + "
+     "(q_lo - window + 1 > 0 ? MMA_BK : 0) : 0"),
+    ("band edge tiles unmasked",
+     "(window > 0 && k0 < q_hi - window + 1)",
+     "(window > 0 && k0 < q_hi - window + 1 - MMA_BK)"),
+)
+
+
+def flash_readings(src=None) -> dict:
+    """{check: [(case, max abs err, max row-relative err)]} of the static
+    kernel's checks, with their limits lifted, for the port under
+    ``src`` (this checkout's when None)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs                   # puts ROOT/src on the path
+    if src is not None:
+        sys.path.insert(0, src)               # the planted copy wins
+    import torch
+    from repro_torch.kernels import build
+    build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cs.TOL = cs.FLASH_REL_TOL = float("inf")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for check in (cs.check_flash_attention, cs.check_flash_attention_d120):
+        r = check(gen)
+        out[r.get("label", r["name"])] = [
+            (c["case"], c["max_abs_err"], c["max_row_rel_err"])
+            for c in r["per_case"]]
+        torch.cuda.empty_cache()
+    return out
+
+
+def flash_fails(readings: dict, tol: float, rel_tol: float) -> list:
+    return [f"{check}: {case}" for check, rows in readings.items()
+            for case, err, rel in rows if not (err <= tol and rel <= rel_tol)]
+
+
+def planted_kernel(name: str, old: str, new: str) -> dict:
+    """Build a copy of the port with ``old`` replaced by ``new`` in the
+    static kernel's source and read its checks in a process of its own."""
+    with tempfile.TemporaryDirectory() as tmp:
+        pkg = Path(tmp) / "src" / "repro_torch"
+        shutil.copytree(ROOT / "src" / "repro_torch", pkg,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        cu = pkg / FLASH_CU
+        text = cu.read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"fault {name!r}: its text occurs "
+                               f"{text.count(old)} times in {FLASH_CU}")
+        cu.write_text(text.replace(old, new))
+        proc = subprocess.run(
+            [sys.executable, __file__, "--flash-readings", str(pkg.parent)],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"fault {name!r}: {proc.stderr[-3000:]}")
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _ring_faults():
+    """name -> a replacement of ``attention._ring_cache_attend``: the sound
+    one with one of the module functions it calls swapped while it runs."""
+    import torch
+    from repro_torch.models import attention as A
+    sound = A._ring_cache_attend
+
+    def swapped(name, fault):
+        def attend(*args):
+            real = getattr(A, name)
+            setattr(A, name, fault(real))
+            try:
+                return sound(*args)
+            finally:
+                setattr(A, name, real)
+        return attend
+
+    def v_off_by_one(real):
+        return lambda q, kc, vc, valid: real(q, kc, torch.roll(vc, 1, dims=1),
+                                             valid)
+
+    def write_ahead(real):
+        # the new token lands one slot ahead: its own slot stays stale
+        def write(pool, layer, x, bt, pos):
+            ring = bt.shape[1] * pool.shape[2]
+            return real(pool, layer, x, bt,
+                        torch.where(pos >= 0, (pos + 1) % ring, pos))
+        return write
+
+    def half_window(q, k, v, cache, bt, seq_lens, layer, win):
+        return sound(q, k, v, cache, bt, seq_lens, layer, win // 2)
+
+    return A, sound, {
+        "ring reads V one slot off": swapped("_ring_attention", v_off_by_one),
+        "ring window halved": half_window,
+        "ring's newest slot stale": swapped("write_decode_kv", write_ahead)}
+
+
+def serve_readings() -> dict:
+    """The danube serve's teacher-forced readings, sound and under each
+    planted ring fault (the same load, the same requests)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import ops
+    from repro_torch.serving import SamplingParams
+    llm, serve, tf = cs.serve_danube(ops.KERNELS)
+    out = {"sound": tf}
+    prompts = cs.serve_prompts(llm.cfg.vocab_size, cs.DANUBE_LENS)
+    sps = [SamplingParams(max_tokens=m) for m in cs.DANUBE_MAX_TOKENS]
+    A, sound, faults = _ring_faults()
+    for name, fault in faults.items():
+        A._ring_cache_attend = fault
+        try:
+            toks = [o.token_ids for o in llm.generate(prompts, sps)]
+        finally:
+            A._ring_cache_attend = sound
+        out[name] = cs.teacher_forced(llm, prompts, toks)
+    llm.close()
+    del llm
+    torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--flash-readings":
+        print(json.dumps(flash_readings(sys.argv[2])), flush=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_faults: torch.cuda.is_available() is False; this script "
+              "runs the port on an NVIDIA card", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    tol, rel_tol = cs.TOL, cs.FLASH_REL_TOL
+    report, bad = {"limits": {"TOL": tol, "FLASH_REL_TOL": rel_tol,
+                              "TEACHER_AGREEMENT": cs.TEACHER_AGREEMENT,
+                              "TEACHER_GAP": cs.TEACHER_GAP}}, []
+    flash = report["flash_attention"] = {"sound": flash_readings()}
+    for name, old, new in KERNEL_FAULTS:
+        flash[name] = planted_kernel(name, old, new)
+    cs.TOL, cs.FLASH_REL_TOL = tol, rel_tol
+    for name, readings in flash.items():
+        fails = flash_fails(readings, tol, rel_tol)
+        for check, rows in readings.items():
+            for case, err, rel in rows:
+                cs.log(f"[flash] {name}: {check} {case}: max_abs_err="
+                       f"{err:.4e} (tol {tol}) max_row_rel_err={rel:.4e} "
+                       f"(tol {rel_tol})")
+        cs.log(f"[flash] {name}: {len(fails)} cases fail")
+        if (name == "sound") != (not fails):
+            bad.append(f"{name}: {fails if fails else 'nothing fails'}")
+    ring = report["serve"] = serve_readings()
+    for name, tf in ring.items():
+        ok = cs.teacher_ok(tf)
+        cs.log(f"[serve] {name}: agreement {tf['agreement']:.4f} (limit "
+               f"{cs.TEACHER_AGREEMENT}) by request "
+               f"{json.dumps(tf['agreement_by_request'])}, max gap "
+               f"{tf['max_gap']:.5f} (limit {cs.TEACHER_GAP}), mean gap "
+               f"{tf['mean_gap']:.5f}: {'passes' if ok else 'fails'}")
+        if (name == "sound") != ok:
+            bad.append(f"{name}: {'fails' if name == 'sound' else 'passes'}")
+    report["seconds"] = time.perf_counter() - t0
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_faults.json").write_text(json.dumps(report, indent=1))
+    cs.log(f"[faults] {report['seconds']:.1f} s; "
+           + ("the sound port passes every limit and every planted fault "
+              "fails one" if not bad else f"WRONG: {bad}"))
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

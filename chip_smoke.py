@@ -101,6 +101,29 @@ Phases, each of which fails loudly (any failure exits non-zero):
              (``write_checkpoint``) and served through
              ``LLM.load(checkpoint=...)``, token-exact against the same
              params in memory.
+7. sliding — h2o-danube-3-4b (every layer a sliding window of 8192 over a
+             private ring cache; 32 query heads over 8 KV heads, head dim
+             120): the static kernel at head dim 120 on the serve's wave
+             [8, 8192] (causal inside the window) and on a band case with
+             Sk 10240 > window 8192, each against its plain version run
+             one (sequence, KV head) group at a time, bitwise repeatable;
+             ``gptq_matmul`` at danube's linears (N = 960 included) at
+             decode and at the wave's 65,536 rows; the full-width model
+             cut to 2 layers in f32 over 64-slot rings card vs CPU (a
+             prompt of 100 wraps at prefill, 40 decode steps); then
+             full-depth ``LLM.load("h2o-danube-3-4b", quant="rtn-int4")``
+             with 8 rings of 512 blocks serves serve_prompts' traffic with
+             the 900-token prompt replaced by one of 8,180 tokens asking
+             for 40 (its ring wraps after 12), on the engine's defaults
+             (a ring stack cannot chunk, so they run synchronous
+             whole-prompt waves: checked), profiled: one wave,
+             ``flash_attention`` 24 times the waves, no decode kernel (the
+             ring decode is plain torch), 0 pageable copies; every served
+             token against teacher forcing (``T.forward``): agreement and
+             logit gap; one full ring decode step and one layer's ring
+             attention timed.  The static kernel's cases here and in
+             phase 2 are also held per query row to FLASH_REL_TOL of the
+             row's own RMS.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -122,6 +145,11 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 TOL = 2e-2                       # bf16 kernel tolerance (tests/test_kernels.py)
 LOGIT_TOL = 0.1                  # bf16 end-to-end logits, card vs CPU
+# static attention: each query row's error over its own RMS (row_rel_err).
+# chip_faults.py on an H100 80GB HBM3 at 700 W: the sound kernel reads
+# 0.026-0.036 in every case; a band that skips its first key tile or
+# leaves its edge tiles unmasked reads 1.65-5.8 in every windowed case
+FLASH_REL_TOL = 0.1
 SPIN_CYCLES = 2_000_000          # ~1 ms of device clock before each timing
 
 H, KV, D, BS, NB, MB, B, W = 12, 2, 128, 16, 512, 64, 8, 256
@@ -437,6 +465,99 @@ def _sdpa_ms(q, k, v, bias):
         return None
 
 
+def row_rel_err(out, want) -> float:
+    """The largest error of any query row relative to that row's size:
+    max over (b, q, h) of max_d |out - want| / RMS_d(want).  A softmax
+    average of unit-normal V over n keys is about sqrt(1/n) in size, so
+    over thousands of keys an absolute limit is as large as the values
+    themselves; this one is not.  Rows the plain version leaves all zero
+    (no live key) count only where the kernel's are not zero too."""
+    import torch
+    rel = 0.0
+    for o, w in zip(out.split(1024, dim=1), want.split(1024, dim=1)):
+        w = w.float()
+        diff = (o.float() - w).abs().amax(-1)
+        rms = w.pow(2).mean(-1).sqrt()
+        # 0 / 0 (a row all zero in both) counts 0, x / 0 counts inf
+        rel = max(rel, (diff / rms).nan_to_num(nan=0.0, posinf=float("inf"))
+                  .max().item())
+    return rel
+
+
+def _flash_rows(cases, plain, name: str = "flash_attention"):
+    """Each (label, (q, k, v), kwargs) of ``cases`` through the static
+    prefill kernel against ``plain`` on the same inputs (within TOL, and
+    every query row within FLASH_REL_TOL of its own RMS, ``row_rel_err``;
+    two calls bitwise equal), timed beside one SDPA call (a plain causal
+    square as ``is_causal``, else an additive mask) and its bound (the
+    live (q, k) pairs).  Returns (worst error, rows)."""
+    import torch
+    from repro_torch.core.gqa import NEG_INF
+    from repro_torch.kernels.flash_attention import flash_attention
+    dev = "cuda"
+    worst, rows = 0.0, []
+    for label, (q, k, v), kw in cases:
+        out = flash_attention(q, k, v, **kw)
+        want = plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        rel = row_rel_err(out, want)
+        del want
+        if not (err <= TOL and rel <= FLASH_REL_TOL):
+            raise AssertionError(f"{name} {label}: max err {err} (tol "
+                                 f"{TOL}), row-relative err {rel} (tol "
+                                 f"{FLASH_REL_TOL})")
+        _repeat_equal(name, label, lambda: flash_attention(q, k, v, **kw),
+                      out)
+        del out
+        worst = max(worst, err)
+        b, sq, h, d = q.shape
+        sk, kvh = k.shape[1], k.shape[2]
+        q_pos = kw.get("q_offset", 0) + torch.arange(sq, device=dev)
+        dist = q_pos[:, None] - torch.arange(sk, device=dev)[None]
+        live = torch.ones_like(dist, dtype=torch.bool)
+        if kw.get("causal", True):
+            live &= dist >= 0
+        if kw.get("sliding_window", 0):
+            live &= dist < kw["sliding_window"]
+        pairs = b * int(live.sum())
+        nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * kvh * d)
+        # a window as wide as the keys leaves a plain causal square
+        win = kw.get("sliding_window", 0)
+        square = (sq == sk and kw.get("q_offset", 0) == 0
+                  and kw.get("causal", True) and "alibi_slopes" not in kw
+                  and (win == 0 or win >= sk))
+        bias = None
+        if kw and not square:
+            bias = torch.where(live, 0.0, NEG_INF)[None, None].expand(
+                1, h, sq, sk)
+            if "alibi_slopes" in kw:
+                bias = bias - kw["alibi_slopes"][:, None, None] \
+                    * dist.abs()[None].float()
+            bias = bias.bfloat16()
+        del dist, live
+        row = {"case": label, "q": list(q.shape), "kv": list(k.shape),
+               "max_abs_err": err, "max_row_rel_err": rel,
+               "ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
+               "library_ms": _sdpa_ms(q, k, v, bias),
+               "bound": bound_ms(nbytes, 4 * h * d * pairs)}
+        del bias
+        rows.append(row)
+        lib = row["library_ms"]
+        log(f"{name} {label}: q{row['q']} kv{row['kv']} "
+            f"kernel_ms={row['ms']:.4f} sdpa_ms="
+            + ("null" if lib is None else f"{lib:.4f}")
+            + f" bound_ms={row['bound'][0]:.5f} ({row['bound'][1]}) "
+            f"max_abs_err={err:.3e} max_row_rel_err={rel:.3e}")
+    return worst, rows
+
+
+def _qkv(gen, b, sq, sk, h=H, kv=KV, d=D):
+    import torch
+    return tuple(torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                 for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+
+
 def check_flash_attention(gen):
     """The static prefill kernel at the whole-prompt serve's wave shape
     (causal), then at q_offset > 0 with Sq < Sk, a sliding band, ALiBi, a
@@ -445,17 +566,12 @@ def check_flash_attention(gen):
     (plain causal, [CALIB_B, CALIB_S]).  Every case is timed beside one SDPA
     call on its inputs (the library yardstick; a mask where the case is not
     a plain causal square) and its bound (the live (q, k) pairs)."""
-    import torch
     from repro_torch.core.alibi import alibi_slopes
-    from repro_torch.core.gqa import NEG_INF
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
     dev = "cuda"
 
-    def qkv(b, sq, sk, h=H, kv=KV, d=D):
-        return tuple(torch.randn(shape, generator=gen, device=dev).bfloat16()
-                     for shape in ((b, sq, h, d), (b, sk, kv, d),
-                                   (b, sk, kv, d)))
+    def qkv(*a):
+        return _qkv(gen, *a)
 
     cases = [("causal wave", qkv(WAVE_B, WAVE_S, WAVE_S), {}),
              ("q_offset 128, Sq 256 < Sk 384", qkv(2, 256, 384),
@@ -473,49 +589,7 @@ def check_flash_attention(gen):
               {"q_offset": 64, "sliding_window": 100}),
              (f"calibration [{CALIB_B},{CALIB_S}] causal",
               qkv(CALIB_B, CALIB_S, CALIB_S), {})]
-    worst, rows = 0.0, []
-    for label, (q, k, v), kw in cases:
-        out = flash_attention(q, k, v, **kw)
-        want = ref.flash_attention_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = (out.float() - want.float()).abs().max().item()
-        if not err <= TOL:
-            raise AssertionError(f"flash_attention {label}: max err {err} "
-                                 f"(tol {TOL})")
-        _repeat_equal("flash_attention", label,
-                      lambda: flash_attention(q, k, v, **kw), out)
-        worst = max(worst, err)
-        b, sq, h, d = q.shape
-        sk, kvh = k.shape[1], k.shape[2]
-        q_pos = kw.get("q_offset", 0) + torch.arange(sq, device=dev)
-        dist = q_pos[:, None] - torch.arange(sk, device=dev)[None]
-        live = torch.ones_like(dist, dtype=torch.bool)
-        if kw.get("causal", True):
-            live &= dist >= 0
-        if kw.get("sliding_window", 0):
-            live &= dist < kw["sliding_window"]
-        pairs = b * int(live.sum())
-        nbytes = 2 * (2 * b * sq * h * d + 2 * b * sk * kvh * d)
-        bias = None
-        if kw:
-            bias = torch.where(live, 0.0, NEG_INF)[None, None].expand(
-                1, h, sq, sk)
-            if "alibi_slopes" in kw:
-                bias = bias - kw["alibi_slopes"][:, None, None] \
-                    * dist.abs()[None].float()
-            bias = bias.bfloat16()
-        row = {"case": label, "q": list(q.shape), "kv": list(k.shape),
-               "max_abs_err": err,
-               "ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
-               "library_ms": _sdpa_ms(q, k, v, bias),
-               "bound": bound_ms(nbytes, 4 * h * d * pairs)}
-        rows.append(row)
-        lib = row["library_ms"]
-        log(f"flash_attention {label}: q{row['q']} kv{row['kv']} "
-            f"kernel_ms={row['ms']:.4f} sdpa_ms="
-            + ("null" if lib is None else f"{lib:.4f}")
-            + f" bound_ms={row['bound'][0]:.5f} ({row['bound'][1]}) "
-            f"max_abs_err={err:.3e}")
+    worst, rows = _flash_rows(cases, ref.flash_attention_ref)
     q, k, v = cases[0][1]
     main = rows[0]
     return {"name": "flash_attention", "route": "cuda",
@@ -569,20 +643,24 @@ def _library_check(row, call, want, lim) -> str:
     return f"max err {diff.max().item():.3e}"
 
 
-def check_gptq_matmul(gen):
-    """Each product of GPTQ_SHAPES against the plain version; two calls
-    must give bitwise-equal outputs (split-K sums in a fixed order).  Each shape is timed beside the plain version, the
-    library call (``torch._weight_int4pack_mm`` on weights repacked once,
-    checked against the plain version first) and a dense bf16 matmul on
-    the dequantized weight (another function: what int4 is meant to
-    beat)."""
+def check_gptq_matmul(gen, shapes=None, main_shape=("gate/up", 8),
+                      shape="x[8,1536] @ int4[1536,8960] gs 32 (gate/up, "
+                            "decode)", library_max_m=None):
+    """Each product of ``shapes`` (GPTQ_SHAPES by default) against the
+    plain version; two calls must give bitwise-equal outputs (split-K
+    sums in a fixed order).  Each shape is timed beside the plain
+    version, the library call (``torch._weight_int4pack_mm`` on weights
+    repacked once, checked against the plain version first; only up to
+    ``library_max_m`` rows when given) and a dense bf16 matmul on the
+    dequantized weight (another function: what int4 is meant to beat).
+    The record's numbers are those of ``main_shape`` (linear, M)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.gptq_matmul import gptq_matmul
     dev = "cuda"
     rows, worst, main = [], 0.0, None
     lib_fn = getattr(torch, "_weight_int4pack_mm", None)
-    for lname, K, N, gs, ms in GPTQ_SHAPES:
+    for lname, K, N, gs, ms in shapes or GPTQ_SHAPES:
         qw = torch.randint(-2 ** 31, 2 ** 31 - 1, (K // 8, N), generator=gen,
                            device=dev, dtype=torch.int64).int()
         sc = (torch.rand((K // gs, N), generator=gen, device=dev) * 0.01)
@@ -622,7 +700,10 @@ def check_gptq_matmul(gen):
                    "bound": bound_ms(nbytes, flops), "rel_err": err / scale,
                    "library_ms": None, "library_note": why,
                    "dense_bf16_matmul_ms": time_ms(lambda: x @ w16)}
-            if packed is not None:
+            if packed is not None and library_max_m is not None \
+                    and M > library_max_m:
+                row["library_note"] = f"not timed above M {library_max_m}"
+            elif packed is not None:
                 row["library_note"] = _library_check(
                     row, lambda: lib_fn(x, packed, gs, sz), want, lim)
             rows.append(row)
@@ -633,16 +714,16 @@ def check_gptq_matmul(gen):
                 + f" bound_ms={row['bound'][0]:.4f} ({row['bound'][1]}) "
                 f"dense_bf16_matmul_ms={row['dense_bf16_matmul_ms']:.4f} "
                 f"rel_err={row['rel_err']:.2e} [{row['library_note']}]")
-            if lname == "gate/up" and M == 8:
+            if (lname, M) == main_shape:
                 main = row
+            del x, y, want, again, diff, lim
     return {"name": "gptq_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gptq_matmul.cu",
             "replaces": "src/repro/kernels/gptq_matmul.py:75",
             "max_abs_err": worst, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound": main["bound"],
             "library_ms": main["library_ms"],
-            "shape": "x[8,1536] @ int4[1536,8960] gs 32 (gate/up, decode); "
-                     "max_abs_err relative to max|ref|",
+            "shape": shape + "; max_abs_err relative to max|ref|",
             "per_shape": rows}
 
 
@@ -907,11 +988,13 @@ ATTENTION_LAUNCHES["gptq-chunked"] = ATTENTION_LAUNCHES["bf16-chunked"]
 def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
                 max_tokens: int = 32, kernels=(), label: str = "bf16-chunked",
                 options=None, must=(), never=(), profile: bool = False,
-                llm=None, quant="rtn-int4") -> dict:
-    """Serve the 8 requests of ``serve_prompts`` on ``llm`` or, when none
-    is given, on ``LLM.load(config, quant=quant, **options)``; on the card
-    the peak of ``torch.cuda.max_memory_allocated`` over the load and
-    over the whole phase is recorded."""
+                llm=None, quant="rtn-int4", lens=None) -> dict:
+    """Serve the 8 requests of ``serve_prompts`` (of ``lens`` tokens when
+    given) on ``llm`` or, when none is given, on ``LLM.load(config,
+    quant=quant, **options)``; request i asks for ``max_tokens - 3 i`` new
+    tokens, or ``max_tokens[i]`` when it is a sequence.  On the card the
+    peak of ``torch.cuda.max_memory_allocated`` over the load and over
+    the whole phase is recorded."""
     import torch
     from repro_torch.serving import LLM, SamplingParams
     card = dev != "cpu"
@@ -929,8 +1012,11 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
     load_peak = torch.cuda.max_memory_allocated() if card else None
     vocab = llm.cfg.vocab_size
     llm.generate([list(range(1, 40))], SamplingParams(max_tokens=2))  # warm
-    prompts = serve_prompts(vocab)
-    sps = [SamplingParams(max_tokens=max_tokens - 3 * i) for i in range(8)]
+    prompts = serve_prompts(vocab) if lens is None \
+        else serve_prompts(vocab, lens)
+    mts = list(max_tokens) if isinstance(max_tokens, (tuple, list)) \
+        else [max_tokens - 3 * i for i in range(8)]
+    sps = [SamplingParams(max_tokens=m) for m in mts]
     eng = llm.engine
     # chip_pair.py also serves older trees of the port through this
     # function: what their engine lacks (the runner's step counts, the
@@ -984,11 +1070,13 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
                              f"launched, {stray} launched off their path: "
                              f"{launches}")
     if kernels and new_engine:
-        # each attention call launches its kernel once per layer
+        # each attention call launches its kernel once per layer; a ring
+        # stack decodes in plain torch (no decode kernel reads a ring)
         L = llm.cfg.num_layers
         int8 = eng.kv_cache_dtype == "int8"
+        ring = getattr(eng.scheduler, "ring_only", False)
         want = {"paged_attention_quant" if int8 else "paged_attention":
-                L * steps["decode"],
+                0 if ring else L * steps["decode"],
                 "flash_attention_chunk_int8" if int8
                 else "flash_attention_chunk": L * steps["chunk"],
                 "flash_attention": L * steps["wave"]}
@@ -1726,6 +1814,397 @@ def phase_moe(report: dict, gen, kernels) -> list:
     return checks
 
 
+# --------------------------------------------------------------------------
+# Phase 7: sliding-window attention (h2o-danube-3-4b over private rings)
+# --------------------------------------------------------------------------
+
+DANUBE = "h2o-danube-3-4b"
+DANUBE_HEADS = (32, 8, 120)      # its query heads, KV heads and head dim
+DANUBE_WINDOW = 8192
+DANUBE_WAVE = (8, 8192)          # the serve's one prefill wave: 8 x 8180 -> 8192
+DANUBE_LINEARS = {"wq/wo": (3840, 3840), "wk/wv": (3840, 960),
+                  "gate/up": (3840, 10240), "down": (10240, 3840)}
+# every linear at decode and at the wave's 65,536 rows
+DANUBE_GPTQ_SHAPES = [(lname, K, N, GS, (8, DANUBE_WAVE[0] * DANUBE_WAVE[1]))
+                      for lname, (K, N) in DANUBE_LINEARS.items()]
+DANUBE_RING_BLOCKS = 512         # 512 blocks of 16 tokens: the 8,192 window
+# serve_prompts' traffic with the 900-token prompt replaced by one of 8,180
+# tokens asking for 40 new tokens: it decodes positions 8,180 .. 8,218, so
+# its ring wraps after 12 tokens (a chat turn over a long document beside
+# short turns)
+DANUBE_LENS = (20, 64 + 40, 64 + 300, 150, 420, 600, 777, 8180)
+DANUBE_MAX_TOKENS = (32, 29, 26, 23, 20, 17, 14, 40)
+DANUBE_KERNELS = ({"flash_attention", "gptq_matmul"},
+                  {"paged_attention", "paged_attention_quant",
+                   "flash_attention_chunk", "flash_attention_chunk_int8"})
+# the engine's defaults: a ring stack cannot chunk, and the async step
+# rides the unified (chunked) step, so the serve runs synchronous waves
+# and megasteps as the reference's engine does
+DANUBE_OPTIONS = {"max_slots": DANUBE_WAVE[0],
+                  "max_blocks_per_seq": DANUBE_RING_BLOCKS}
+# the 2-layer full-width model in f32, card vs CPU: rings of 64 slots, a
+# window of 48 inside them, a prompt of 100 (wraps and drops at prefill)
+RING_MODEL = {"layers": 2, "slots": 3, "mb": 4, "nb": 16, "window": 48,
+              "lens": (100, 64, 30), "steps": 40}
+RING_LOGIT_TOL = 1e-3            # f32 card vs CPU, as MOE_LOGIT_TOL
+# every served token against teacher forcing (``teacher_forced``): the
+# share equal, and the largest gap between the teacher's top logit and
+# the served token's.  chip_faults.py on an H100 80GB HBM3 at 700 W: the
+# sound serve reads 0.980 and 0.031 (one bf16 step of the logits); a ring
+# decode that reads V one slot off, halves the window or leaves the new
+# token's own slot stale reads at most 0.806 and at least 1.11
+TEACHER_AGREEMENT = 0.9
+TEACHER_GAP = 0.25
+
+
+def teacher_ok(tf: dict) -> bool:
+    return tf["agreement"] >= TEACHER_AGREEMENT \
+        and tf["max_gap"] <= TEACHER_GAP
+
+
+def ring_pool_blocks(cfg, slots: int, ring_blocks: int) -> int:
+    """The fewest pool blocks that admit ``slots`` rings of ``ring_blocks``
+    blocks above the allocator's watermark (max(1, 1% of the pool))."""
+    n = slots * ring_blocks
+    while n - slots * ring_blocks < max(1, int(n * cfg.paging.watermark_frac)):
+        n += 1
+    return n
+
+
+def _plain_by_group(q, k, v, **kw):
+    """``flash_attention_ref`` one (sequence, KV head) at a time, so the
+    f32 scores of a [8192, 8192] square are built for one group of 4 heads
+    (1.07 GB) at a time instead of all 256."""
+    import torch
+    from repro_torch.kernels import ref
+    out = torch.empty_like(q)
+    KVh = k.shape[2]
+    G = q.shape[2] // KVh
+    for b in range(q.shape[0]):
+        for h in range(KVh):
+            hs = slice(h * G, (h + 1) * G)
+            kwh = dict(kw)
+            if "alibi_slopes" in kw:
+                kwh["alibi_slopes"] = kw["alibi_slopes"][hs]
+            out[b:b + 1, :, hs] = ref.flash_attention_ref(
+                q[b:b + 1, :, hs], k[b:b + 1, :, h:h + 1],
+                v[b:b + 1, :, h:h + 1], **kwh)
+    return out
+
+
+def check_flash_attention_d120(gen):
+    """The static kernel at h2o-danube-3-4b's heads (32 over 8, head dim
+    120, staged padded to 128): the serve's wave [8, 8192] causal inside
+    the 8192 window, a band case where Sk 10240 > window 8192 (the key
+    tiles before the band are skipped, the edge tiles masked), then a
+    window at a q_offset and ALiBi with a window; each against the plain
+    version run one (sequence, KV head) group at a time."""
+    from repro_torch.core.alibi import alibi_slopes
+    h, kv, d = DANUBE_HEADS
+    b, S = DANUBE_WAVE
+    win = DANUBE_WINDOW
+    cases = [(f"danube wave [{b},{S}] causal, window {win}",
+              _qkv(gen, b, S, S, h, kv, d), {"sliding_window": win}),
+             (f"band Sq = Sk = 10240 > window {win}",
+              _qkv(gen, 1, 10240, 10240, h, kv, d), {"sliding_window": win}),
+             ("q_offset 64, window 100, Sq 200 < Sk 333",
+              _qkv(gen, 2, 200, 333, h, kv, d),
+              {"q_offset": 64, "sliding_window": 100}),
+             ("ALiBi, window 128, 512",
+              _qkv(gen, 2, 512, 512, h, kv, d),
+              {"alibi_slopes": alibi_slopes(h, "cuda"),
+               "sliding_window": 128})]
+    worst, rows = _flash_rows(cases, _plain_by_group)
+    q, k, v = cases[0][1]
+    main = rows[0]
+    return {"name": "flash_attention", "label": "flash_attention[D=120]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:386",
+            "max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": time_ms(lambda: _plain_by_group(
+                q, k, v, sliding_window=win), iters=1),
+            "bound": main["bound"], "library_ms": main["library_ms"],
+            "shape": f"q[{b},{S},{h},{d}] k/v[{b},{S},{kv},{d}] causal, "
+                     f"window {win}; checked also at "
+                     + "; ".join(c[0] for c in cases[1:])
+                     + "; plain version one (sequence, KV head) at a time",
+            "per_case": rows}
+
+
+def phase_ring_model(dev: str = "cuda", ref_dev: str = "cpu",
+                     reduced: bool = False) -> dict:
+    """h2o-danube-3-4b at full width cut to RING_MODEL's 2 layers, f32, a
+    window of 48 inside rings of 64 slots: the same params, tables and
+    tokens through ``T.prefill`` (a prompt of 100: ``_write_ring`` drops
+    its first 36 positions and wraps) and 40 teacher-forced
+    ``T.decode_step``s on ``dev`` and on ``ref_dev``; every step's logits
+    and the final pools within RING_LOGIT_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import tree_to
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.models import transformer as T
+    rm = RING_MODEL
+    base = get_reduced(DANUBE) if reduced else get_config(DANUBE)
+    cfg = base.replace(num_layers=rm["layers"], dtype="float32",
+                       sliding_window=rm["window"])
+    params = T.init_params(cfg, 1, ref_dev)
+    rng = np.random.default_rng(0)
+    B, lens, n = rm["slots"], np.array(rm["lens"], np.int32), rm["steps"]
+    S = int(lens.max())
+    toks = rng.integers(0, cfg.vocab_size, (B, S + n)).astype(np.int32)
+    bt = rng.permutation(rm["nb"])[:B * rm["mb"]].reshape(B, rm["mb"]) \
+        .astype(np.int32)
+    res = {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for d in (ref_dev, dev):
+            p = T.split_layers(T.cast_params(tree_to(params, d),
+                                             T.act_dtype(cfg)))
+            st = T.make_decode_state(cfg, B, rm["nb"], rm["mb"], device=d)
+            st["block_table"] = torch.from_numpy(bt).to(d)
+            logits, st = T.prefill(cfg, p, st, {
+                "tokens": torch.from_numpy(toks[:, :S]).to(d),
+                "ctx_lens": torch.from_numpy(lens).to(d)})
+            steps = [logits.cpu()]
+            for t in range(n):
+                pos = lens + t
+                st["seq_lens"] = torch.from_numpy(pos + 1).to(d)
+                logits, st = T.decode_step(
+                    cfg, p, st,
+                    torch.from_numpy(toks[np.arange(B), pos]).to(d))
+                steps.append(logits.cpu())
+            res[d] = (torch.stack(steps), st["k_pool"].cpu(),
+                      st["v_pool"].cpu())
+    (l0, k0, v0), (l1, k1, v1) = res[ref_dev], res[dev]
+    err = (l1 - l0).abs().max().item()
+    pool_err = max((k1 - k0).abs().max().item(),
+                   (v1 - v0).abs().max().item())
+    out = {"config": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "window": cfg.sliding_window, "ring_slots": rm["mb"] * 16,
+           "prompt_lens": list(rm["lens"]), "decode_steps": n,
+           "logit_max_abs_err": err, "max_abs_logit": l0.abs().max().item(),
+           "pool_max_abs_err": pool_err,
+           "greedy_agreement": float((l1.argmax(-1) == l0.argmax(-1))
+                                     .float().mean()),
+           "tolerance": RING_LOGIT_TOL,
+           "seconds": time.perf_counter() - t0}
+    if not (err <= RING_LOGIT_TOL and pool_err <= RING_LOGIT_TOL
+            and bool(torch.isfinite(l1).all())):
+        raise AssertionError(f"ring model: card vs CPU {out}")
+    return out
+
+
+def ring_decode_ms(llm, steps: int = 3) -> dict:
+    """One full decode step of the served model with all 8 rings full
+    (seq_len 8,200: every slot valid, the ring wrapped): its elapsed ms
+    between events (``time_ms``; its ~2,000 launches outrun the spin, so
+    this includes the host's launch gaps) and its device busy ms (the
+    kernels' time summed by ``torch.profiler`` over ``steps`` steps);
+    and one layer's ring attention alone (write, gather of the whole
+    ring, f32 scores, softmax, output; few launches, so ``time_ms`` is
+    its device time) beside its bound: the bytes of the K and V rings it
+    must read.  Writes one token per slot into the pool, so it runs after
+    the serves."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.kv_quant import cache_from_state
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import _ring_cache_attend
+    cfg, runner = llm.cfg, llm.engine.runner
+    slots, mb = runner.max_slots, runner.mb
+    st = dict(runner.state)
+    st["seq_lens"] = torch.full((slots,), 8200, dtype=torch.int32,
+                                device="cuda")
+    st["block_table"] = torch.arange(slots * mb, dtype=torch.int32,
+                                     device="cuda").reshape(slots, mb)
+    toks = torch.zeros(slots, dtype=torch.int32, device="cuda")
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn((slots, h, d), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((slots, kv, d), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    cache = cache_from_state(st)
+    ring = mb * cfg.paging.block_size
+    nbytes = 2 * slots * ring * kv * d * 2
+    with torch.no_grad():
+        step = time_ms(lambda: T.decode_step(cfg, runner.params, st, toks),
+                       iters=5)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                T.decode_step(cfg, runner.params, st, toks)
+            torch.cuda.synchronize()
+        attn = time_ms(lambda: _ring_cache_attend(
+            q, k, v, cache, st["block_table"], st["seq_lens"], 0,
+            cfg.sliding_window))
+    busy, launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            busy += (e.self_cuda_time_total if us is None else us) / 1e3
+            launches += e.count
+    return {"decode_step_ms": step, "decode_step_device_ms": busy / steps,
+            "decode_step_device_ops": launches / steps,
+            "ring_attention_layer_ms": attn,
+            "ring_attention_bound": bound_ms(nbytes, 4 * slots * h * d
+                                             * ring),
+            "ring_bytes_per_layer": nbytes, "slots": slots,
+            "ring_slots": ring}
+
+
+def teacher_forced(llm, prompts, served, ring_blocks=DANUBE_RING_BLOCKS
+                   ) -> dict:
+    """Every served request's greedy tokens against teacher forcing: the
+    argmax of ``T.forward`` (the static kernel, window 8192: no ring) over
+    its prompt and the tokens it was served.  Teacher forcing compares
+    each step on its own, so one flip does not carry to the next.  Returns
+    the share equal (overall, per request, and for the wrapping request's
+    tokens decoded from positions past the ring's end) and the gap, in
+    the teacher's f32 logits, between its top logit and the served
+    token's: 0 where they agree, small where a bf16 near-tie flipped."""
+    import torch
+    from repro_torch.models import transformer as T
+    runner = llm.engine.runner
+    ring = ring_blocks * llm.cfg.paging.block_size
+    same, gaps, per_request = [], [], []
+    for prompt, toks in zip(prompts, served):
+        seq = torch.tensor(prompt + toks[:-1], dtype=torch.int32,
+                           device=runner.device)[None]
+        with torch.no_grad():
+            lg = T.forward(llm.cfg, runner.params, {"tokens": seq})[
+                0, len(prompt) - 1:].float()
+        got = torch.tensor(toks, device=lg.device)
+        gap = lg.max(-1).values - lg.gather(-1, got[:, None])[:, 0]
+        eq = (lg.argmax(-1) == got).cpu().tolist()
+        same.append(eq)
+        gaps += gap.cpu().tolist()
+        per_request.append(sum(eq) / len(eq))
+    long_prompt, long_eq = len(prompts[-1]), same[-1]
+    first_wrapped = ring - (long_prompt - 1)     # fed a position >= ring
+    flat = [e for eq in same for e in eq]
+    return {"agreement": sum(flat) / len(flat), "tokens": len(flat),
+            "agreement_by_request": per_request,
+            "max_gap": max(gaps), "mean_gap": sum(gaps) / len(gaps),
+            "agreement_after_wrap": sum(long_eq[first_wrapped:])
+            / max(len(long_eq[first_wrapped:]), 1),
+            "last_position": long_prompt + len(served[-1]) - 1,
+            "ring_slots": ring}
+
+
+def serve_danube(kernels, label: str = "danube-defaults") -> tuple:
+    """Full-depth h2o-danube-3-4b, ``LLM.load`` with ``rtn-int4`` on the
+    engine's defaults over 8 private rings of DANUBE_RING_BLOCKS blocks,
+    serving DANUBE_LENS' traffic (profiled); each served token held to
+    teacher forcing.  Returns (the LLM, the serve's record, the
+    teacher-forced record); the caller closes the LLM."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving import LLM
+    cfg = get_config(DANUBE)
+    options = {**DANUBE_OPTIONS, "num_blocks": ring_pool_blocks(
+        cfg, DANUBE_WAVE[0], DANUBE_RING_BLOCKS)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM.load(DANUBE, quant="rtn-int4", seed=0, **options)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated()
+    eng = llm.engine
+    log(f"[serve] {DANUBE} rtn-int4 loaded in {load_s:.2f} s (init "
+        f"{llm.load_s.get('init', 0.0):.2f} s), peak {load_peak} B; "
+        f"engine chunked="
+        f"{eng.chunked} async_step={eng.async_step} "
+        f"ring_only={eng.scheduler.ring_only}")
+    if eng.chunked or eng.async_step or not eng.scheduler.ring_only:
+        raise AssertionError(f"{DANUBE}: a ring stack must run whole-prompt, "
+                             f"synchronous and ring_only (chunked="
+                             f"{eng.chunked}, async_step={eng.async_step}, "
+                             f"ring_only={eng.scheduler.ring_only})")
+    must, never = DANUBE_KERNELS
+    serve = phase_serve("cuda", config=DANUBE, kernels=kernels, label=label,
+                        options=options, must=must, never=never,
+                        profile=True, llm=llm, lens=DANUBE_LENS,
+                        max_tokens=DANUBE_MAX_TOKENS)
+    serve["load_s"], serve["load_max_memory_allocated"] = load_s, load_peak
+    log_serve(label, serve, "rtn-int4")
+    tf = teacher_forced(llm, serve_prompts(cfg.vocab_size, DANUBE_LENS),
+                        serve["tokens"])
+    return llm, serve, tf
+
+
+def phase_sliding(report: dict, gen, kernels) -> list:
+    """Phase 7 on the card: the static kernel at head dim 120 (serve's
+    wave and the band), ``gptq_matmul`` at danube's linears (decode and
+    the wave's rows), the 2-layer full-width ring model in f32 card vs
+    CPU, then full-depth h2o-danube-3-4b with ``rtn-int4`` weights served
+    on the engine's defaults over private rings of 512 blocks, profiled:
+    0 pageable copies, the wrapping request past position 8,192, every
+    served token held to teacher forcing; one ring decode step timed.
+    Returns the kernel checks."""
+    import torch
+    r = report["sliding"] = {}
+    t_phase = time.perf_counter()
+    checks = [check_flash_attention_d120(gen)]
+    g = check_gptq_matmul(
+        gen, shapes=DANUBE_GPTQ_SHAPES, main_shape=("gate/up", 8),
+        shape="x[8,3840] @ int4[3840,10240] gs 32 (gate/up, decode)",
+        library_max_m=8192)
+    g["label"] = "gptq_matmul[danube]"
+    checks.append(g)
+    for k in checks:
+        lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        log(f"[kernel] {k['label']}: kernel_ms={k['ms']:.4f} "
+            f"plain_ms={k['plain_ms']:.4f} library_ms={lib} "
+            f"bound_ms={k['bound'][0]:.5f} ({k['bound'][1]}) "
+            f"max_abs_err={k['max_abs_err']:.3e} [{k['shape']}]")
+    r["kernels"] = checks
+    r["model"] = res = phase_ring_model()
+    log(f"[model] 2-layer full-width {DANUBE} f32 over rings, card vs CPU: "
+        f"{json.dumps(res)}")
+
+    llm, serve, tf = serve_danube(kernels)
+    r["serve"] = {serve["label"]: serve}
+    r["teacher_forced"] = tf
+    ring = tf["ring_slots"]
+    if serve["profile"]["pageable_copies"]:
+        raise AssertionError("danube serve: pageable memcpys under the "
+                             "profiler (want 0)")
+    if not tf["last_position"] >= ring:
+        raise AssertionError(f"danube: the wrapping request ended at "
+                             f"position {tf['last_position']} < {ring}")
+    if not teacher_ok(tf):
+        raise AssertionError(f"danube: served tokens against teacher "
+                             f"forcing (agreement >= {TEACHER_AGREEMENT}, "
+                             f"gap <= {TEACHER_GAP}): {tf}")
+    r["ring_decode"] = rd = ring_decode_ms(llm)
+    kv = {"kv_pool_bytes": serve["kv_pool_bytes"],
+          "kv_bytes_per_token": llm.engine.runner.kv_bytes_per_token()}
+    r.update(kv)
+    llm.close()
+    del llm
+    torch.cuda.empty_cache()
+    log(f"[serve] {serve['label']}: 0 pageable memcpys; KV pool "
+        f"{json.dumps(kv)}; the {DANUBE_LENS[-1]}-token request decoded "
+        f"through position {tf['last_position']} (ring {ring} slots); "
+        f"teacher forcing over all {tf['tokens']} tokens: agreement "
+        f"{tf['agreement']:.3f} (by request "
+        f"{json.dumps(tf['agreement_by_request'])}, after the wrap "
+        f"{tf['agreement_after_wrap']:.3f}), logit gap max "
+        f"{tf['max_gap']:.4f} mean {tf['mean_gap']:.5f}")
+    log(f"[ring] one decode step, 8 full rings x 24 layers: "
+        f"{rd['decode_step_ms']:.3f} ms between events, "
+        f"{rd['decode_step_device_ms']:.3f} ms of device busy time in "
+        f"{rd['decode_step_device_ops']:.0f} device ops; one layer's ring "
+        f"attention "
+        f"{rd['ring_attention_layer_ms']:.4f} ms, bound "
+        f"{rd['ring_attention_bound'][0]:.5f} ms "
+        f"({rd['ring_attention_bound'][1]}, {rd['ring_bytes_per_layer']} B)")
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"[sliding] phase 7 took {r['seconds']:.1f} s")
+    return checks
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1820,15 +2299,18 @@ def main() -> int:
                              f"{dtoh[1]:.2f}: a hidden host sync")
 
     moe_checks = phase_moe(report, gen, ops.KERNELS)
+    sliding_checks = phase_sliding(report, gen, ops.KERNELS)
 
     record = []
-    for k in kernels + moe_checks:
-        if "label" in k:          # the MoE model's heads: its serves
-            by_serve = {lb: sv["launches"][k["name"]]
-                        for lb, sv in report["moe"]["serve"].items()}
-        else:
-            by_serve = {lb: sv["launches"][k["name"]]
-                        for lb, sv in serves.items()}
+    # each check's launches come from the serves of its own phase
+    for k, phase_serves in ([(k, serves) for k in kernels]
+                            + [(k, report["moe"]["serve"])
+                               for k in moe_checks]
+                            + [(k, report["sliding"]["serve"])
+                               for k in sliding_checks]):
+        by_serve = {lb: sv["launches"][k["name"]]
+                    for lb, sv in phase_serves.items()}
+        if phase_serves is serves:
             by_serve["gptq-load"] = \
                 report["gptq"]["load"]["launches"][k["name"]]
         record.append({
@@ -1841,7 +2323,7 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
             "bound_by": k["bound"][1], "library_ms": k["library_ms"],
             "shape": k["shape"]})
-    report["kernels"] = kernels + moe_checks
+    report["kernels"] = kernels + moe_checks + sliding_checks
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -149,6 +149,12 @@ class BlockAllocator:
         self.stats["reused"] += reused
         return ids, reused
 
+    def allocate_private(self, n: int) -> List[int]:
+        """``n`` fresh blocks for one sequence alone: never looked up by
+        content and never content-addressed, so never shared (a
+        sliding-window ring overwrites its blocks as it wraps)."""
+        return [self._alloc_raw() for _ in range(n)]
+
     def register_full_block(self, block_id: int,
                             tokens: Sequence[int]) -> None:
         """Content-address a block *after* allocation (register-on-write).
@@ -407,8 +413,10 @@ def gather_kv_bounded(pool: torch.Tensor, layer: int,
 
 def gather_kv(pool: torch.Tensor, layer: int, block_table: torch.Tensor,
               max_len: int) -> torch.Tensor:
-    """Gather a contiguous [B, max_len, KV, D] view (reference path only);
-    ``max_len`` need not be a block multiple."""
+    """Gather a contiguous [B, max_len, KV, D] copy of each row's first
+    blocks: the plain versions of the attention kernels, and the ring
+    decode of sliding-window layers (``max_len = MB * BS``, the whole
+    ring); ``max_len`` need not be a block multiple."""
     bs = pool.shape[2]
     nb = -(-max_len // bs)
     blk = block_table[:, :nb].long()

@@ -16,11 +16,11 @@
 // byte at S = 960, far above the ~295 at which the bf16 tensor cores stop
 // waiting on memory.
 //
-// bf16 (the serving type), head dim 64 or 128: tensor cores.  One block of
-// 4 warps per (query head, sequence, tile of 64 query tokens); each warp
-// owns 16 query rows and runs the FlashAttention-2 tile routine of
-// mma_attention.cuh (mma.sync.m16n8k16, Q in registers, online softmax in
-// registers, P kept in registers as the A operand of P V).  K/V tiles of
+// bf16 (the serving type), head dim 64, 120 or 128: tensor cores.  One
+// block of 4 warps per (query head, sequence, tile of 64 query tokens);
+// each warp owns 16 query rows and runs the FlashAttention-2 tile routine
+// of mma_attention.cuh (mma.sync.m16n8k16, Q in registers, online softmax
+// in registers, P kept in registers as the A operand of P V).  K/V tiles of
 // 64 keys are staged in shared memory as bf16 by cp.async, two stages, so
 // the next tile loads while this one is multiplied.  mma.sync rather than
 // wgmma: its per-warp fragments need no warpgroup-wide shared-memory
@@ -33,7 +33,10 @@
 // triangle balances across the 132 SMs.  Key tiles outside the causal /
 // sliding band of the block's queries are never loaded (the tile skip of
 // the Pallas kernel); only tiles that cross the band's edge or Sk pay for
-// the mask.
+// the mask.  Head dim 120 (h2o-danube-3-4b) is staged padded to 128 with
+// zero columns (mma_attention.cuh): global memory is read and written at
+// exactly 120 values a row (240 bytes, still fifteen 16-byte vectors), and
+// the extra k-step of Q K^T costs 1/16 of its products.
 //
 // f32 (a check path on the card, not serving): the CUDA-core body shared
 // with the chunk kernel (common.cuh), any head dim that is a multiple of
@@ -100,25 +103,32 @@ constexpr int MMA_BQ = 16 * MMA_WARPS;   // query tokens per block
 constexpr int MMA_BK = 64;               // keys per staged tile
 constexpr int MMA_STAGES = 2;
 
+// shared row stride of a head of D values: padded to 16, plus the pad
+template <int D>
+__host__ __device__ constexpr int mma_stride() {
+  return rt::mma_padded(D) + rt::MMA_ATTN_PAD;
+}
+
 template <int D>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (D + rt::MMA_ATTN_PAD) *
+  return sizeof(__nv_bfloat16) * mma_stride<D>() *
          (MMA_BQ + 2 * MMA_STAGES * MMA_BK);
 }
 
 // Copy rows tok0 .. tok0 + ROWS of one head out of x [.., n, heads, D]
 // (base already at the sequence and head) into shared rows of STR values;
-// rows at or past n are zero-filled.
+// rows at or past n, and the columns from D to the padded width, are
+// zero-filled (nothing is read for them).
 template <int D, int ROWS>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
                                            const __nv_bfloat16* x,
                                            size_t row_stride, int tok0,
                                            int n) {
-  constexpr int CH = D / 8, STR = D + rt::MMA_ATTN_PAD;
+  constexpr int CH = rt::mma_padded(D) / 8, STR = mma_stride<D>();
   for (int i = threadIdx.x; i < ROWS * CH; i += MMA_THREADS) {
     const int r = i / CH, c = i - r * CH;
     const int tok = tok0 + r;
-    const bool ok = tok < n;
+    const bool ok = tok < n && c < D / 8;
     rt::cp_async16(dst + r * STR + c * 8,
                    x + (size_t)(ok ? tok : 0) * row_stride + c * 8, ok);
   }
@@ -130,7 +140,7 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ v, const float* __restrict__ slopes,
     __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H, int KV,
     int q_offset, int causal, int window, int use_alibi) {
-  constexpr int STR = D + rt::MMA_ATTN_PAD;
+  constexpr int STR = mma_stride<D>();
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * MMA_BQ;   // heaviest first
   const int kvh = h / (H / KV), warp = threadIdx.x >> 5;
@@ -237,7 +247,7 @@ int launch_f32(const void* q, const void* k, const void* v,
 }  // namespace
 
 // BQ (query tokens per block) is read by the f32 body only; the bf16 body
-// takes head dim 64 or 128 and refuses any other.
+// takes head dim 64, 120 or 128 and refuses any other.
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v,
     const float* slopes, void* out, int B, int Sq, int Sk, int H, int KV,
@@ -247,6 +257,9 @@ extern "C" int flash_attention_launch(
   if (dtype == rt::DTYPE_BF16) {
     if (D == 128)
       return launch_mma<128>(q, k, v, slopes, out, B, Sq, Sk, H, KV,
+                             q_offset, causal, window, use_alibi, s);
+    if (D == 120)
+      return launch_mma<120>(q, k, v, slopes, out, B, Sq, Sk, H, KV,
                              q_offset, causal, window, use_alibi, s);
     if (D == 64)
       return launch_mma<64>(q, k, v, slopes, out, B, Sq, Sk, H, KV,

@@ -132,6 +132,7 @@ constexpr int MMA_STAGES = 2;
 
 template <int D, typename P>
 struct ChunkSmem {
+  static_assert(D % 16 == 0, "rows are staged unpadded");
   static constexpr bool QUANT = std::is_same<P, int8_t>::value;
   static constexpr int STR = D + rt::MMA_ATTN_PAD;
   static constexpr size_t Q =

@@ -10,6 +10,12 @@
 // of 16 bytes puts the 8 rows of each 8 x 8 matrix in 8 distinct 16-byte
 // bank groups, so ldmatrix is free of bank conflicts.
 //
+// A head dim D that is a multiple of 8 but not of 16 (120) is padded to
+// DP = mma_padded(D) in shared memory: the staged Q and K rows carry zeros
+// in columns D .. DP, so the last k-step of Q K^T adds 0; P V needs no
+// pad (D / 8 C tiles of 8 columns), and only D columns are stored.  The
+// pool stagers below take D % 16 == 0 only (static_assert).
+//
 // Used by the static prefill kernel (flash_attention.cu), the chunk
 // prefill kernel (flash_attention_chunk.cu) and the paged decode kernel
 // (paged_attention.cu).  A warp's 16 rows are 16 query tokens of one head
@@ -26,12 +32,19 @@ namespace rt {
 
 constexpr int MMA_ATTN_PAD = 8;   // bf16 values of padding per staged row
 
+// The width of a staged head of D values: D rounded up to the mma's k
+// depth of 16 (the columns past D hold zeros in Q and K).
+__host__ __device__ constexpr int mma_padded(int D) {
+  return (D + 15) / 16 * 16;
+}
+
 // One warp's softmax state over its 16 query rows.  Lane (g, t) holds
 // rows g and g + 8: m / l index 0 and 1.  l is this lane's share of the
 // row sum (its own columns); the quad's shares are added at the end.
 template <int D>
 struct MmaAttnState {
-  uint32_t qf[D / 16][4];   // Q as A fragments, one per 16-wide d chunk
+  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
+  uint32_t qf[mma_padded(D) / 16][4];   // Q as A fragments, per 16 d
   float o[D / 8][4];        // O accumulators, one C tile per 8 d columns
   float m[2], l[2];
 };
@@ -46,14 +59,15 @@ __device__ __forceinline__ void mma_attn_init(MmaAttnState<D>& st) {
   st.l[0] = st.l[1] = 0.f;
 }
 
-// Q fragments of the warp's 16 rows, staged at qs (row stride STR).
+// Q fragments of the warp's 16 rows, staged at qs (row stride STR, pad
+// columns zero).
 template <int D>
 __device__ __forceinline__ void mma_attn_load_q(MmaAttnState<D>& st,
                                                 const __nv_bfloat16* qs,
                                                 int STR) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc)
+  for (int kc = 0; kc < mma_padded(D) / 16; ++kc)
     ldmatrix_x4(st.qf[kc], qs + (lane & 15) * STR + kc * 16 + (lane >> 4) * 8);
 }
 
@@ -93,9 +107,10 @@ __device__ __forceinline__ void mma_attend_tile(
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 
-  // S = Q K^T: K rows are keys (n), their d values are the product's k.
+  // S = Q K^T: K rows are keys (n), their d values are the product's k
+  // (the pad columns of Q and K are zero).
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
+  for (int kc = 0; kc < mma_padded(D) / 16; ++kc) {
 #pragma unroll
     for (int np = 0; np < BK / 16; ++np) {
       uint32_t b[4];
@@ -164,6 +179,14 @@ __device__ __forceinline__ void mma_attend_tile(
       mma_bf16_16816(st.o[2 * dp], a, b);
       mma_bf16_16816(st.o[2 * dp + 1], a, b + 2);
     }
+    if constexpr (D % 16 != 0) {
+      // the last 8 columns: one C tile (the 8 pad columns loaded beside
+      // them are never multiplied)
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vs + (c * 16 + (lane & 15)) * STR +
+                               (D / 16) * 16 + (lane >> 4) * 8);
+      mma_bf16_16816(st.o[D / 8 - 1], a, b);
+    }
   }
 }
 
@@ -176,6 +199,7 @@ __device__ __forceinline__ void stage_kv_rows(__nv_bfloat16* kd,
                                               const __nv_bfloat16* k,
                                               const __nv_bfloat16* v,
                                               RowFn row_of) {
+  static_assert(D % 16 == 0, "pool rows are staged unpadded");
   constexpr int CH = D / 8, STR = D + MMA_ATTN_PAD;
   for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
     const int r = i / CH, c = i - r * CH;
@@ -195,6 +219,7 @@ __device__ __forceinline__ void stage_kv_codes(
     int8_t* kc, int8_t* vc, float* ksc, float* vsc, const int8_t* k,
     const int8_t* v, const float* k_scale, const float* v_scale,
     RowFn row_of) {
+  static_assert(D % 16 == 0, "int8 rows are staged 16 codes at a time");
   constexpr int CH = D / 16;
   for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
     const int r = i / CH, c = i - r * CH;
@@ -220,6 +245,7 @@ __device__ __forceinline__ void dequant_kv_rows(__nv_bfloat16* kd,
                                                 const int8_t* vc,
                                                 const float* ksc,
                                                 const float* vsc) {
+  static_assert(D % 16 == 0, "int8 rows are staged 16 codes at a time");
   constexpr int CH = D / 16, STR = D + MMA_ATTN_PAD;
   for (int i = threadIdx.x; i < 2 * ROWS * CH; i += NT) {
     const bool is_v = i >= ROWS * CH;

@@ -9,7 +9,8 @@
   ``flash_attention`` (whole-prompt prefill).
 
 The bf16 bodies of both run on the tensor cores and are built for the
-head dims in ``MMA_HEAD_DIMS`` only; their f32 bodies (CUDA cores) take
+head dims that ``MMA_HEAD_DIMS`` lists for each kernel (the static kernel
+also for 120, staged padded to 128); their f32 bodies (CUDA cores) take
 any multiple of 8.
 
 CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the plain
@@ -25,7 +26,12 @@ import torch
 from repro_torch.kernels import build
 
 ROWS_PER_BLOCK = 48   # f32 bodies: query rows (tokens x heads) per block
-MMA_HEAD_DIMS = (64, 128)   # the bf16 kernels' instantiations
+# the bf16 (tensor-core) instantiations of each attention kernel
+MMA_HEAD_DIMS = {"flash_attention": (64, 120, 128),
+                 "flash_attention_chunk": (64, 128),
+                 "flash_attention_chunk_int8": (64, 128),
+                 "paged_attention": (64, 128),
+                 "paged_attention_quant": (64, 128)}
 
 
 def _block_q(W: int, G: int) -> int:
@@ -131,10 +137,13 @@ def check_head_dim(D: int, dtype: torch.dtype,
                    name: str = "flash_attention") -> None:
     """Raise unless kernel ``name`` takes head dim ``D`` in ``dtype``: the
     bf16 (tensor-core) bodies of the attention kernels are instantiated for
-    ``MMA_HEAD_DIMS``, the f32 (CUDA-core) bodies take any multiple of 8."""
-    if dtype == torch.bfloat16 and D not in MMA_HEAD_DIMS:
-        raise ValueError(f"{name}: bf16 head_dim {D} is not built; the "
-                         f"tensor-core kernel takes {MMA_HEAD_DIMS}")
+    ``MMA_HEAD_DIMS[name]``, the f32 (CUDA-core) bodies take any multiple
+    of 8."""
+    dims = MMA_HEAD_DIMS[name]
+    if dtype == torch.bfloat16 and D not in dims:
+        raise ValueError(f"{name}: bf16 head_dim {D} is not built; its "
+                         f"tensor-core kernel takes {dims} (another head "
+                         "dim is a follow-up in ROADMAP B)")
     if D % 8:
         raise ValueError(f"{name}: head_dim {D} must be a multiple of 8")
 

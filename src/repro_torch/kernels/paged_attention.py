@@ -80,8 +80,8 @@ def scratch(device: torch.device, p: Plan
 def check_heads(H: int, KV: int, D: int, dtype: torch.dtype,
                 name: str = "paged_attention") -> None:
     """Raise unless the decode kernel takes these heads in ``dtype``: G =
-    H / KV <= MAX_G; bf16 head dim 64 or 128 (tensor cores), f32 any
-    multiple of 8 up to MAX_D."""
+    H / KV <= MAX_G; bf16 a head dim of ``MMA_HEAD_DIMS[name]`` (tensor
+    cores), f32 any multiple of 8 up to MAX_D."""
     if H % KV or H // KV > MAX_G:
         raise ValueError(f"{name}: unsupported heads H={H} KV={KV} (need "
                          f"G = H / KV <= {MAX_G})")

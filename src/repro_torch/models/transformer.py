@@ -1,7 +1,8 @@
-"""Decoder assembly (dense and MoE): init / the plain full-sequence forward /
-decode state / whole-prompt prefill / decode step / megastep / prefill
-chunk / unified step, and its variant chained on the device for the async
-engine.
+"""Decoder assembly (dense and MoE, full-attention or sliding-window):
+init / the plain full-sequence forward / decode state / whole-prompt
+prefill (into the paged pool, or the ring cache of a sliding stack) /
+decode step / megastep / prefill chunk / unified step, and its variant
+chained on the device for the async engine.
 
 The JAX package scans over layer-stacked params with ``lax.scan``; here a
 Python loop walks the layers.  ``params["layers"]`` keeps the JAX layout
@@ -21,7 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.kv_quant import (cache_from_state, cache_to_state,
                                        kv_write_prefill, make_kv_pool_quant,
                                        normalize_kv_cache_dtype)
-from repro_torch.core.paged_cache import make_kv_pool
+from repro_torch.core.paged_cache import _scatter_rows, make_kv_pool
 from repro_torch.core.sampling import sample_from_logits
 from repro_torch.kernels import ops
 from repro_torch.models.attention import (_qkv, _slopes, attn_apply,
@@ -38,11 +39,16 @@ def act_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def _layer_kinds(cfg: ModelConfig) -> set:
+    return {cfg.layer_kind(i) for i in range(cfg.num_layers)}
+
+
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
-    """Homogeneous full-attention stacks keep all their serving state in
-    the paged pool — the only kind the port serves so far."""
-    kinds = {cfg.layer_kind(i) for i in range(cfg.num_layers)}
-    return kinds == {"full"} and not cfg.is_encoder
+    """Chunked serving prefill needs every layer's state in the paged pool:
+    homogeneous full-attention stacks.  A sliding-window stack keeps a
+    ring per sequence, which a chunk cannot re-enter mid-prompt, so it is
+    served through whole-prompt waves, as in the reference."""
+    return _layer_kinds(cfg) == {"full"} and not cfg.is_encoder
 
 
 # the families the port serves, and whether each has routed experts
@@ -50,12 +56,23 @@ PORTED_FAMILIES = {"dense": False, "moe": True}
 
 
 def _require_ported(cfg: ModelConfig) -> None:
+    """Dense and MoE decoders whose layers are all full attention or all
+    sliding-window attention are served; other families raise."""
     if PORTED_FAMILIES.get(cfg.family) != bool(cfg.num_experts) \
-            or not supports_chunked_prefill(cfg):
+            or _layer_kinds(cfg) not in ({"full"}, {"sliding"}) \
+            or cfg.is_encoder:
         raise NotImplementedError(
-            f"{cfg.name}: only dense and MoE full-attention decoders are "
-            "ported to repro_torch so far (ROADMAP A11: other model "
-            "families)")
+            f"{cfg.name}: only dense and MoE decoders of full-attention or "
+            "sliding-window layers are ported to repro_torch so far "
+            "(ROADMAP A11: other model families)")
+
+
+def _require_chunkable(cfg: ModelConfig) -> None:
+    if not supports_chunked_prefill(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: chunked prefill needs a full-attention stack; "
+            "sliding-window stacks prefill whole prompts, as in the "
+            "reference")
 
 
 # --------------------------------------------------------------------------
@@ -243,9 +260,15 @@ def make_decode_state(cfg: ModelConfig, max_seqs: int, num_blocks: int,
     """seq_lens [B] i32, block_table [B, MB] i32 and the (k, v) pools
     [L, NB, BS, KV, D]: of ``dtype`` (the activation dtype by default),
     or with ``kv_cache_dtype="int8"`` int8 values plus the (k, v) scale
-    pools [L, NB, KV] f32."""
+    pools [L, NB, KV] f32 (full-attention layers only, as in the
+    reference)."""
     _require_ported(cfg)
     kv_mode = normalize_kv_cache_dtype(kv_cache_dtype)
+    if kv_mode == "int8" and "sliding" in _layer_kinds(cfg):
+        raise ValueError(
+            "kv_cache_dtype='int8' does not support sliding-window "
+            f"(ring-cache) attention layers ({cfg.name}); the ring "
+            "overwrite pattern defeats per-block scale tracking")
     dev = resolve_device(device)
     dims = (cfg.num_layers, num_blocks, cfg.paging.block_size,
             cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -275,7 +298,8 @@ def prefill(cfg: ModelConfig, params: Params, state: Dict[str, torch.Tensor],
 
     batch: tokens [B, S] (right-padded), ctx_lens [B];
     state["block_table"] holds the wave's rows and state["seq_lens"] is
-    set to ctx_lens.  Homogeneous full-attention stacks only; the
+    set to ctx_lens.  Full-attention layers write the paged pool,
+    sliding-window layers their ring (``attn_prefill_ring``).  The
     ``rt["prefill_chunk"]`` variant (chunks read back from the pool) is
     not ported (ROADMAP A3)."""
     _require_ported(cfg)
@@ -290,17 +314,61 @@ def prefill(cfg: ModelConfig, params: Params, state: Dict[str, torch.Tensor],
     cache = cache_from_state(state)
     for li in range(cfg.num_layers):
         lp = _layer(params, li)
+        kind = cfg.layer_kind(li)
+        pf = attn_prefill_ring if kind == "sliding" else attn_prefill
         hn = apply_norm(lp["attn_norm"], x, cfg.norm, cfg.norm_eps)
-        mix, cache = attn_prefill(cfg, lp["attn"], hn,
-                                  kind=cfg.layer_kind(li), cache=cache,
-                                  layer=li, block_table=state["block_table"],
-                                  ctx_lens=ctx_lens)
+        mix, cache = pf(cfg, lp["attn"], hn, kind=kind, cache=cache,
+                        layer=li, block_table=state["block_table"],
+                        ctx_lens=ctx_lens)
         x = x + mix
         hn = apply_norm(lp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
         x = x + ffn(cfg, lp, hn)
     state.update(cache_to_state(cache))
     idx = (ctx_lens.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
     return _final_logits(cfg, params, x.gather(1, idx)[:, 0]), state
+
+
+def attn_prefill_ring(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                      kind: str, cache, layer: int,
+                      block_table: torch.Tensor, ctx_lens: torch.Tensor):
+    """Sliding-window prefill: the static flash kernel inside the window,
+    then each token's K/V written at ring slot pos % cache_len (cache_len
+    = MB * BS, the block table's width).  Only the last cache_len
+    positions of each sequence are written, so a prompt longer than the
+    ring keeps its most recent tokens and no two kept tokens share a slot.
+    bf16 (or f32) pools only: int8 is refused at ``make_decode_state``.
+    Returns (y [B, S, d], cache)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    q, k, v = _qkv(cfg, p, x, positions)
+    o = ops.flash_attention(q, k, v, _slopes(cfg, x.device), causal=True,
+                            sliding_window=cfg.sliding_window)
+    cache_len = block_table.shape[1] * cache.k.shape[2]
+    lens = ctx_lens.long()[:, None]
+    keep = (positions[None] >= lens - cache_len) & (positions[None] < lens)
+    _write_ring(cache.k, layer, k, block_table, positions, keep, cache_len)
+    _write_ring(cache.v, layer, v, block_table, positions, keep, cache_len)
+    y = linear(o.reshape(B, S, -1), p["wo"])
+    return y, cache
+
+
+def _write_ring(pool: torch.Tensor, layer: int, k: torch.Tensor,
+                block_table: torch.Tensor, positions: torch.Tensor,
+                keep: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """Scatter k [B, S, KV, D] (k[:, i] at positions[i]) into ring slots
+    positions % cache_len of each row's blocks, in place; rows where
+    ``keep`` [B, S] is False are dropped (redirected, never indexed out of
+    range: ``paged_cache._scatter_rows``)."""
+    B, S = k.shape[:2]
+    NB, bs = pool.shape[1], pool.shape[2]
+    slot = positions.long() % cache_len                           # [S]
+    blk = block_table[:, slot // bs].long()                       # [B, S]
+    flat = blk * bs + (slot % bs)[None, :]
+    lp = pool[layer].view(NB * bs, *pool.shape[3:])
+    _scatter_rows(lp, flat.reshape(-1),
+                  k.reshape(B * S, *k.shape[2:]).to(pool.dtype),
+                  keep.reshape(-1))
+    return pool
 
 
 def decode_step(cfg: ModelConfig, params: Params,
@@ -391,6 +459,7 @@ def prefill_chunk(cfg: ModelConfig, params: Params, cache, tokens:
     the last live token, cache).
     """
     _require_ported(cfg)
+    _require_chunkable(cfg)
     dev = tokens.device
     W = tokens.shape[1]
     pos_offset = _scalar_i32(pos_offset, dev)

@@ -25,7 +25,9 @@ the device ``ModelRunner``, with the JAX package's modes and defaults:
   dispatch (``decode`` then ``sample``) instead of the fused megastep.
 * ``enable_chunked_prefill=False`` keeps the stop-the-world whole-prompt
   waves padded to a ``prefill_bucket`` multiple (the static
-  ``flash_attention`` kernel), then megastep decode.
+  ``flash_attention`` kernel), then megastep decode.  A sliding-window
+  stack (h2o-danube-3-4b) cannot chunk: it always takes this path, each
+  sequence in a private ring of ``max_blocks_per_seq`` blocks.
 
 Either mode serves the bf16 or the int8 KV pool (``kv_cache_dtype``).
 Robustness rides the loop as in the reference: a non-finite logit guard
@@ -188,9 +190,12 @@ class ServingEngine:
         self._g_step_ema = self.obs.gauge(
             "repro_step_time_ema_ms",
             help="straggler watchdog's EMA of work-step wall time")
+        # sliding-window-only stacks keep each sequence in a fixed ring of
+        # max_blocks_per_seq private blocks: no growth, no prefix reuse
+        ring_only = bool(cfg.sliding_window) and not any(
+            cfg.layer_kind(i) == "full" for i in range(cfg.num_layers))
         # chunked prefill needs every layer's prefill state to live in the
-        # paged pool; every config the port serves today does
-        # (transformer._require_ported), the other families will not
+        # paged pool; ring stacks keep the whole-prompt path
         self.chunked = bool(enable_chunked_prefill) \
             and T.supports_chunked_prefill(cfg)
         alloc = BlockAllocator(
@@ -199,7 +204,7 @@ class ServingEngine:
             watermark_frac=cfg.paging.watermark_frac)
         self.scheduler = Scheduler(alloc, max_slots=max_slots,
                                    max_blocks_per_seq=max_blocks_per_seq,
-                                   metrics=self.metrics)
+                                   ring_only=ring_only, metrics=self.metrics)
         self.max_num_batched_tokens = int(max_num_batched_tokens)
         if self.chunked and self.max_num_batched_tokens <= max_slots:
             raise ValueError(
@@ -536,7 +541,10 @@ class ServingEngine:
         dispatch, then its first tokens sampled in one call."""
         b = self.prefill_bucket
         maxlen = max(s.seq_len for s in seqs)
-        maxlen = min(((maxlen + b - 1) // b) * b, self.scheduler.cap_tokens)
+        maxlen = ((maxlen + b - 1) // b) * b
+        if not self.scheduler.ring_only:
+            # a ring replay may outgrow the table; the ring keeps its tail
+            maxlen = min(maxlen, self.scheduler.cap_tokens)
         rids = [s.req.rid for s in seqs]
         logits = self._protected(rids,
                                  lambda: self.runner.prefill(seqs, maxlen))

@@ -22,6 +22,12 @@
     # wrote (the latest step_*), quantized after the restore
     llm = LLM.load("qwen2-1.5b", checkpoint="ckpt/", quant="rtn-int4")
 
+    # the sliding-window decoder: each sequence a private ring of
+    # max_blocks_per_seq blocks (512 x 16 = its 8192 window), served by
+    # whole-prompt waves (it cannot chunk) over a bf16 ring
+    llm = LLM.load("h2o-danube-3-4b", quant="rtn-int4", max_slots=8,
+                   max_blocks_per_seq=512, num_blocks=4137)
+
 The engine runs the reference's default mode: the async pipelined step,
 telemetry and the non-finite guard on (``enable_async_step=False`` reads
 back every step; see ``ServingEngine`` for every argument).

@@ -160,7 +160,12 @@ class Scheduler:
       queue head with its generated tokens folded into the prompt
       (recompute-style, like vLLM);
     * ``plan_horizon`` returns steps-until-boundary: the longest horizon
-      every running sequence can decode without host intervention.
+      every running sequence can decode without host intervention;
+    * ``ring_only`` (a sliding-window stack): each sequence owns all
+      ``max_blocks_per_seq`` blocks of its row from admission to finish,
+      private (no prefix lookup, no registration), because its ring
+      cache addresses the whole row and overwrites it as it wraps; it
+      never grows, and never reaches a capacity boundary.
     """
 
     def __init__(self, alloc: BlockAllocator, *, max_slots: int,
@@ -201,7 +206,11 @@ class Scheduler:
         """Prompts longer than the per-sequence KV capacity are clamped at
         admission instead of crashing the prefill scatter.  Requeued
         preempted sequences — whose prompt+output never exceeds cap — are
-        never clamped and keep their full context."""
+        never clamped and keep their full context.  A ring sequence can
+        outgrow cap (its ring wraps), so its replay is never clamped:
+        ring prefill keeps the last cap tokens itself."""
+        if self.ring_only and req.folded:
+            return
         if len(req.prompt) > self.cap_tokens:
             req.prompt = req.prompt[:self.cap_tokens]
             # keep prompt_token_ids == the prompt actually served, so
@@ -241,12 +250,18 @@ class Scheduler:
                 break
             req = self.waiting[idx]
             self._clamp_prompt(req)
-            need = (len(req.prompt) + self.alloc.block_size - 1) \
-                // self.alloc.block_size + 1
+            if self.ring_only:
+                need = self.mb                   # the whole ring, private
+            else:
+                need = (len(req.prompt) + self.alloc.block_size - 1) \
+                    // self.alloc.block_size + 1
             if not self.alloc.can_allocate(need):
                 break
             self.waiting.pop(idx)
-            block_ids, _reused = self.alloc.allocate_prompt(req.prompt)
+            if self.ring_only:
+                block_ids = self.alloc.allocate_private(self.mb)
+            else:
+                block_ids, _reused = self.alloc.allocate_prompt(req.prompt)
             slot = self.free_slots.pop()
             seq = Sequence(req=req, slot=slot, block_ids=block_ids,
                            seq_len=len(req.prompt), last_token=req.prompt[-1],
@@ -261,7 +276,10 @@ class Scheduler:
         """Content-address any full prompt block not yet hashed (no-op
         after eager admission registration; kept as the engine's
         post-write invariant hook for the whole-prompt oracle — the
-        chunked path's equivalent is ``complete_chunk``)."""
+        chunked path's equivalent is ``complete_chunk``).  Ring blocks
+        are private and never registered."""
+        if self.ring_only:
+            return
         bs = self.alloc.block_size
         full = min(s.computed_len, len(s.req.prompt)) // bs
         for i in range(s.hashed_blocks, full):

@@ -281,14 +281,15 @@ def test_chunk_int8_staging_matches_pallas():
 @pytest.mark.parametrize("D,dtype,ok", [
     (128, torch.bfloat16, True), (64, torch.bfloat16, True),
     (96, torch.bfloat16, False), (16, torch.bfloat16, False),
+    (120, torch.bfloat16, False), (120, torch.float32, True),
     (16, torch.float32, True), (96, torch.float32, True),
     (12, torch.float32, False)])
 @pytest.mark.parametrize("kernel", ["paged_attention",
                                     "flash_attention_chunk"])
 def test_attention_head_dim_checks(kernel, D, dtype, ok):
-    """bf16 takes the built head dims only (no fallback), f32 any multiple
-    of 8."""
-    assert MMA_HEAD_DIMS == (64, 128)
+    """bf16 takes the built head dims only (no fallback; 120 is built for
+    the static kernel alone), f32 any multiple of 8."""
+    assert MMA_HEAD_DIMS[kernel] == (64, 128)
     if kernel == "paged_attention":
         def check():
             check_heads(12, 2, D, dtype)

@@ -1,8 +1,8 @@
-"""The port stands alone: no module of ``src/repro_torch``, and neither
-``chip_smoke.py`` nor ``chip_pair.py``, imports JAX or any part of the JAX
-package, and the entry points that default to the card (the bridge from
-the JAX package's weights included) refuse to run on a host without CUDA
-instead of falling back to the CPU."""
+"""The port stands alone: no module of ``src/repro_torch``, and none of
+``chip_smoke.py``, ``chip_pair.py`` and ``chip_faults.py``, imports JAX or
+any part of the JAX package, and the entry points that default to the
+card (the bridge from the JAX package's weights included) refuse to run
+on a host without CUDA instead of falling back to the CPU."""
 import ast
 import inspect
 from pathlib import Path
@@ -13,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "chip_pair.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_pair.py",
+       ROOT / "chip_faults.py"]
 
 
 def _imported(path: Path):
@@ -98,6 +99,16 @@ def test_unported_paths_refuse():
     from repro_torch.serving import LLM, FaultInjector, ServingEngine
     with pytest.raises(NotImplementedError, match="A11"):
         get_config("falcon-mamba-7b")
+    with pytest.raises(NotImplementedError, match="A11"):
+        get_config("recurrentgemma-2b")
+    # the sliding-window stack is served, through whole-prompt waves over
+    # private rings
+    dcfg = get_reduced("h2o-danube-3-4b")
+    assert get_config("h2o-danube-3-4b").sliding_window == 8192
+    eng = ServingEngine(dcfg, T.init_params(dcfg, 0, device="cpu"),
+                        device="cpu", num_blocks=8, max_blocks_per_seq=2)
+    assert eng.scheduler.ring_only and not eng.chunked
+    assert not eng.async_step
     with pytest.raises(FileNotFoundError, match="no step_"):
         LLM.load("qwen2-1.5b", reduced=True, device="cpu",
                  checkpoint="ckpt")

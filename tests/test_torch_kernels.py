@@ -225,6 +225,31 @@ def test_flash_attention_vs_pallas_and_ref(H, KV, case, dtype):
     _close(out, orc, dtype)
 
 
+@pytest.mark.parametrize("case", [
+    dict(Sq=24, Sk=24),                                 # causal
+    dict(Sq=24, Sk=24, sliding_window=7),               # sliding band
+    dict(Sq=10, Sk=24, q_offset=14, sliding_window=9),  # band at an offset
+], ids=["causal", "window", "offset-window"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_120_vs_pallas_and_ref(case, dtype):
+    """h2o-danube-3-4b's head dim (120: not a multiple of 16, which the
+    bf16 kernel stages padded to 128) on the CPU path, 32 query heads over
+    8 KV heads as the model has them."""
+    case = dict(case)
+    Sq, Sk = case.pop("Sq"), case.pop("Sk")
+    rng = np.random.default_rng(Sq + Sk + 120)
+    B, H, KV, D = 1, 32, 8, 120
+    q, tq = _pair(rng.normal(size=(B, Sq, H, D)), dtype)
+    k, tk = _pair(rng.normal(size=(B, Sk, KV, D)), dtype)
+    v, tv = _pair(rng.normal(size=(B, Sk, KV, D)), dtype)
+    out = ops.flash_attention(tq, tk, tv, None, **case)
+    pal = j_flash(q, k, v, None, block_q=8, block_k=8, interpret=True,
+                  **case)
+    orc = jref.flash_attention_ref(q, k, v, **case)
+    _close(out, pal, dtype)
+    _close(out, orc, dtype)
+
+
 # ------------------------------------------------------------ int4 matmul
 
 def _codes(rng, K, N):
