@@ -149,11 +149,15 @@ def serve_readings() -> dict:
     sps = [SamplingParams(max_tokens=m) for m in cs.DANUBE_MAX_TOKENS]
     A, sound, faults = _ring_faults()
     for name, fault in faults.items():
+        # a captured megastep replays the ring code it was captured with:
+        # release the graphs, so the faulty one is captured, and after it
+        llm.engine.runner.close()
         A._ring_cache_attend = fault
         try:
             toks = [o.token_ids for o in llm.generate(prompts, sps)]
         finally:
             A._ring_cache_attend = sound
+            llm.engine.runner.close()
         out[name] = cs.teacher_forced(llm, prompts, toks)
     llm.close()
     del llm

@@ -58,7 +58,17 @@ Phases, each of which fails loudly (any failure exits non-zero):
              from or to pageable host memory); the int8 chunked serve may
              not copy from the device to the host more often per step than
              the bf16 one; the async serve must give bf16-chunked's tokens,
-             take pipelined steps and make no pageable copy;
+             take pipelined steps and make no pageable copy.  Every serve
+             of phases 4 to 7 runs the runner's step graphs (the
+             defaults): each variant captured once, none in the re-run,
+             the graph kinds of its mode run; over a profiled serve of
+             two requests the profiler's kernel records must count each
+             kernel's launches as its wrapper's counter does (a replay
+             adds what its capture recorded), and the host's launch calls
+             per step are counted in the re-run; then the same
+             traffic is served by a second engine over the same weights
+             with ``capture_graphs=False``, profiled too, and must give
+             the same tokens;
 5. gptq    — (b) ``LLM.load("qwen2-1.5b", quant="gptq-int4")`` at full
              depth on 8 x [4, 512] seeded calibration tokens, the load's
              seconds split (init, calibration forward plus Hessians, OBQ,
@@ -158,8 +168,15 @@ LINEARS = {"wq/wo": (1536, 1536), "wk/wv": (1536, 256),
 GS = 32
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def log_time(phase: str) -> None:
+    log(f"[time] {phase} done at {time.perf_counter() - _T0:.1f} s")
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -988,15 +1005,20 @@ ATTENTION_LAUNCHES["gptq-chunked"] = ATTENTION_LAUNCHES["bf16-chunked"]
 def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
                 max_tokens: int = 32, kernels=(), label: str = "bf16-chunked",
                 options=None, must=(), never=(), profile: bool = False,
-                llm=None, quant="rtn-int4", lens=None) -> dict:
+                llm=None, quant="rtn-int4", lens=None,
+                graphs_off: bool = False) -> dict:
     """Serve the 8 requests of ``serve_prompts`` (of ``lens`` tokens when
     given) on ``llm`` or, when none is given, on ``LLM.load(config,
     quant=quant, **options)``; request i asks for ``max_tokens - 3 i`` new
     tokens, or ``max_tokens[i]`` when it is a sequence.  On the card the
     peak of ``torch.cuda.max_memory_allocated`` over the load and over
-    the whole phase is recorded."""
+    the whole phase is recorded.  The engine runs its defaults' step
+    graphs (``capture_graphs``) unless ``options`` turns them off; with
+    ``graphs_off`` the same traffic is then served again by a second
+    engine over the same weights with graphs off (``"off"`` in the
+    record), which must give the same tokens."""
     import torch
-    from repro_torch.serving import LLM, SamplingParams
+    from repro_torch.serving import LLM
     card = dev != "cpu"
     if card:
         torch.cuda.reset_peak_memory_stats()
@@ -1010,18 +1032,55 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
     else:
         load_s = sum(llm.load_s.values())
     load_peak = torch.cuda.max_memory_allocated() if card else None
+    prompts = serve_prompts(llm.cfg.vocab_size) if lens is None \
+        else serve_prompts(llm.cfg.vocab_size, lens)
+    out = serve_once(llm, prompts, max_tokens, kernels, label, options,
+                     must, never, profile)
+    out.update(load_s=load_s, load_max_memory_allocated=load_peak)
+    if graphs_off:
+        engine_kw = {**(options or {}), "capture_graphs": False}
+        off_llm = LLM(llm.cfg, llm.params, seed=0, device=dev, **engine_kw)
+        out["off"] = off = serve_once(off_llm, prompts, max_tokens, kernels,
+                                      label + "/graphs-off", engine_kw, must,
+                                      never, profile)
+        off_llm.close()
+        del off_llm
+        if off["tokens"] != out["tokens"]:
+            raise AssertionError(
+                f"serve {label}: tokens with graphs on differ from graphs "
+                f"off (agreement {agreement(out['tokens'], off['tokens']):.3f})")
+    del llm
+    if card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_once(llm, prompts, max_tokens, kernels, label, options, must,
+               never, profile) -> dict:
+    """One warm request, then the serve of ``prompts`` on ``llm`` with
+    its checks (finished, in vocabulary, full length, its own kernels,
+    the attention launches, a clean allocator audit), then optionally its
+    profiled re-run; the record.  Step graphs: the kinds captured, each
+    variant once, none in the re-run, and the seconds and graph-pool
+    bytes they cost (the pool released after)."""
+    import torch
+    from repro_torch.serving import SamplingParams
+    card = llm.engine.runner.device.type == "cuda"
     vocab = llm.cfg.vocab_size
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+        start_alloc = torch.cuda.memory_allocated()
     llm.generate([list(range(1, 40))], SamplingParams(max_tokens=2))  # warm
-    prompts = serve_prompts(vocab) if lens is None \
-        else serve_prompts(vocab, lens)
     mts = list(max_tokens) if isinstance(max_tokens, (tuple, list)) \
         else [max_tokens - 3 * i for i in range(8)]
     sps = [SamplingParams(max_tokens=m) for m in mts]
     eng = llm.engine
     # chip_pair.py also serves older trees of the port through this
     # function: what their engine lacks (the runner's step counts, the
-    # metrics registry, the span tracer) is left out of their record
+    # metrics registry, the span tracer, step graphs) is left out of their
+    # record
     new_engine = hasattr(eng, "obs")
+    graphed = getattr(eng.runner, "capture_graphs", False)
     base = {k: eng.metrics.get(k, 0)
             for k in ("gen_tokens", "prompt_tokens", "work_steps",
                       "device_dispatches", "decode_steps", "prefill_chunks",
@@ -1037,7 +1096,7 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
     t0_ns = time.perf_counter_ns()
     t0 = time.perf_counter()
     outs = llm.generate(prompts, sps)
-    if dev != "cpu":
+    if card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
@@ -1089,33 +1148,62 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
     if audit["live_blocks"] != 0:
         raise AssertionError(f"serve {label}: allocator audit not clean: "
                              f"{audit}")
-    prof = profile_serve(llm, prompts, sps, outs) if profile else None
-    out = {"label": label, "options": options or {}, "profile": prof,
-           "config": llm.cfg.name, "layers": llm.cfg.num_layers,
-           "requests": len(outs), "prompt_lens": [len(p) for p in prompts],
-           "load_s": load_s, "wall_s": wall,
-           "load_max_memory_allocated": load_peak,
-           "max_memory_allocated": torch.cuda.max_memory_allocated()
-           if card else None,
-           "gen_tokens": m["gen_tokens"], "prompt_tokens": m["prompt_tokens"],
-           "gen_tok_s": m["gen_tokens"] / wall,
-           "total_tok_s": (m["gen_tokens"] + m["prompt_tokens"]) / wall,
-           "work_steps": m["work_steps"],
-           "mean_step_ms": wall / max(m["work_steps"], 1) * 1e3,
-           "dispatches_per_step": m["device_dispatches"]
-           / max(m["work_steps"], 1),
-           "decode_steps": m["decode_steps"],
-           "prefill_chunks": m["prefill_chunks"],
-           "async_steps": m["async_steps"], "runner_steps": steps,
-           "latency": latency, "attribution": attribution,
-           "kv_pool_bytes": eng.runner.kv_pool_bytes(),
-           "blocks_reused": eng.alloc.stats["reused"], "audit": audit,
-           "launches": launches,
-           "tokens": [o.token_ids for o in outs]}
-    del llm, eng
-    if dev != "cpu":
+    peak = torch.cuda.max_memory_allocated() if card else None
+    graphs = eng.runner.graph_stats() if graphed else {}
+    prof = profile_serve(llm, prompts, sps, outs, kernels) if profile \
+        else None
+    accounting = check_launch_accounting(llm, kernels, label) \
+        if profile and kernels and graphed else None
+    if graphed:
+        for kind, g in eng.runner.graph_stats().items():
+            if g["captures"] != len(g["variants"]) \
+                    or kind in graphs and g["captures"] \
+                    != graphs[kind]["captures"]:
+                raise AssertionError(
+                    f"serve {label}: step graph {kind} captured "
+                    f"{g['captures']} times for {len(g['variants'])} "
+                    f"variants ({graphs.get(kind, {}).get('captures')} "
+                    "before the re-run): a variant captured twice")
+        graphs = eng.runner.graph_stats()
+        # every fixed-shape step of this engine's mode ran from its graph
+        want = {"megastep"} | ({"chained"} if eng.async_step else
+                               {"unified"} if eng.unified else set())
+        ran = {k for k, g in graphs.items() if g["captures"] + g["replays"]}
+        if not want <= ran:
+            raise AssertionError(f"serve {label}: step graphs {sorted(ran)} "
+                                 f"ran, want {sorted(want)}")
+    pool_bytes = None
+    if graphed and card:
+        # the graphs' private pool: what releasing them gives back
+        torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    return out
+        held = torch.cuda.memory_reserved()
+        eng.runner.close()
+        torch.cuda.empty_cache()
+        pool_bytes = held - torch.cuda.memory_reserved()
+    return {"label": label, "options": options or {}, "profile": prof,
+            "config": llm.cfg.name, "layers": llm.cfg.num_layers,
+            "requests": len(outs), "prompt_lens": [len(p) for p in prompts],
+            "wall_s": wall, "max_memory_allocated": peak,
+            "memory_allocated_at_start": start_alloc if card else None,
+            "capture_graphs": graphed, "graphs": graphs,
+            "capture_s": sum(g["capture_s"] for g in graphs.values()),
+            "graph_pool_bytes": pool_bytes,
+            "gen_tokens": m["gen_tokens"], "prompt_tokens": m["prompt_tokens"],
+            "gen_tok_s": m["gen_tokens"] / wall,
+            "total_tok_s": (m["gen_tokens"] + m["prompt_tokens"]) / wall,
+            "work_steps": m["work_steps"],
+            "mean_step_ms": wall / max(m["work_steps"], 1) * 1e3,
+            "dispatches_per_step": m["device_dispatches"]
+            / max(m["work_steps"], 1),
+            "decode_steps": m["decode_steps"],
+            "prefill_chunks": m["prefill_chunks"],
+            "async_steps": m["async_steps"], "runner_steps": steps,
+            "latency": latency, "attribution": attribution,
+            "kv_pool_bytes": eng.runner.kv_pool_bytes(),
+            "blocks_reused": eng.alloc.stats["reused"], "audit": audit,
+            "launches": launches, "launch_accounting": accounting,
+            "tokens": [o.token_ids for o in outs]}
 
 
 # Our kernels' device functions (every instantiation) -> wrapper name; an
@@ -1137,49 +1225,148 @@ def ours_name(key: str):
     return None
 
 
-def profile_serve(llm, prompts, sps, outs) -> dict:
+# Profiled two-request windows per serve for the launch accounting: the
+# profiler drops a kernel record now and then, so a window may read a few
+# short; an accounting fault would read wrong in every window
+ACCOUNTING_WINDOWS = 3
+# The host's calls that start work on the device, as the profiler names
+# its CUDA runtime (and driver) events
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
+def _events(prof):
+    """A profile's raw records as (name, on the device, device ms): read
+    straight from the profiler's result, without building its Python
+    event tree (seconds for the ~200,000 device records of a serve)."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        on_device = e.device_type() == cuda
+        yield e.name(), on_device, e.duration_ns() / 1e6 if on_device else 0.0
+
+
+def _traced(prof, names) -> tuple:
+    """From a profile: each of ``names``' kernel launches in the device
+    records, and the host's calls among LAUNCH_CALLS."""
+    traced, calls = dict.fromkeys(names, 0), {}
+    for name, on_device, _ in _events(prof):
+        if not on_device:
+            if name in LAUNCH_CALLS:
+                calls[name] = calls.get(name, 0) + 1
+            continue
+        ours = ours_name(name)
+        if ours in traced:
+            traced[ours] += 1
+    return traced, calls
+
+
+def check_launch_accounting(llm, kernels, label: str) -> dict:
+    """Two of serve_prompts' requests (8 new tokens each) served with the
+    step graphs under ``torch.profiler``: each kernel's launches in the
+    profiler's device records must equal its wrapper's counter over the
+    same window (a replay adds the launches its capture recorded: this
+    holds that accounting to the device's own record), and graphs must
+    have been launched.  The window is short and padded by a synchronize
+    and 0.5 s on both sides: over a whole serve the profiler loses tens
+    to hundreds of ~200,000 device records, in such a window once in a
+    while a few (an H100 at 700 W).  So a window may read short
+    and is run again, up to ACCOUNTING_WINDOWS times; one must be exact,
+    and none may read more than the counters.  A window that also runs
+    eager steps (a whole-prompt engine's wave) has read a few
+    ``gptq_matmul`` launches short in most runs (6; eager windows in
+    general): there the shortfall is recorded (``records_short``), not
+    held to 0."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import SamplingParams
+    prompts = serve_prompts(llm.cfg.vocab_size)[:2]
+    tries = []
+    for _ in range(ACCOUNTING_WINDOWS):
+        for k in kernels:
+            k.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.5)
+            llm.generate(prompts, SamplingParams(max_tokens=8))
+            torch.cuda.synchronize()
+            time.sleep(0.5)
+        counted = {k.name: k.launches for k in kernels}
+        traced, calls = _traced(prof, counted)
+        short = {k: n - traced[k] for k, n in counted.items()
+                 if n != traced[k]}
+        tries.append(short)
+        if any(v < 0 for v in short.values()):
+            raise AssertionError(f"serve {label}: more kernel launches in "
+                                 f"the profiler's records {traced} than the "
+                                 f"wrappers counted {counted}")
+        if not calls.get("cudaGraphLaunch"):
+            raise AssertionError(f"serve {label}: no cudaGraphLaunch with "
+                                 f"graphs on: {calls}")
+        if not short or not llm.engine.chunked:
+            break
+    else:
+        raise AssertionError(f"serve {label}: kernel launches in the "
+                             f"profiler's records short of the wrappers' "
+                             f"counters {counted} in every window: {tries}")
+    return {"launches": counted, "records_short": tries,
+            "all_graphed": llm.engine.chunked, "host_launch_calls": calls}
+
+
+def profile_serve(llm, prompts, sps, outs, kernels=()) -> dict:
     """Serve the same requests again under ``torch.profiler`` (after the
     launch counts were read) and sum the device time by kernel: ours, and
     every other kernel PyTorch launched; count the device-to-host copies
-    per engine step and the copies from or to pageable host memory.  Also
-    checks the re-run's tokens against the first run's (greedy:
-    identical)."""
+    per engine step, the copies from or to pageable host memory and the
+    host's launch calls (kernels and graphs) per step.  Also checks the
+    re-run's tokens against the first run's (greedy: identical).  The
+    profiler loses a few of the ~200,000 device records of a serve
+    (``records_lost``: our kernels' counters less their records), so the
+    busy time may read low by about that share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     steps0 = llm.engine.metrics["work_steps"]
+    for k in kernels:
+        k.launches = 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         again = llm.generate(prompts, sps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counted = {k.name: k.launches for k in kernels}
     steps = llm.engine.metrics["work_steps"] - steps0
     if [o.token_ids for o in again] != [o.token_ids for o in outs]:
         raise AssertionError("serve: the profiled re-run changed tokens")
-    by, dtoh, pageable, ops = {}, 0, 0, 0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    by, dtoh, pageable, ops, calls = {}, 0, 0, 0, {}
+    for name, on_device, ms in _events(prof):
+        if not on_device:
+            if name in LAUNCH_CALLS:
+                calls[name] = calls.get(name, 0) + 1
             continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        ops += e.count
-        if "Memcpy DtoH" in e.key:
-            dtoh += e.count
+        ops += 1
+        if "Memcpy DtoH" in name:
+            dtoh += 1
         # a copy from or to pageable host memory blocks the host on the
         # stream: it would stall the async engine's pipeline
-        if "Memcpy" in e.key and "Pageable" in e.key:
-            pageable += e.count
-        key = ours_name(e.key) or e.key[:60]
-        ms, n = by.get(key, (0.0, 0))
-        by[key] = (ms + us / 1e3, n + e.count)
+        if "Memcpy" in name and "Pageable" in name:
+            pageable += 1
+        key = ours_name(name) or name[:60]
+        t, n = by.get(key, (0.0, 0))
+        by[key] = (t + ms, n + 1)
+    traced = {k: by.get(k, (0.0, 0))[1] for k in counted}
     busy = sum(ms for ms, _ in by.values())
     top = sorted(by.items(), key=lambda kv: -kv[1][0])[:12]
+    n_calls = sum(calls.values())
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / (wall * 1e3),
             "work_steps": steps, "dtoh_copies": dtoh,
             "dtoh_per_step": dtoh / max(steps, 1),
             "pageable_copies": pageable,
             "device_ops_per_step": ops / max(steps, 1),
+            "host_launch_calls": calls,
+            "host_launches_per_step": n_calls / max(steps, 1)
+            if n_calls else None,
+            "records_lost": sum(counted.values()) - sum(traced.values()),
             "ours_ms": {v: by[v][0] for v in
                         (*OURS.values(), *INT8_NAMES.values()) if v in by},
             "top": [{"kernel": k, "ms": ms, "calls": n}
@@ -1740,7 +1927,8 @@ def phase_checkpoint(dev: str = "cuda") -> dict:
 
 
 def log_serve(label: str, serve: dict, quant) -> None:
-    """One serve's record, and its profiled re-run's, on the log."""
+    """One serve's record, and its profiled re-run's, on the log; then
+    the same for its graphs-off serve, if it has one."""
     log(f"[serve] {label}: {serve['config']} x{serve['layers']} layers "
         f"{quant} {json.dumps(serve['options'])}: {serve['requests']} "
         f"requests, {serve['gen_tokens']} new tokens in "
@@ -1753,12 +1941,19 @@ def log_serve(label: str, serve: dict, quant) -> None:
         f"async_steps={serve['async_steps']} "
         f"runner_steps={json.dumps(serve['runner_steps'])} "
         f"launches={serve['launches']} audit={serve['audit']}")
-    log(f"[serve] {label}: load_s={serve['load_s']:.2f} "
-        f"load_max_memory_allocated={serve['load_max_memory_allocated']} "
+    log(f"[serve] {label}: load_s={serve.get('load_s', 0.0):.2f} "
+        f"load_max_memory_allocated={serve.get('load_max_memory_allocated')} "
         f"max_memory_allocated={serve['max_memory_allocated']} "
         f"latency {json.dumps(serve['latency'])} "
         f"attribution {json.dumps(serve['attribution'])}")
+    captures = {k: g["captures"] for k, g in serve["graphs"].items()}
+    log(f"[graphs] {label}: capture_graphs={serve['capture_graphs']} "
+        f"captures per kind {json.dumps(captures)} "
+        f"capture_s={serve['capture_s']:.3f} "
+        f"graph_pool_bytes={serve['graph_pool_bytes']} "
+        f"graphs {json.dumps(serve['graphs'])}")
     prof = serve["profile"]
+    hl = prof["host_launches_per_step"]
     log(f"[profile] {label} re-run under torch.profiler: "
         f"wall_ms={prof['wall_ms']:.1f} "
         f"device_busy_ms={prof['device_busy_ms']:.1f} "
@@ -1768,10 +1963,29 @@ def log_serve(label: str, serve: dict, quant) -> None:
         f"({prof['dtoh_per_step']:.2f}/step) "
         f"pageable_copies={prof['pageable_copies']} "
         f"device_ops_per_step={prof['device_ops_per_step']:.0f} "
+        "host_launches_per_step="
+        + ("not measured" if hl is None else f"{hl:.1f}")
+        + f" host_launch_calls={json.dumps(prof['host_launch_calls'])} "
+        f"records_lost={prof['records_lost']} "
         f"ours_ms={json.dumps(prof['ours_ms'])}")
+    acc = serve["launch_accounting"]
+    if acc is not None:
+        last = acc["records_short"][-1]
+        log(f"[profile] {label}: two requests profiled "
+            f"{len(acc['records_short'])} time(s), kernel records "
+            + ("equal the counters" if not last else
+               f"short of the counters by {json.dumps(last)} (eager wave "
+               "in the window)")
+            + f" {json.dumps(acc['launches'])}; host calls "
+            f"{json.dumps(acc['host_launch_calls'])}")
     for row in prof["top"]:
         log(f"[profile]   {row['ms']:9.2f} ms  {row['calls']:6d} calls  "
             f"{row['kernel']}")
+    if "off" in serve:
+        log_serve(serve["off"]["label"], serve["off"], quant)
+        log(f"[graphs] {label}: tokens with graphs on equal graphs off; "
+            f"wall {serve['wall_s']:.3f} s on, {serve['off']['wall_s']:.3f} "
+            "s off")
 
 
 def phase_moe(report: dict, gen, kernels) -> list:
@@ -1799,7 +2013,8 @@ def phase_moe(report: dict, gen, kernels) -> list:
     for label, options, must, never in MOE_SERVES:
         serves[label] = serve = phase_serve(
             "cuda", config=MOE, quant=None, kernels=kernels, label=label,
-            options=options, must=must, never=never, profile=True)
+            options=options, must=must, never=never, profile=True,
+            graphs_off=True)
         log_serve(label, serve, "bf16")
     check_async_serve(serves["moe-chunked-async"], serves["moe-chunked"])
     same = agreement(serves["moe-chunked"]["tokens"],
@@ -2000,7 +2215,8 @@ def ring_decode_ms(llm, steps: int = 3) -> dict:
     """One full decode step of the served model with all 8 rings full
     (seq_len 8,200: every slot valid, the ring wrapped): its elapsed ms
     between events (``time_ms``; its ~2,000 launches outrun the spin, so
-    this includes the host's launch gaps) and its device busy ms (the
+    this includes the host's launch gaps), the same replayed as one
+    captured CUDA graph, and its device busy ms (the
     kernels' time summed by ``torch.profiler`` over ``steps`` steps);
     and one layer's ring attention alone (write, gather of the whole
     ring, f32 scores, softmax, output; few launches, so ``time_ms`` is
@@ -2035,6 +2251,18 @@ def ring_decode_ms(llm, steps: int = 3) -> dict:
             for _ in range(steps):
                 T.decode_step(cfg, runner.params, st, toks)
             torch.cuda.synchronize()
+        # the same step captured as one CUDA graph, as the runner's
+        # megastep replays it: its time between events without the host
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            T.decode_step(cfg, runner.params, st, toks)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            T.decode_step(cfg, runner.params, st, toks)
+        torch.cuda.current_stream().wait_stream(side)
+        graphed = time_ms(graph.replay, iters=5)
+        graph.reset()
         attn = time_ms(lambda: _ring_cache_attend(
             q, k, v, cache, st["block_table"], st["seq_lens"], 0,
             cfg.sliding_window))
@@ -2044,7 +2272,8 @@ def ring_decode_ms(llm, steps: int = 3) -> dict:
             us = getattr(e, "self_device_time_total", None)
             busy += (e.self_cuda_time_total if us is None else us) / 1e3
             launches += e.count
-    return {"decode_step_ms": step, "decode_step_device_ms": busy / steps,
+    return {"decode_step_ms": step, "decode_step_graphed_ms": graphed,
+            "decode_step_device_ms": busy / steps,
             "decode_step_device_ops": launches / steps,
             "ring_attention_layer_ms": attn,
             "ring_attention_bound": bound_ms(nbytes, 4 * slots * h * d
@@ -2125,7 +2354,7 @@ def serve_danube(kernels, label: str = "danube-defaults") -> tuple:
     serve = phase_serve("cuda", config=DANUBE, kernels=kernels, label=label,
                         options=options, must=must, never=never,
                         profile=True, llm=llm, lens=DANUBE_LENS,
-                        max_tokens=DANUBE_MAX_TOKENS)
+                        max_tokens=DANUBE_MAX_TOKENS, graphs_off=True)
     serve["load_s"], serve["load_max_memory_allocated"] = load_s, load_peak
     log_serve(label, serve, "rtn-int4")
     tf = teacher_forced(llm, serve_prompts(cfg.vocab_size, DANUBE_LENS),
@@ -2193,7 +2422,8 @@ def phase_sliding(report: dict, gen, kernels) -> list:
         f"{tf['agreement_after_wrap']:.3f}), logit gap max "
         f"{tf['max_gap']:.4f} mean {tf['mean_gap']:.5f}")
     log(f"[ring] one decode step, 8 full rings x 24 layers: "
-        f"{rd['decode_step_ms']:.3f} ms between events, "
+        f"{rd['decode_step_ms']:.3f} ms between events "
+        f"({rd['decode_step_graphed_ms']:.3f} ms replayed as one graph), "
         f"{rd['decode_step_device_ms']:.3f} ms of device busy time in "
         f"{rd['decode_step_device_ops']:.0f} device ops; one layer's ring "
         f"attention "
@@ -2248,6 +2478,7 @@ def main() -> int:
             f"max_abs_err={k['max_abs_err']:.3e} [{k['shape']}]")
     log("[kernels] " + ", ".join(k["name"] for k in kernels)
         + " built, launched and within tolerance of their plain versions")
+    log_time("kernels")
 
     report["sampling"] = smp = phase_sampling()
     log(f"[sampling] threefry on the card vs the CPU: {json.dumps(smp)}")
@@ -2260,6 +2491,7 @@ def main() -> int:
             f"card vs CPU: {json.dumps(res)} "
             f"({time.perf_counter() - t0:.1f} s)")
 
+    log_time("model")
     serves = report["serve"] = {}
     gptq_llm = None
     for label, options, must, never in (*SERVES, GPTQ_SERVE):
@@ -2267,9 +2499,11 @@ def main() -> int:
             gptq_llm = phase_gptq(report, ops.KERNELS)
         serves[label] = serve = phase_serve(
             "cuda", kernels=ops.KERNELS, label=label, options=options,
-            must=must, never=never, profile=True, llm=gptq_llm)
+            must=must, never=never, profile=True, llm=gptq_llm,
+            graphs_off=True)
         log_serve(label, serve,
                   "gptq-int4" if gptq_llm is not None else "rtn-int4")
+        log_time(f"serve {label}")
         if label in ATTENTION_LAUNCHES:
             got = {k: serve["launches"][k] for k in ATTENTION_LAUNCHES[label]}
             if got != ATTENTION_LAUNCHES[label]:
@@ -2298,8 +2532,11 @@ def main() -> int:
                              f"{dtoh[0]:.2f} times per step, the bf16 one "
                              f"{dtoh[1]:.2f}: a hidden host sync")
 
+    log_time("serve phase")
     moe_checks = phase_moe(report, gen, ops.KERNELS)
+    log_time("moe phase")
     sliding_checks = phase_sliding(report, gen, ops.KERNELS)
+    log_time("sliding phase")
 
     record = []
     # each check's launches come from the serves of its own phase

@@ -132,6 +132,9 @@ class GptqMatmul:
             p = plan(M, K, N, gs, self._sms[dev])
             mt, sr, kt_per, launches = p.mt, p.sr, p.kt_per, p.launches
             if p.splits > 1:
+                # allocated per call; under a step graph's capture it comes
+                # from the graph's private pool, as every temporary does,
+                # and a replay reuses the same memory
                 partial = torch.empty((p.splits, M, N), dtype=torch.float32,
                                       device=dev)
         err = self._launcher()(

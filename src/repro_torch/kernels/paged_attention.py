@@ -67,7 +67,12 @@ def scratch(device: torch.device, p: Plan
     KV head) resets its own.  A launch that dies part way (a device fault,
     which is sticky: every later CUDA call of the process raises) can
     leave one above zero; a later launch that found one so would trap,
-    not combine early.  ``_SCRATCH.clear()`` drops the cache."""
+    not combine early.  ``_SCRATCH.clear()`` drops the cache.
+
+    A step graph (``serving/step_graph.py``) runs its warm-up on its
+    capture stream, so the scratch its captured launches use is allocated
+    there, before and outside the capture; every launch, replayed or not,
+    leaves the counters at zero for the next."""
     key = (device, build.stream_of(device), p.scratch)
     if key not in _SCRATCH:
         B, KV = p.scratch[:2]
@@ -75,6 +80,13 @@ def scratch(device: torch.device, p: Plan
             torch.empty(p.scratch, dtype=torch.float32, device=device),
             torch.zeros(B * KV, dtype=torch.int32, device=device))
     return _SCRATCH[key]
+
+
+def drop_scratch(stream: int) -> None:
+    """Forget the scratch cached for the stream whose handle is ``stream``
+    (a closed runner's capture stream)."""
+    for key in [k for k in _SCRATCH if k[1] == stream]:
+        del _SCRATCH[key]
 
 
 def check_heads(H: int, KV: int, D: int, dtype: torch.dtype,

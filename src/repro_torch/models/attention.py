@@ -9,7 +9,7 @@ slice (ROADMAP A13).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -55,9 +55,20 @@ def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor, positions):
     return q, k, v
 
 
+# ALiBi slopes per (heads, device), made at a step's first (eager) run
+_SLOPES: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
 def _slopes(cfg: ModelConfig, device):
-    return alibi_slopes(cfg.num_heads, device) if cfg.pos_emb == "alibi" \
-        else None
+    """The ALiBi slopes [H] on ``device`` (None without ALiBi), built once
+    per (heads, device): building them is a copy from pageable host
+    memory, which a step being captured as a CUDA graph may not make."""
+    if cfg.pos_emb != "alibi":
+        return None
+    key = (cfg.num_heads, torch.device(device))
+    if key not in _SLOPES:
+        _SLOPES[key] = alibi_slopes(cfg.num_heads, device)
+    return _SLOPES[key]
 
 
 def attn_apply(cfg: ModelConfig, p: Params, x: torch.Tensor, *,

@@ -425,18 +425,35 @@ def decode_megastep(cfg: ModelConfig, params: Params,
     guard = bool((rt or {}).get("sampling_guard"))
     out = torch.zeros((max_horizon, tokens.shape[0]), dtype=torch.int32,
                       device=tokens.device)
-    active_i = active.to(torch.int32)
     toks = tokens
     counts = torch.as_tensor(sampling["counts"]).to(tokens.device)
     for t in range(int(n_steps)):
-        logits, state = decode_step(cfg, params, state, toks, rt)
-        nxt = _sample(logits, sampling, counts + t, guard)
-        nxt = torch.where(active, nxt, toks)
-        state["seq_lens"] = state["seq_lens"] + active_i
-        out[t] = torch.where(active, nxt, torch.zeros_like(nxt))
-        # a guarded -1 must not feed the next step's embedding lookup
-        toks = nxt.clamp(min=0) if guard else nxt
+        row, toks, state = decode_sample_step(cfg, params, state, toks,
+                                              sampling, active, counts + t,
+                                              guard, rt)
+        out[t] = row
     return out, state
+
+
+def decode_sample_step(cfg: ModelConfig, params: Params,
+                       state: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                       sampling: Dict[str, Any], active: torch.Tensor,
+                       counts: torch.Tensor, guard: bool,
+                       rt: Optional[dict] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor,
+                                  Dict[str, torch.Tensor]]:
+    """One step of the megastep: decode every slot, sample at stream
+    positions ``counts``, then ``seq_lens += active``; inactive slots keep
+    their token.  Returns (the step's row of the token buffer: sampled
+    tokens of active slots, 0 elsewhere; the next step's feed tokens;
+    state).  The runner's captured megastep replays exactly this."""
+    logits, state = decode_step(cfg, params, state, tokens, rt)
+    nxt = _sample(logits, sampling, counts, guard)
+    nxt = torch.where(active, nxt, tokens)
+    state["seq_lens"] = state["seq_lens"] + active.to(torch.int32)
+    row = torch.where(active, nxt, torch.zeros_like(nxt))
+    # a guarded -1 must not feed the next step's embedding lookup
+    return row, (nxt.clamp(min=0) if guard else nxt), state
 
 
 def _scalar_i32(v, device) -> torch.Tensor:

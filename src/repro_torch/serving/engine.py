@@ -135,7 +135,8 @@ class ServingEngine:
                  retry_backoff_s: float = 0.0,
                  enable_telemetry: bool = True,
                  trace_capacity: int = 65536,
-                 profile_labels: bool = False, device="cuda"):
+                 profile_labels: bool = False, capture_graphs: bool = True,
+                 device="cuda"):
         if shed_policy not in ("reject", "shed-oldest"):
             raise ValueError(f"shed_policy {shed_policy!r}: expected "
                              "'reject' or 'shed-oldest'")
@@ -232,7 +233,8 @@ class ServingEngine:
                                   kv_cache_dtype=kv_cache_dtype,
                                   chunk_tokens=chunk_tokens,
                                   tracer=self.tracer,
-                                  profile_labels=profile_labels)
+                                  profile_labels=profile_labels,
+                                  capture_graphs=capture_graphs)
         self.kv_cache_dtype = self.runner.kv_cache_dtype
         self._t0: Optional[float] = None
         self._next_rid = 0
@@ -981,8 +983,9 @@ class ServingEngine:
     # ------------------------------------------------------------ shutdown
     def close(self) -> List[RequestOutput]:
         """Read back any in-flight dispatch (banking its tokens), drain and
-        join the detokenize worker, and return every event not yet
-        surfaced through ``step()``.  Idempotent; ``with`` calls it."""
+        join the detokenize worker, release the runner's step graphs and
+        their pool, and return every event not yet surfaced through
+        ``step()``.  Idempotent; ``with`` calls it."""
         outs: List[RequestOutput] = []
         try:
             self._collect_flight(outs)
@@ -990,6 +993,7 @@ class ServingEngine:
             if self._detok is not None:
                 worker, self._detok = self._detok, None
                 outs.extend(worker.close())
+            self.runner.close()
         if self._pending:
             outs = self._pending + outs
             self._pending = []

@@ -94,7 +94,7 @@ class LLM:
              overrides: Optional[dict] = None, seed: int = 0,
              quant_group_size: int = 32,
              calib_batches: Optional[list] = None, device="cuda",
-             **engine_kw) -> "LLM":
+             capture_graphs: bool = True, **engine_kw) -> "LLM":
         """Build a ready-to-serve ``LLM`` from a registry config name.
 
         quant: None | "rtn-int4" (round-to-nearest int4 of every matmul
@@ -112,6 +112,10 @@ class LLM:
         its latest step's ``params`` replace the seeded init (each leaf
         checked against the config's shapes), and quantization runs
         after the restore, as in the reference.
+        capture_graphs: run the fixed-shape serving steps as captured
+        CUDA graphs (on the CPU: the same static-buffer bookkeeping);
+        False runs every step one op at a time, the counterpart of
+        ``jax.disable_jit``.
         engine_kw: forwarded to ``ServingEngine``, every argument of the
         reference's engine (max_slots, num_blocks, max_blocks_per_seq,
         max_num_batched_tokens, max_horizon, enable_chunked_prefill,
@@ -158,7 +162,7 @@ class LLM:
                 QuantConfig(bits=4, group_size=quant_group_size),
                 timings=load_s)
         llm = cls(cfg, params, seed=seed, kv_cache_dtype=kv_cache_dtype,
-                  device=dev, **engine_kw)
+                  device=dev, capture_graphs=capture_graphs, **engine_kw)
         llm.load_s = load_s
         return llm
 

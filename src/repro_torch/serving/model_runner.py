@@ -22,6 +22,22 @@ non-blocking copy into pinned memory with an event behind it
 (``Readback``), which the host waits on only when it needs the
 tokens.  All of it runs on the current stream, so launches keep their
 order (the decode kernel's arrival counters rely on it).
+
+With ``capture_graphs`` (the default) the fixed-shape steps — the unified
+step, its chained variant, the megastep's decode-plus-sample step and the
+standalone prefill chunk — run as captured CUDA graphs
+(``step_graph.StepGraph``), the counterpart of the reference's one jitted
+executable per step.  Each dispatch of them is one staged copy into the
+graph's static inputs, one graph launch (the megastep: one per decode
+step of its horizon) and the readback.  The decode state is then static:
+``self.state`` keeps its tensors for the runner's life, tables from
+``sync_tables`` are copied into them, and every state entry a step
+returns as a new tensor is copied back inside the captured region.
+Whole-prompt waves (a graph per (rows, bucket), each with its own
+activations, for a wave that runs once per admission), the standalone
+``sample`` (its row count varies), the per-token ``decode`` oracle and
+the CoW block copies stay eager.  On the CPU the same bookkeeping runs
+the step functions on the static buffers.
 """
 from __future__ import annotations
 
@@ -36,30 +52,16 @@ from repro_torch.core.kv_quant import (cache_from_state, cache_to_state,
                                        normalize_kv_cache_dtype)
 from repro_torch.core.paged_cache import copy_blocks
 from repro_torch.core.sampling import sample_from_logits, sampling_plan
+from repro_torch.kernels import paged_attention
 from repro_torch.models import transformer as T
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.serving import step_graph
+from repro_torch.serving.step_graph import (Fields, StepGraph, _unwords,
+                                            _words)
 
 # decode-state entries that are pool-shaped [L, NB, ...]
 _POOL_KEYS = ("k_pool", "v_pool", "k_scales", "v_scales")
 _SAMPLING_KEYS = ("keys", "counts", "temps", "top_ks", "top_ps", "poison")
-
-
-def _words(a: np.ndarray) -> np.ndarray:
-    """A host array's values as int32 words (bools as 0 / 1; 32-bit ints
-    and floats bit for bit)."""
-    if a.dtype == np.bool_:
-        return a.astype(np.int32).ravel()
-    if a.dtype.itemsize != 4:
-        raise TypeError(f"staged arrays hold 32-bit values, not {a.dtype}")
-    return np.ascontiguousarray(a).view(np.int32).ravel()
-
-
-def _unwords(w: torch.Tensor, dtype: np.dtype) -> torch.Tensor:
-    if dtype == np.bool_:
-        return w != 0
-    if dtype == np.float32:
-        return w.view(torch.float32)
-    return w                      # int32, and uint32 keys as their bits
 
 
 class _Staging:
@@ -92,22 +94,34 @@ class _Staging:
             words.append(w)
             n += w.size
         if self.cuda:
-            i = self._next
-            self._next = (i + 1) % self.DEPTH
-            if self._used[i]:
-                self._events[i].synchronize()
-            if self._bufs[i] is None or self._bufs[i].numel() < n:
-                self._bufs[i] = torch.empty(max(n, 1024), dtype=torch.int32,
-                                            pin_memory=True)
-            host = self._bufs[i][:n]
-            np.concatenate(words, out=host.numpy())
-            dev = host.to(self.device, non_blocking=True)
-            self._events[i].record()
-            self._used[i] = True
+            dev = torch.empty(n, dtype=torch.int32, device=self.device)
+            self.upload_into(dev, words)
         else:
             dev = torch.from_numpy(np.concatenate(words))
         return {name: _unwords(dev[o:o + size], dtype).reshape(shape)
                 for name, shape, dtype, o, size in items}
+
+    def upload_into(self, dst: torch.Tensor, words: List[np.ndarray]
+                    ) -> None:
+        """Copy the concatenated int32 ``words`` into the first words of
+        the device buffer ``dst`` (a step graph's static inputs) in one
+        non-blocking copy from the next pinned buffer."""
+        n = sum(w.size for w in words)
+        if not self.cuda:
+            dst[:n].copy_(torch.from_numpy(np.concatenate(words)))
+            return
+        i = self._next
+        self._next = (i + 1) % self.DEPTH
+        if self._used[i]:
+            self._events[i].synchronize()
+        if self._bufs[i] is None or self._bufs[i].numel() < n:
+            self._bufs[i] = torch.empty(max(n, 1024), dtype=torch.int32,
+                                        pin_memory=True)
+        host = self._bufs[i][:n]
+        np.concatenate(words, out=host.numpy())
+        dst[:n].copy_(host, non_blocking=True)
+        self._events[i].record()
+        self._used[i] = True
 
 
 class Readback:
@@ -136,7 +150,7 @@ class ModelRunner:
                  rt: Optional[dict] = None, max_horizon: int = 8,
                  kv_cache_dtype: str = "bf16",
                  chunk_tokens: Optional[int] = 256, tracer=None,
-                 profile_labels: bool = False):
+                 profile_labels: bool = False, capture_graphs: bool = True):
         self.cfg = cfg
         self.device = params["embed"].device
         # weights used only cast to the activation dtype are cast once;
@@ -166,6 +180,12 @@ class ModelRunner:
         # the chained step's feed buffer when nothing is in flight
         self.zero_prev = torch.zeros(max_slots + 1, dtype=torch.int32,
                                      device=self.device)
+        # the fixed-shape steps as step graphs, made at their first
+        # dispatch; on the card they share one capture stream and pool
+        self.capture_graphs = bool(capture_graphs)
+        self.graphs: Dict[str, StepGraph] = {}
+        self._capture_stream = None
+        self._pool = None
 
     # ------------------------------------------------------------ obs
     def _label(self, name: str):
@@ -185,9 +205,17 @@ class ModelRunner:
             self._tables = None
         dev = self._staging.upload(arrays)
         if tables is not None:
-            self.state["block_table"] = dev.pop("_bt")
-            self.state["seq_lens"] = dev.pop("_sl")
+            self._keep({"block_table": dev.pop("_bt"),
+                        "seq_lens": dev.pop("_sl")})
         return dev
+
+    def _keep(self, new: Dict[str, torch.Tensor]) -> None:
+        """Take state entries an eager dispatch produced: copied into the
+        static tensors when graphs are on, else bound in their place."""
+        if self.capture_graphs:
+            step_graph.copy_back(self.state, new)
+        else:
+            self.state.update(new)
 
     def _sampling(self, sampling: Dict[str, np.ndarray], dev: dict) -> dict:
         """The staged sampling rows plus the host's branch plan."""
@@ -216,6 +244,159 @@ class ModelRunner:
     def _readback(self, out: torch.Tensor) -> np.ndarray:
         with self.tracer.span("readback", cat="device"):
             return Readback(out).wait()
+
+    # ------------------------------------------------------------ graphs
+    def _fields(self, kind: str) -> Fields:
+        """The static inputs of a dispatch kind, ``_Staging``'s names: the
+        chunk's, the decode rows and sampling rows (``max_slots`` rows, one
+        more for the chunk in the unified kinds), the chained feed's
+        gather, the megastep's step index, and the tables ``sync_tables``
+        may send along (``t_set`` says whether it did)."""
+        B, MB = self.max_slots, self.mb
+        f: Fields = {"t_bt": ((B, MB), np.int32), "t_sl": ((B,), np.int32),
+                     "t_set": ((), np.bool_)}
+        if kind != "chunk":
+            rows = B if kind == "megastep" else B + 1
+            f.update(toks=((B,), np.int32), active=((B,), np.bool_),
+                     sp_keys=((rows, 2), np.uint32),
+                     sp_counts=((rows,), np.int32),
+                     sp_temps=((rows,), np.float32),
+                     sp_top_ks=((rows,), np.int32),
+                     sp_top_ps=((rows,), np.float32),
+                     sp_poison=((rows,), np.float32))
+        if kind == "chained":
+            f.update(chain_idx=((B,), np.int32), use_prev=((B,), np.bool_))
+        if kind == "megastep":
+            f["step"] = ((), np.int32)
+        else:
+            f.update(c_toks=((1, self.chunk_tokens), np.int32),
+                     c_bt=((1, MB), np.int32), c_off=((), np.int32),
+                     c_tl=((), np.int32))
+        return f
+
+    def _graph(self, kind: str) -> StepGraph:
+        g = self.graphs.get(kind)
+        if g is not None:
+            return g
+        if self.device.type == "cuda" and self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        buffers = {}
+        if kind == "chained":
+            buffers["prev"] = torch.zeros_like(self.zero_prev)
+        elif kind == "megastep":
+            buffers["out"] = torch.zeros((self.max_horizon, self.max_slots),
+                                         dtype=torch.int32,
+                                         device=self.device)
+        body = {"unified": self._unified_body, "chained": self._unified_body,
+                "megastep": self._megastep_body,
+                "chunk": self._chunk_body}[kind]
+        g = StepGraph(kind, self._fields(kind), self.device,
+                      lambda key: body(kind, key), buffers=buffers,
+                      stream=self._capture_stream, pool=self._pool)
+        self.graphs[kind] = g
+        return g
+
+    def _stage(self, kind: str, arrays: dict) -> StepGraph:
+        """One staged copy of a dispatch's host arrays, and the tables
+        ``sync_tables`` set since the last dispatch, into the static
+        inputs of its kind's graph."""
+        g = self._graph(kind)
+        if self._tables is not None:
+            arrays = dict(arrays, t_bt=self._tables[0],
+                          t_sl=self._tables[1], t_set=np.bool_(True))
+            self._tables = None
+        g.stage(self._staging, arrays)
+        return g
+
+    def _variant(self, sampling: Dict[str, np.ndarray]) -> tuple:
+        """Every host-side choice of a sampling step, as a graph variant
+        key: ``sampling_plan``'s (samples, filters), the guard, and
+        whether a poison row rides along."""
+        return (*sampling_plan(sampling["temps"], sampling["top_ks"],
+                               sampling["top_ps"]),
+                bool(self.rt.get("sampling_guard")), "poison" in sampling)
+
+    def _apply_tables(self, inp: dict, now=None) -> None:
+        """Inside a step: the staged tables written into the static state
+        where ``t_set`` (and ``now``) hold, else the state kept."""
+        on = inp["t_set"] if now is None else inp["t_set"] & now
+        for name, src in (("block_table", inp["t_bt"]),
+                          ("seq_lens", inp["t_sl"])):
+            dst = self.state[name]
+            dst.copy_(torch.where(on, src, dst))
+
+    @staticmethod
+    def _graph_sampling(inp: dict, key: tuple) -> dict:
+        samples, filters, _, poison = key
+        sp = {k: inp[f"sp_{k}"] for k in _SAMPLING_KEYS if k != "poison"}
+        if poison:
+            sp["poison"] = inp["sp_poison"]
+        sp["plan"] = (samples, filters)
+        return sp
+
+    def _unified_body(self, kind: str, key: tuple) -> torch.Tensor:
+        g = self.graphs[kind]
+        inp = g.inputs()
+        self._apply_tables(inp)
+        sp = self._graph_sampling(inp, key)
+        chunk = (inp["c_toks"], inp["c_bt"], inp["c_off"], inp["c_tl"])
+        if kind == "chained":
+            out, new = T.unified_step_chained(
+                self.cfg, self.params, dict(self.state), g.buffers["prev"],
+                inp["chain_idx"], inp["use_prev"], inp["toks"], sp,
+                inp["active"], *chunk, self.rt)
+        else:
+            out, new = T.unified_step(
+                self.cfg, self.params, dict(self.state), inp["toks"], sp,
+                inp["active"], *chunk, self.rt)
+        step_graph.copy_back(self.state, new)
+        return out
+
+    def _megastep_body(self, kind: str, key: tuple) -> None:
+        g = self.graphs[kind]
+        inp = g.inputs()
+        t = inp["step"]
+        # the tables land before the horizon's first step only
+        self._apply_tables(inp, now=t == 0)
+        sp = self._graph_sampling(inp, key)
+        row, feed, new = T.decode_sample_step(
+            self.cfg, self.params, dict(self.state), inp["toks"], sp,
+            inp["active"], sp["counts"] + t, key[2], self.rt)
+        step_graph.copy_back(self.state, new)
+        g.buffers["out"].index_copy_(0, t.long().reshape(1), row[None])
+        inp["toks"].copy_(feed)
+        t.add_(1)
+
+    def _chunk_body(self, kind: str, key: tuple) -> torch.Tensor:
+        inp = self.graphs[kind].inputs()
+        self._apply_tables(inp)
+        logits, cache = T.prefill_chunk(
+            self.cfg, self.params, cache_from_state(self.state),
+            inp["c_toks"], inp["c_bt"], inp["c_off"], inp["c_tl"], self.rt)
+        step_graph.copy_back(self.state, cache_to_state(cache))
+        return logits
+
+    def graph_stats(self) -> Dict[str, dict]:
+        """Per dispatch kind: variants captured (their keys), replays, the
+        seconds spent capturing."""
+        return {k: {"captures": g.captures, "replays": g.replays,
+                    "variants": [list(v) for v in g.variants],
+                    "capture_s": g.capture_s}
+                for k, g in self.graphs.items()}
+
+    def close(self) -> None:
+        """Release the step graphs, their static outputs and pool, and the
+        decode kernel's scratch on the capture stream.  A later dispatch
+        captures anew."""
+        if self._capture_stream is not None:
+            torch.cuda.current_stream(self.device).synchronize()
+        for g in self.graphs.values():
+            g.reset()
+        self.graphs.clear()
+        if self._capture_stream is not None:
+            paged_attention.drop_scratch(self._capture_stream.cuda_stream)
+        self._capture_stream = self._pool = None
 
     # ------------------------------------------------------------ tables
     def sync_tables(self, running: Dict[int, "object"]) -> None:
@@ -253,27 +434,30 @@ class ModelRunner:
             logits, sub = T.prefill(self.cfg, self.params, sub,
                                     {"tokens": dev["toks"],
                                      "ctx_lens": dev["lens"]}, self.rt)
-        for k in _POOL_KEYS:
-            if k in sub:
-                self.state[k] = sub[k]
+        self._keep({k: sub[k] for k in _POOL_KEYS if k in sub})
         return logits
 
     @torch.no_grad()
     def prefill_chunk(self, seq, start: int, length: int) -> torch.Tensor:
         """One prefill chunk of one sequence on its own; returns the
         last-live-token logits [1, V] on the device."""
-        dev = self._upload(**self._chunk_arrays(seq.req.prompt,
-                                                seq.block_ids, start, length))
+        arrays = self._chunk_arrays(seq.req.prompt, seq.block_ids, start,
+                                    length)
+        graph = self._stage("chunk", arrays) if self.capture_graphs \
+            else None
+        dev = None if graph is not None else self._upload(**arrays)
         self.dispatches += 1
         self.steps["chunk"] += 1
         with self.tracer.span("dispatch:chunk", cat="device",
                               args={"start": start, "length": length}), \
                 self._label("prefill_chunk"):
+            if graph is not None:
+                return graph.run(())
             logits, cache = T.prefill_chunk(
                 self.cfg, self.params, cache_from_state(self.state),
                 dev["c_toks"], dev["c_bt"], dev["c_off"], dev["c_tl"],
                 self.rt)
-        self.state.update(cache_to_state(cache))
+        self._keep(cache_to_state(cache))
         return logits
 
     # ------------------------------------------------------------ steps
@@ -282,13 +466,17 @@ class ModelRunner:
                  sampling: Dict[str, np.ndarray], active: np.ndarray,
                  chunk_prompt: Seq[int], block_ids: Seq[int], start: int,
                  length: int) -> torch.Tensor:
-        dev = self._upload(toks=np.asarray(tokens, np.int32),
-                           active=np.asarray(active, bool), **extra,
-                           **self._sampling_arrays(sampling),
-                           **self._chunk_arrays(chunk_prompt, block_ids,
-                                                start, length))
-        sp = self._sampling(sampling, dev)
-        chunk = (dev["c_toks"], dev["c_bt"], dev["c_off"], dev["c_tl"])
+        arrays = dict(toks=np.asarray(tokens, np.int32),
+                      active=np.asarray(active, bool), **extra,
+                      **self._sampling_arrays(sampling),
+                      **self._chunk_arrays(chunk_prompt, block_ids, start,
+                                           length))
+        kind = "chained" if extra else "unified"
+        graph = self._stage(kind, arrays) if self.capture_graphs else None
+        if graph is not None and extra:
+            graph.buffers["prev"].copy_(
+                self.zero_prev if prev_out is None else prev_out)
+        dev = None if graph is not None else self._upload(**arrays)
         self.dispatches += 1
         self.steps["decode"] += 1
         self.steps["chunk"] += 1
@@ -296,16 +484,21 @@ class ModelRunner:
         with self.tracer.span(span, cat="device",
                               args={"start": start, "length": length}), \
                 self._label(name):
+            if graph is not None:
+                return graph.run(self._variant(sampling))
+            sp = self._sampling(sampling, dev)
+            chunk = (dev["c_toks"], dev["c_bt"], dev["c_off"], dev["c_tl"])
             if prev_out is None and not extra:
-                out, self.state = T.unified_step(
+                out, state = T.unified_step(
                     self.cfg, self.params, self.state, dev["toks"], sp,
                     dev["active"], *chunk, self.rt)
             else:
-                out, self.state = T.unified_step_chained(
+                out, state = T.unified_step_chained(
                     self.cfg, self.params, self.state,
                     self.zero_prev if prev_out is None else prev_out,
                     dev["chain_idx"], dev["use_prev"], dev["toks"], sp,
                     dev["active"], *chunk, self.rt)
+        self._keep(state)
         return out
 
     @torch.no_grad()
@@ -351,28 +544,46 @@ class ModelRunner:
         self.steps["decode"] += 1
         with self.tracer.span("dispatch:decode", cat="device"), \
                 self._label("decode"):
-            logits, self.state = T.decode_step(self.cfg, self.params,
-                                               self.state, dev["toks"],
-                                               self.rt)
+            logits, state = T.decode_step(self.cfg, self.params,
+                                          self.state, dev["toks"], self.rt)
+        self._keep(state)
         return logits
 
     @torch.no_grad()
     def megastep(self, tokens: np.ndarray, sampling: Dict[str, np.ndarray],
                  active: np.ndarray, n_steps: int) -> np.ndarray:
         """One fused horizon; returns the [n_steps, max_slots] token
-        buffer as numpy (the one host sync of the dispatch)."""
-        dev = self._upload(toks=np.asarray(tokens, np.int32),
-                           active=np.asarray(active, bool),
-                           **self._sampling_arrays(sampling))
+        buffer as numpy (the one host sync of the dispatch).  With graphs
+        on, one captured decode-plus-sample step replays ``n_steps``
+        times: it advances its own step index, which picks its row of the
+        token buffer and its stream position, so one graph serves every
+        horizon (the reference's ``lax.fori_loop``)."""
+        n_steps = int(n_steps)
+        if not 0 < n_steps <= self.max_horizon:
+            raise ValueError(f"megastep of {n_steps} steps: the horizon is "
+                             f"1..{self.max_horizon}")
+        arrays = dict(toks=np.asarray(tokens, np.int32),
+                      active=np.asarray(active, bool),
+                      **self._sampling_arrays(sampling))
+        if self.capture_graphs:
+            graph = self._stage("megastep", dict(arrays, step=np.int32(0)))
+        else:
+            dev = self._upload(**arrays)
         self.dispatches += 1
-        self.steps["decode"] += int(n_steps)
+        self.steps["decode"] += n_steps
         with self.tracer.span("dispatch:megastep", cat="device",
-                              args={"n_steps": int(n_steps)}), \
+                              args={"n_steps": n_steps}), \
                 self._label("megastep"):
-            out, self.state = T.decode_megastep(
+            if self.capture_graphs:
+                key = self._variant(sampling)
+                for _ in range(n_steps):
+                    graph.run(key)
+                return self._readback(graph.buffers["out"][:n_steps])
+            out, state = T.decode_megastep(
                 self.cfg, self.params, self.state, dev["toks"],
                 self._sampling(sampling, dev), dev["active"], n_steps,
                 max_horizon=self.max_horizon, rt=self.rt)
+            self._keep(state)
             return self._readback(out[:n_steps])
 
     @torch.no_grad()

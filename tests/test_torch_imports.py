@@ -63,14 +63,18 @@ def test_cuda_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="cuda"):
         ServingEngine(cfg, params)
     # the engine's defaults are the reference's (async pipelined step,
-    # telemetry and guards on), with the card as the device
+    # telemetry and guards on), with the card as the device and the
+    # fixed-shape steps captured as CUDA graphs (the reference's jit)
     from repro.serving.engine import ServingEngine as JEngine
     ref = inspect.signature(JEngine).parameters
     sig = inspect.signature(ServingEngine).parameters
-    assert set(sig) == set(ref) | {"device"}
+    assert set(sig) == set(ref) | {"device", "capture_graphs"}
     assert {k: sig[k].default for k in ref} == \
         {k: p.default for k, p in ref.items()}
     assert sig["device"].default == "cuda"
+    assert sig["capture_graphs"].default is True
+    assert inspect.signature(LLM.load).parameters[
+        "capture_graphs"].default is True
     assert sig["enable_async_step"].default is True
     assert sig["enable_telemetry"].default is True
     assert sig["enable_guards"].default is True
