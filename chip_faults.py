@@ -13,7 +13,7 @@ own limit:
   the port's sources under a temporary directory, built there and
   checked in a process of its own: the band skips its first key tile
   (``k_begin`` one tile late), or its edge tiles go unmasked;
-- the full-depth h2o-danube-3-4b serve (``serve_danube``): every served
+- the full-depth h2o-danube-3-4b serve (``serve_ring``): every served
   token against teacher forcing, the share equal
   (``TEACHER_AGREEMENT``) and the teacher's largest logit gap to a
   served token (``TEACHER_GAP``).  Each fault is planted in this process
@@ -143,7 +143,7 @@ def serve_readings() -> dict:
     import chip_smoke as cs
     from repro_torch.kernels import ops
     from repro_torch.serving import SamplingParams
-    llm, serve, tf = cs.serve_danube(ops.KERNELS)
+    llm, serve, tf = cs.serve_ring(ops.KERNELS)
     out = {"sound": tf}
     prompts = cs.serve_prompts(llm.cfg.vocab_size, cs.DANUBE_LENS)
     sps = [SamplingParams(max_tokens=m) for m in cs.DANUBE_MAX_TOKENS]

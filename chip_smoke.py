@@ -131,9 +131,30 @@ Phases, each of which fails loudly (any failure exits non-zero):
              ring decode is plain torch), 0 pageable copies; every served
              token against teacher forcing (``T.forward``): agreement and
              logit gap; one full ring decode step and one layer's ring
-             attention timed.  The static kernel's cases here and in
-             phase 2 are also held per query row to FLASH_REL_TOL of the
-             row's own RMS.
+             attention timed.  The static kernel's cases here, in phase
+             2 and in phase 8 are also held per query row to
+             FLASH_REL_TOL of the row's own RMS.
+8. hybrid  — recurrentgemma-2b (18 RG-LRU layers with per-slot recurrent
+             state, 8 sliding-window layers over private rings; 10 query
+             heads over 1 KV head, head dim 256): the static kernel's
+             D = 256 instantiation (HMMA in its SASS, ptxas's registers
+             and spills) on the serve's wave [8, 2048] causal inside the
+             2048 window, a band case Sk 2560 > window, a ragged 333 and
+             a window at a q_offset, against the plain version one
+             group at a time, bitwise repeatable, timed beside SDPA and
+             its bound; ``gptq_matmul`` at its linears at decode and at
+             the wave's 16,384 rows; the full-width model cut to 6 layers
+             (4 RG-LRU, 2 sliding) card vs CPU in f32 (dense) and bf16
+             (rtn-int4): logits, ``lru_h`` after the wave and at the end,
+             pools; then full-depth ``LLM.load("recurrentgemma-2b",
+             quant="rtn-int4")`` with 8 rings of 128 blocks serves
+             serve_prompts' traffic with the 900-token prompt replaced by
+             one of 2,040 tokens asking for 40 (its ring wraps after 8),
+             graphs on and off, profiled: ``flash_attention`` 8 times a
+             wave, 0 pageable copies, every served token against teacher
+             forcing; one wave's device time split between
+             ``gptq_matmul``, the static kernel, the RG-LRU scans and the
+             rest.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -1129,9 +1150,11 @@ def serve_once(llm, prompts, max_tokens, kernels, label, options, must,
                              f"launched, {stray} launched off their path: "
                              f"{launches}")
     if kernels and new_engine:
-        # each attention call launches its kernel once per layer; a ring
-        # stack decodes in plain torch (no decode kernel reads a ring)
-        L = llm.cfg.num_layers
+        # each attention call launches its kernel once per attention
+        # layer (a hybrid's RG-LRU layers launch none); a ring stack
+        # decodes in plain torch (no decode kernel reads a ring)
+        L = sum(llm.cfg.layer_kind(i) in ("full", "sliding")
+                for i in range(llm.cfg.num_layers))
         int8 = eng.kv_cache_dtype == "int8"
         ring = getattr(eng.scheduler, "ring_only", False)
         want = {"paged_attention_quant" if int8 else "paged_attention":
@@ -2054,9 +2077,7 @@ DANUBE_KERNELS = ({"flash_attention", "gptq_matmul"},
                    "flash_attention_chunk", "flash_attention_chunk_int8"})
 # the engine's defaults: a ring stack cannot chunk, and the async step
 # rides the unified (chunked) step, so the serve runs synchronous waves
-# and megasteps as the reference's engine does
-DANUBE_OPTIONS = {"max_slots": DANUBE_WAVE[0],
-                  "max_blocks_per_seq": DANUBE_RING_BLOCKS}
+# and megasteps as the reference's engine does (``serve_ring``)
 # the 2-layer full-width model in f32, card vs CPU: rings of 64 slots, a
 # window of 48 inside them, a prompt of 100 (wraps and drops at prefill)
 RING_MODEL = {"layers": 2, "slots": 3, "mb": 4, "nb": 16, "window": 48,
@@ -2129,11 +2150,19 @@ def check_flash_attention_d120(gen):
               _qkv(gen, 2, 512, 512, h, kv, d),
               {"alibi_slopes": alibi_slopes(h, "cuda"),
                "sliding_window": 128})]
+    return _flash_wave_record(cases, "flash_attention[D=120]", win)
+
+
+def _flash_wave_record(cases, label: str, win: int) -> dict:
+    """``cases`` (the first a serve's wave, causal inside window ``win``)
+    through ``_flash_rows`` against the plain version run one (sequence,
+    KV head) group at a time; the kernel's record under ``label``, its
+    numbers the wave's."""
     worst, rows = _flash_rows(cases, _plain_by_group)
     q, k, v = cases[0][1]
+    (b, S, h, d), kv = q.shape, k.shape[2]
     main = rows[0]
-    return {"name": "flash_attention", "label": "flash_attention[D=120]",
-            "route": "cuda",
+    return {"name": "flash_attention", "label": label, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:386",
             "max_abs_err": worst, "ms": main["ms"],
@@ -2321,44 +2350,48 @@ def teacher_forced(llm, prompts, served, ring_blocks=DANUBE_RING_BLOCKS
             "ring_slots": ring}
 
 
-def serve_danube(kernels, label: str = "danube-defaults") -> tuple:
-    """Full-depth h2o-danube-3-4b, ``LLM.load`` with ``rtn-int4`` on the
-    engine's defaults over 8 private rings of DANUBE_RING_BLOCKS blocks,
-    serving DANUBE_LENS' traffic (profiled); each served token held to
+def serve_ring(kernels, config: str = DANUBE, label: str = "danube-defaults",
+               slots: int = DANUBE_WAVE[0],
+               ring_blocks: int = DANUBE_RING_BLOCKS, lens=DANUBE_LENS,
+               max_tokens=DANUBE_MAX_TOKENS) -> tuple:
+    """Full-depth ``config`` (a stack without full-attention layers),
+    ``LLM.load`` with ``rtn-int4`` on the engine's defaults over ``slots``
+    private rings of ``ring_blocks`` blocks, serving ``lens``' traffic
+    (profiled), graphs on and again off; each served token held to
     teacher forcing.  Returns (the LLM, the serve's record, the
     teacher-forced record); the caller closes the LLM."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.serving import LLM
-    cfg = get_config(DANUBE)
-    options = {**DANUBE_OPTIONS, "num_blocks": ring_pool_blocks(
-        cfg, DANUBE_WAVE[0], DANUBE_RING_BLOCKS)}
+    cfg = get_config(config)
+    options = {"max_slots": slots, "max_blocks_per_seq": ring_blocks,
+               "num_blocks": ring_pool_blocks(cfg, slots, ring_blocks)}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    llm = LLM.load(DANUBE, quant="rtn-int4", seed=0, **options)
+    llm = LLM.load(config, quant="rtn-int4", seed=0, **options)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     load_peak = torch.cuda.max_memory_allocated()
     eng = llm.engine
-    log(f"[serve] {DANUBE} rtn-int4 loaded in {load_s:.2f} s (init "
+    log(f"[serve] {config} rtn-int4 loaded in {load_s:.2f} s (init "
         f"{llm.load_s.get('init', 0.0):.2f} s), peak {load_peak} B; "
         f"engine chunked="
         f"{eng.chunked} async_step={eng.async_step} "
         f"ring_only={eng.scheduler.ring_only}")
     if eng.chunked or eng.async_step or not eng.scheduler.ring_only:
-        raise AssertionError(f"{DANUBE}: a ring stack must run whole-prompt, "
+        raise AssertionError(f"{config}: a ring stack must run whole-prompt, "
                              f"synchronous and ring_only (chunked="
                              f"{eng.chunked}, async_step={eng.async_step}, "
                              f"ring_only={eng.scheduler.ring_only})")
     must, never = DANUBE_KERNELS
-    serve = phase_serve("cuda", config=DANUBE, kernels=kernels, label=label,
+    serve = phase_serve("cuda", config=config, kernels=kernels, label=label,
                         options=options, must=must, never=never,
-                        profile=True, llm=llm, lens=DANUBE_LENS,
-                        max_tokens=DANUBE_MAX_TOKENS, graphs_off=True)
+                        profile=True, llm=llm, lens=lens,
+                        max_tokens=max_tokens, graphs_off=True)
     serve["load_s"], serve["load_max_memory_allocated"] = load_s, load_peak
     log_serve(label, serve, "rtn-int4")
-    tf = teacher_forced(llm, serve_prompts(cfg.vocab_size, DANUBE_LENS),
-                        serve["tokens"])
+    tf = teacher_forced(llm, serve_prompts(cfg.vocab_size, lens),
+                        serve["tokens"], ring_blocks=ring_blocks)
     return llm, serve, tf
 
 
@@ -2392,7 +2425,7 @@ def phase_sliding(report: dict, gen, kernels) -> list:
     log(f"[model] 2-layer full-width {DANUBE} f32 over rings, card vs CPU: "
         f"{json.dumps(res)}")
 
-    llm, serve, tf = serve_danube(kernels)
+    llm, serve, tf = serve_ring(kernels)
     r["serve"] = {serve["label"]: serve}
     r["teacher_forced"] = tf
     ring = tf["ring_slots"]
@@ -2432,6 +2465,291 @@ def phase_sliding(report: dict, gen, kernels) -> list:
         f"({rd['ring_attention_bound'][1]}, {rd['ring_bytes_per_layer']} B)")
     r["seconds"] = time.perf_counter() - t_phase
     log(f"[sliding] phase 7 took {r['seconds']:.1f} s")
+    return checks
+
+
+# --------------------------------------------------------------------------
+# Phase 8: the hybrid (recurrentgemma-2b: RG-LRU layers + sliding windows)
+# --------------------------------------------------------------------------
+
+RGEMMA = "recurrentgemma-2b"
+RGEMMA_HEADS = (10, 1, 256)      # its query heads, KV heads and head dim
+RGEMMA_WINDOW = 2048
+RGEMMA_WAVE = (8, 2048)          # the serve's one wave: 8 x 2040 -> 2048
+RGEMMA_LINEARS = {"in/gate/out_rec, wq/wo": (2560, 2560),
+                  "wk/wv": (2560, 256), "up": (2560, 7680),
+                  "down": (7680, 2560)}
+# every int4 linear at decode and at the wave's 16,384 rows
+RGEMMA_GPTQ_SHAPES = [(lname, K, N, GS, (8, RGEMMA_WAVE[0] * RGEMMA_WAVE[1]))
+                      for lname, (K, N) in RGEMMA_LINEARS.items()]
+RGEMMA_RING_BLOCKS = 128         # 128 blocks of 16 tokens: the 2,048 window
+# serve_prompts' traffic with the 900-token prompt replaced by one of 2,040
+# tokens asking for 40 new tokens: it decodes positions 2,040 .. 2,078, so
+# its ring wraps after 8 tokens
+RGEMMA_LENS = (20, 64 + 40, 64 + 300, 150, 420, 600, 777, 2040)
+RGEMMA_MAX_TOKENS = DANUBE_MAX_TOKENS
+# the 6-layer full-width model (4 RG-LRU, 2 sliding layers), card vs CPU:
+# f32 with dense weights, then bf16 with rtn-int4 weights (the served
+# form); rings of 64 slots, a window of 48 inside them, a prompt of 100
+HYBRID_MODEL = {"layers": 6, "slots": 3, "mb": 4, "nb": 16, "window": 48,
+                "lens": (100, 64, 30), "steps": 16}
+HYBRID_TOL = {"float32": RING_LOGIT_TOL, "bfloat16": LOGIT_TOL}
+# the static kernel's D = 256 instantiation, as cuobjdump and ptxas name it
+D256_KERNEL = "flash_attention_mma_kernelILi256E"
+
+
+def ptxas_usage(log: str, fn: str) -> dict:
+    """Registers and spill bytes that ``nvcc -Xptxas -v`` reported for the
+    kernel whose mangled name contains ``fn``."""
+    out, cur = {}, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = fn in line
+        elif cur and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out.update(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                       spill_load_bytes=nums[2])
+        elif cur and "Used" in line and "registers" in line:
+            out["registers"] = int(line.split("Used")[1].split()[0])
+    return out
+
+
+def check_flash_attention_d256(gen):
+    """The static kernel at recurrentgemma-2b's heads (10 over 1, head dim
+    256, Q's fragments read from shared memory at each k-step): the
+    serve's wave [8, 2048] causal inside the 2048 window, a band case
+    where Sk 2560 > window 2048, a ragged 333 (not a multiple of the 64
+    query and key tiles) and a window at a q_offset; each against the
+    plain version one (sequence, KV head) group at a time."""
+    h, kv, d = RGEMMA_HEADS
+    b, S = RGEMMA_WAVE
+    win = RGEMMA_WINDOW
+    cases = [(f"rgemma wave [{b},{S}] causal, window {win}",
+              _qkv(gen, b, S, S, h, kv, d), {"sliding_window": win}),
+             (f"band Sq = Sk = 2560 > window {win}",
+              _qkv(gen, 1, 2560, 2560, h, kv, d), {"sliding_window": win}),
+             ("ragged Sq = Sk = 333, causal",
+              _qkv(gen, 2, 333, 333, h, kv, d), {}),
+             ("q_offset 64, window 100, Sq 200 < Sk 333",
+              _qkv(gen, 2, 200, 333, h, kv, d),
+              {"q_offset": 64, "sliding_window": 100})]
+    return _flash_wave_record(cases, "flash_attention[D=256]", win)
+
+
+def phase_hybrid_model(dev: str = "cuda", ref_dev: str = "cpu",
+                       reduced: bool = False) -> dict:
+    """recurrentgemma-2b at full width cut to HYBRID_MODEL's 6 layers (4
+    RG-LRU, 2 sliding), in f32 with dense weights and in bf16 with
+    rtn-int4 weights: the same params, tables and tokens through
+    ``T.prefill`` (a prompt of 100 wraps its 64-slot ring) and
+    teacher-forced ``T.decode_step``s on ``dev`` and on ``ref_dev``; every
+    step's logits, ``lru_h`` after the wave and at the end, and the final
+    pools within HYBRID_TOL of the dtype."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import tree_to
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantize import quantize_params_rtn
+    hm = HYBRID_MODEL
+    base = get_reduced(RGEMMA) if reduced else get_config(RGEMMA)
+    rng = np.random.default_rng(0)
+    B, lens, n = hm["slots"], np.array(hm["lens"], np.int32), hm["steps"]
+    S = int(lens.max())
+    toks = rng.integers(0, base.vocab_size, (B, S + n)).astype(np.int32)
+    bt = rng.permutation(hm["nb"])[:B * hm["mb"]].reshape(B, hm["mb"]) \
+        .astype(np.int32)
+    out = {}
+    for dtype, quant in (("float32", None), ("bfloat16", "rtn-int4")):
+        t0 = time.perf_counter()
+        cfg = base.replace(num_layers=hm["layers"], dtype=dtype,
+                           sliding_window=hm["window"])
+        params = T.init_params(cfg, 1, ref_dev)
+        if quant:
+            params = quantize_params_rtn(params, cfg, GS)
+        res = {}
+        with torch.no_grad():
+            for d in (ref_dev, dev):
+                p = T.split_layers(T.cast_params(tree_to(params, d),
+                                                 T.act_dtype(cfg)))
+                st = T.make_decode_state(cfg, B, hm["nb"], hm["mb"],
+                                         device=d)
+                st["block_table"] = torch.from_numpy(bt).to(d)
+                logits, st = T.prefill(cfg, p, st, {
+                    "tokens": torch.from_numpy(toks[:, :S]).to(d),
+                    "ctx_lens": torch.from_numpy(lens).to(d)})
+                steps, h_wave = [logits.float().cpu()], st["lru_h"].cpu()
+                for t in range(n):
+                    pos = lens + t
+                    st["seq_lens"] = torch.from_numpy(pos + 1).to(d)
+                    logits, st = T.decode_step(
+                        cfg, p, st,
+                        torch.from_numpy(toks[np.arange(B), pos]).to(d))
+                    steps.append(logits.float().cpu())
+                res[d] = (torch.stack(steps), h_wave, st["lru_h"].cpu(),
+                          st["k_pool"].float().cpu(),
+                          st["v_pool"].float().cpu())
+        del params
+        (l0, hw0, h0, k0, v0), (l1, hw1, h1, k1, v1) = res[ref_dev], res[dev]
+        tol = HYBRID_TOL[dtype]
+        r = {"quant": quant, "logit_max_abs_err": (l1 - l0).abs().max().item(),
+             "max_abs_logit": l0.abs().max().item(),
+             "lru_h_wave_max_abs_err": (hw1 - hw0).abs().max().item(),
+             "lru_h_max_abs_err": (h1 - h0).abs().max().item(),
+             "max_abs_lru_h": h0.abs().max().item(),
+             "pool_max_abs_err": max((k1 - k0).abs().max().item(),
+                                     (v1 - v0).abs().max().item()),
+             "greedy_agreement": float((l1.argmax(-1) == l0.argmax(-1))
+                                       .float().mean()),
+             "tolerance": tol, "seconds": time.perf_counter() - t0}
+        out[dtype] = r
+        errs = [r[k] for k in ("logit_max_abs_err", "lru_h_wave_max_abs_err",
+                               "lru_h_max_abs_err", "pool_max_abs_err")]
+        if not (max(errs) <= tol and bool(torch.isfinite(l1).all())):
+            raise AssertionError(f"hybrid model {dtype}: card vs CPU {r}")
+    out.update(config=base.name, layers=hm["layers"], window=hm["window"],
+               ring_slots=hm["mb"] * 16, prompt_lens=list(hm["lens"]),
+               decode_steps=n)
+    return out
+
+
+def wave_split(llm, iters: int = 2) -> dict:
+    """One wave [8, 2048] of the served model (``T.prefill`` on the
+    runner's params and pools, random tokens; its recurrent rows are not
+    kept): its time between events (host launch gaps included), then the
+    same wave profiled, its device time split between ``gptq_matmul``, the
+    static kernel, the RG-LRU scans' per-step ``addcmul`` launches and
+    everything else (the gates, GELU, norms, RoPE, the ring writes, the
+    dense wr / wi products).  Writes the pools, so it runs after the
+    serves."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    cfg, runner = llm.cfg, llm.engine.runner
+    B, S = RGEMMA_WAVE
+    st = dict(runner.state)
+    st["block_table"] = torch.arange(B * runner.mb, dtype=torch.int32,
+                                     device="cuda").reshape(B, runner.mb)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32),
+             "ctx_lens": torch.full((B,), S, dtype=torch.int32,
+                                    device="cuda")}
+
+    def wave():
+        T.prefill(cfg, runner.params, st, batch)
+
+    with torch.no_grad():
+        ms = time_ms(wave, iters=iters)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wave()
+            torch.cuda.synchronize()
+    split = dict.fromkeys(("gptq_matmul", "flash_attention", "rglru_scan",
+                           "other"), 0.0)
+    launches = dict.fromkeys(split, 0)
+    for name, on_device, dev_ms in _events(prof):
+        if not on_device or "Memcpy" in name or "Memset" in name:
+            continue
+        key = ours_name(name) or ("rglru_scan" if "addcmul" in name
+                                  else "other")
+        split[key] += dev_ms
+        launches[key] += 1
+    busy = sum(split.values())
+    return {"wave": [B, S], "ms": ms, "device_busy_ms": busy,
+            "device_ms": split, "device_share": {k: v / busy for k, v in
+                                                 split.items()},
+            "device_launches": launches}
+
+
+def phase_hybrid(report: dict, gen, kernels) -> list:
+    """Phase 8 on the card: the static kernel at head dim 256 (its
+    registers and spills from ptxas, its tensor-core SASS), ``gptq_matmul``
+    at recurrentgemma's linears (decode and the wave's rows), the 6-layer
+    full-width model card vs CPU (f32 and bf16 int4), then full-depth
+    recurrentgemma-2b with ``rtn-int4`` weights served on the engine's
+    defaults over private rings of 128 blocks, graphs on and off,
+    profiled: 0 pageable copies, the wrapping request past position
+    2,048, every served token held to teacher forcing, 8 static-kernel
+    launches a wave; one wave's time split.  Returns the kernel checks."""
+    import torch
+    from repro_torch.kernels import build
+    r = report["hybrid"] = {}
+    t_phase = time.perf_counter()
+    sass = {n: c for n, c in report["tensor_core_sass"].items()
+            if D256_KERNEL in n}
+    if not sass or not all(sass.values()):
+        raise AssertionError(f"{D256_KERNEL}: no HMMA in its SASS: {sass}")
+    usage = ptxas_usage(build.LOGS.get("flash_attention", ""), D256_KERNEL)
+    r["d256_sass_hmma"], r["d256_ptxas"] = sum(sass.values()), usage
+    log(f"[hybrid] flash_attention_mma_kernel<256>: "
+        f"{r['d256_sass_hmma']} HMMA in its SASS; ptxas "
+        + (json.dumps(usage) if usage else "not measured (cached build)"))
+    checks = [check_flash_attention_d256(gen)]
+    g = check_gptq_matmul(
+        gen, shapes=RGEMMA_GPTQ_SHAPES, main_shape=("up", 8),
+        shape="x[8,2560] @ int4[2560,7680] gs 32 (up, decode)",
+        library_max_m=8192)
+    g["label"] = "gptq_matmul[rgemma]"
+    checks.append(g)
+    for k in checks:
+        lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        log(f"[kernel] {k['label']}: kernel_ms={k['ms']:.4f} "
+            f"plain_ms={k['plain_ms']:.4f} library_ms={lib} "
+            f"bound_ms={k['bound'][0]:.5f} ({k['bound'][1]}) "
+            f"max_abs_err={k['max_abs_err']:.3e} [{k['shape']}]")
+    r["kernels"] = checks
+    r["model"] = res = phase_hybrid_model()
+    log(f"[model] 6-layer full-width {RGEMMA} card vs CPU: {json.dumps(res)}")
+
+    llm, serve, tf = serve_ring(
+        kernels, RGEMMA, "rgemma-defaults", RGEMMA_WAVE[0],
+        RGEMMA_RING_BLOCKS, RGEMMA_LENS, RGEMMA_MAX_TOKENS)
+    r["serve"] = {serve["label"]: serve}
+    r["teacher_forced"] = tf
+    ring = tf["ring_slots"]
+    waves = serve["runner_steps"]["wave"]
+    if serve["launches"]["flash_attention"] != 8 * waves or waves < 1:
+        raise AssertionError(f"rgemma: {serve['launches']['flash_attention']}"
+                             f" static-kernel launches over {waves} waves "
+                             "(want 8 a wave)")
+    if serve["profile"]["pageable_copies"]:
+        raise AssertionError("rgemma serve: pageable memcpys under the "
+                             "profiler (want 0)")
+    if not tf["last_position"] >= ring:
+        raise AssertionError(f"rgemma: the wrapping request ended at "
+                             f"position {tf['last_position']} < {ring}")
+    if not teacher_ok(tf):
+        raise AssertionError(f"rgemma: served tokens against teacher "
+                             f"forcing (agreement >= {TEACHER_AGREEMENT}, "
+                             f"gap <= {TEACHER_GAP}): {tf}")
+    r["wave_split"] = ws = wave_split(llm)
+    r["kv_pool_bytes"] = serve["kv_pool_bytes"]
+    r["recurrent_state_bytes"] = sum(
+        llm.engine.runner.state[k].numel()
+        * llm.engine.runner.state[k].element_size()
+        for k in ("lru_h", "rec_conv"))
+    llm.close()
+    del llm
+    torch.cuda.empty_cache()
+    log(f"[serve] {serve['label']}: 0 pageable memcpys; KV pool "
+        f"{r['kv_pool_bytes']} B, recurrent state "
+        f"{r['recurrent_state_bytes']} B; the {RGEMMA_LENS[-1]}-token "
+        f"request decoded through position {tf['last_position']} (ring "
+        f"{ring} slots); teacher forcing over all {tf['tokens']} tokens: "
+        f"agreement {tf['agreement']:.3f} (by request "
+        f"{json.dumps(tf['agreement_by_request'])}, after the wrap "
+        f"{tf['agreement_after_wrap']:.3f}), logit gap max "
+        f"{tf['max_gap']:.4f} mean {tf['mean_gap']:.5f}")
+    log(f"[wave] one wave {ws['wave']}: {ws['ms']:.1f} ms between events, "
+        f"{ws['device_busy_ms']:.1f} ms of device time: "
+        + ", ".join(f"{k} {ws['device_ms'][k]:.1f} ms "
+                    f"({ws['device_share'][k]:.3f}, "
+                    f"{ws['device_launches'][k]} launches)"
+                    for k in ws["device_ms"]))
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"[hybrid] phase 8 took {r['seconds']:.1f} s")
     return checks
 
 
@@ -2537,6 +2855,8 @@ def main() -> int:
     log_time("moe phase")
     sliding_checks = phase_sliding(report, gen, ops.KERNELS)
     log_time("sliding phase")
+    hybrid_checks = phase_hybrid(report, gen, ops.KERNELS)
+    log_time("hybrid phase")
 
     record = []
     # each check's launches come from the serves of its own phase
@@ -2544,7 +2864,9 @@ def main() -> int:
                             + [(k, report["moe"]["serve"])
                                for k in moe_checks]
                             + [(k, report["sliding"]["serve"])
-                               for k in sliding_checks]):
+                               for k in sliding_checks]
+                            + [(k, report["hybrid"]["serve"])
+                               for k in hybrid_checks]):
         by_serve = {lb: sv["launches"][k["name"]]
                     for lb, sv in phase_serves.items()}
         if phase_serves is serves:
@@ -2560,7 +2882,7 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
             "bound_by": k["bound"][1], "library_ms": k["library_ms"],
             "shape": k["shape"]})
-    report["kernels"] = kernels + moe_checks + sliding_checks
+    report["kernels"] = kernels + moe_checks + sliding_checks + hybrid_checks
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

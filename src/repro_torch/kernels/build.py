@@ -25,6 +25,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# nvcc's output (ptxas's registers and spills) of each source that
+# ``build_all(verbose=True)`` compiled
+LOGS: Dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -76,6 +79,7 @@ def build_all(verbose: bool = False) -> Dict[str, float]:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
         if verbose and log:
+            LOGS[name] = log
             print(f"[nvcc {name}]\n{log}", flush=True)
         os.replace(tmp, lib)                     # atomic: no half-built .so
     if errors:

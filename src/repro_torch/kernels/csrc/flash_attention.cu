@@ -16,7 +16,7 @@
 // byte at S = 960, far above the ~295 at which the bf16 tensor cores stop
 // waiting on memory.
 //
-// bf16 (the serving type), head dim 64, 120 or 128: tensor cores.  One
+// bf16 (the serving type), head dim 64, 120, 128 or 256: tensor cores.  One
 // block of 4 warps per (query head, sequence, tile of 64 query tokens);
 // each warp owns 16 query rows and runs the FlashAttention-2 tile routine
 // of mma_attention.cuh (mma.sync.m16n8k16, Q in registers, online softmax
@@ -36,7 +36,13 @@
 // the mask.  Head dim 120 (h2o-danube-3-4b) is staged padded to 128 with
 // zero columns (mma_attention.cuh): global memory is read and written at
 // exactly 120 values a row (240 bytes, still fifteen 16-byte vectors), and
-// the extra k-step of Q K^T costs 1/16 of its products.
+// the extra k-step of Q K^T costs 1/16 of its products.  Head dim 256
+// (recurrentgemma-2b, 10 query heads over 1 KV head) keeps the same tiles:
+// O's accumulators alone take 128 registers a thread there, so Q's
+// fragments are read from the staged Q at each k-step instead of held
+// (mma_q_in_regs), and the block's shared memory is (64 + 2 x 2 x 64)
+// rows of 264 bf16 = 168,960 bytes, one block per SM.  Its ten query
+// heads are ten blocks over the same K/V tiles, which L2 serves.
 //
 // f32 (a check path on the card, not serving): the CUDA-core body shared
 // with the chunk kernel (common.cuh), any head dim that is a multiple of
@@ -247,7 +253,7 @@ int launch_f32(const void* q, const void* k, const void* v,
 }  // namespace
 
 // BQ (query tokens per block) is read by the f32 body only; the bf16 body
-// takes head dim 64, 120 or 128 and refuses any other.
+// takes head dim 64, 120, 128 or 256 and refuses any other.
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v,
     const float* slopes, void* out, int B, int Sq, int Sk, int H, int KV,
@@ -255,6 +261,9 @@ extern "C" int flash_attention_launch(
     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == rt::DTYPE_BF16) {
+    if (D == 256)
+      return launch_mma<256>(q, k, v, slopes, out, B, Sq, Sk, H, KV,
+                             q_offset, causal, window, use_alibi, s);
     if (D == 128)
       return launch_mma<128>(q, k, v, slopes, out, B, Sq, Sk, H, KV,
                              q_offset, causal, window, use_alibi, s);

@@ -1,6 +1,7 @@
 // Flash-attention tile routine on the tensor cores (bf16, mma.sync),
 // FlashAttention-2 style: each warp owns 16 query rows whose Q fragments
-// stay in registers for the whole key loop; the scores S = Q K^T and the
+// stay in registers for the whole key loop (up to head dim 128; see
+// mma_q_in_regs for 256); the scores S = Q K^T and the
 // product O += P V are mma.sync.m16n8k16 (bf16 in, f32 accumulate); the
 // online softmax runs on the S accumulators in registers, each row's max
 // combined across the four lanes that hold it by quad shuffles; P becomes
@@ -38,13 +39,26 @@ __host__ __device__ constexpr int mma_padded(int D) {
   return (D + 15) / 16 * 16;
 }
 
+// Whether a warp holds its Q fragments in registers for the whole key
+// loop.  At D = 256 they would take 64 registers beside O's 128
+// accumulators and a 64-key tile's 32 scores, past the 255 a thread may
+// have (ptxas spills); there each k-step's fragment is read again from
+// the staged Q in shared memory (one ldmatrix.x4 per 16 d per key tile,
+// which the shared-memory pipe serves beside the K reads).
+template <int D>
+__host__ __device__ constexpr bool mma_q_in_regs() {
+  return D <= 128;
+}
+
 // One warp's softmax state over its 16 query rows.  Lane (g, t) holds
 // rows g and g + 8: m / l index 0 and 1.  l is this lane's share of the
 // row sum (its own columns); the quad's shares are added at the end.
 template <int D>
 struct MmaAttnState {
   static_assert(D % 8 == 0, "head dim must be a multiple of 8");
-  uint32_t qf[mma_padded(D) / 16][4];   // Q as A fragments, per 16 d
+  // Q as A fragments, per 16 d (one unused row when Q stays staged)
+  uint32_t qf[mma_q_in_regs<D>() ? mma_padded(D) / 16 : 1][4];
+  const __nv_bfloat16* qs;  // this lane's ldmatrix row of the staged Q
   float o[D / 8][4];        // O accumulators, one C tile per 8 d columns
   float m[2], l[2];
 };
@@ -60,15 +74,31 @@ __device__ __forceinline__ void mma_attn_init(MmaAttnState<D>& st) {
 }
 
 // Q fragments of the warp's 16 rows, staged at qs (row stride STR, pad
-// columns zero).
+// columns zero); where they do not stay in registers, the lane's row of
+// the staged Q, which must then stay in place for the whole key loop.
 template <int D>
 __device__ __forceinline__ void mma_attn_load_q(MmaAttnState<D>& st,
                                                 const __nv_bfloat16* qs,
                                                 int STR) {
   const int lane = threadIdx.x & 31;
+  st.qs = qs + (lane & 15) * STR + (lane >> 4) * 8;
+  if constexpr (mma_q_in_regs<D>()) {
 #pragma unroll
-  for (int kc = 0; kc < mma_padded(D) / 16; ++kc)
-    ldmatrix_x4(st.qf[kc], qs + (lane & 15) * STR + kc * 16 + (lane >> 4) * 8);
+    for (int kc = 0; kc < mma_padded(D) / 16; ++kc)
+      ldmatrix_x4(st.qf[kc], st.qs + kc * 16);
+  }
+}
+
+// The A fragment of Q for k-step kc: held, or read into buf.
+template <int D>
+__device__ __forceinline__ const uint32_t* mma_q_frag(
+    const MmaAttnState<D>& st, int kc, uint32_t* buf) {
+  if constexpr (mma_q_in_regs<D>()) {
+    return st.qf[kc];
+  } else {
+    ldmatrix_x4(buf, st.qs + kc * 16);
+    return buf;
+  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -111,13 +141,15 @@ __device__ __forceinline__ void mma_attend_tile(
   // (the pad columns of Q and K are zero).
 #pragma unroll
   for (int kc = 0; kc < mma_padded(D) / 16; ++kc) {
+    uint32_t qbuf[4];
+    const uint32_t* qa = mma_q_frag(st, kc, qbuf);
 #pragma unroll
     for (int np = 0; np < BK / 16; ++np) {
       uint32_t b[4];
       ldmatrix_x4(b, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * STR +
                          kc * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16_16816(s[2 * np], st.qf[kc], b);
-      mma_bf16_16816(s[2 * np + 1], st.qf[kc], b + 2);
+      mma_bf16_16816(s[2 * np], qa, b);
+      mma_bf16_16816(s[2 * np + 1], qa, b + 2);
     }
   }
 

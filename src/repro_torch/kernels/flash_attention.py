@@ -10,7 +10,8 @@
 
 The bf16 bodies of both run on the tensor cores and are built for the
 head dims that ``MMA_HEAD_DIMS`` lists for each kernel (the static kernel
-also for 120, staged padded to 128); their f32 bodies (CUDA cores) take
+also for 120, staged padded to 128, and for 256, its Q fragments read
+from shared memory at each k-step); their f32 bodies (CUDA cores) take
 any multiple of 8.
 
 CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the plain
@@ -27,7 +28,7 @@ from repro_torch.kernels import build
 
 ROWS_PER_BLOCK = 48   # f32 bodies: query rows (tokens x heads) per block
 # the bf16 (tensor-core) instantiations of each attention kernel
-MMA_HEAD_DIMS = {"flash_attention": (64, 120, 128),
+MMA_HEAD_DIMS = {"flash_attention": (64, 120, 128, 256),
                  "flash_attention_chunk": (64, 128),
                  "flash_attention_chunk_int8": (64, 128),
                  "paged_attention": (64, 128),

@@ -1,4 +1,4 @@
-"""Building blocks of the dense decoders (plain functions, dict params).
+"""Building blocks of the decoders (plain functions, dict params).
 
 Params are f32 as in the JAX package; each product casts its weight to
 the activation dtype; norms and RoPE angles are computed in f32.
@@ -56,26 +56,36 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                      -1).to(x.dtype)
 
 
-# ---------------------------------------------------------------- SwiGLU MLP
-def _require_silu(act: str) -> None:
-    if act not in ("silu", "swiglu"):
-        raise NotImplementedError(f"{act!r} MLPs are not ported yet "
-                                  "(ROADMAP A11)")
+# ---------------------------------------------------------------- activations
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default
+    is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
 
 
+def act_fn(name: str):
+    return {"silu": F.silu, "gelu": _gelu, "relu": F.relu}[name]
+
+
+# ---------------------------------------------------------------- dense MLP
 def mlp_init(gen: torch.Generator, d: int, f: int, act: str,
              device="cpu") -> Params:
-    _require_silu(act)
-    return {"w_gate": dense_init(gen, (d, f), device=device),
-            "w_up": dense_init(gen, (d, f), device=device),
-            "w_down": dense_init(gen, (f, d), in_axis_size=f, device=device)}
+    """SwiGLU (``w_gate``, ``w_up``, ``w_down``) for silu, else the
+    non-gated MLP (``w_up``, ``w_down``)."""
+    p = {}
+    if act in ("silu", "swiglu"):
+        p["w_gate"] = dense_init(gen, (d, f), device=device)
+    p["w_up"] = dense_init(gen, (d, f), device=device)
+    p["w_down"] = dense_init(gen, (f, d), in_axis_size=f, device=device)
+    return p
 
 
 def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
-    _require_silu(act)
-    g = linear(x, p["w_gate"])
-    u = linear(x, p["w_up"])
-    return linear(F.silu(g) * u, p["w_down"])
+    if "w_gate" in p:
+        g = linear(x, p["w_gate"])
+        u = linear(x, p["w_up"])
+        return linear(act_fn(act)(g) * u, p["w_down"])
+    return linear(act_fn(act)(linear(x, p["w_up"])), p["w_down"])
 
 
 # ---------------------------------------------------------------- linear

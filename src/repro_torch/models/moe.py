@@ -29,10 +29,9 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _require_silu, dense_init
+from repro_torch.models.layers import act_fn, dense_init
 
 Params = Dict[str, torch.Tensor]
 
@@ -47,7 +46,6 @@ def moe_init(gen: torch.Generator, cfg: ModelConfig, device="cpu",
     """router [d, E], we_gate / we_up [E_pad, d, f], we_down [E_pad, f, d]
     and, with shared experts, ws_gate / ws_up [d, S·f], ws_down [S·f, d]
     (f32, the reference's shapes and fan-ins)."""
-    _require_silu(cfg.act)
     d, f = cfg.d_model, cfg.moe_d_ff
     e_pad = padded_experts(cfg, ep)
     fs = cfg.num_shared_experts * cfg.moe_d_ff
@@ -98,7 +96,7 @@ def _routed_local(cfg: ModelConfig, p: Params, x2: torch.Tensor
     xs = x2.index_select(0, order // k)                            # [T*k, d]
     g = grouped_mm(xs, p["we_gate"].to(x2.dtype), offs)
     u = grouped_mm(xs, p["we_up"].to(x2.dtype), offs)
-    rows = grouped_mm(F.silu(g) * u, p["we_down"].to(x2.dtype), offs)
+    rows = grouped_mm(act_fn(cfg.act)(g) * u, p["we_down"].to(x2.dtype), offs)
     rows = rows * w.index_select(0, order)[:, None]
     # undo the sort: sorted row j holds assignment order[j]
     inv = torch.empty_like(order).scatter_(
@@ -114,7 +112,7 @@ def _shared_local(cfg: ModelConfig, p: Params, x2: torch.Tensor
                   ) -> torch.Tensor:
     g = x2 @ p["ws_gate"].to(x2.dtype)
     u = x2 @ p["ws_up"].to(x2.dtype)
-    return (F.silu(g) * u) @ p["ws_down"].to(x2.dtype)
+    return (act_fn(cfg.act)(g) * u) @ p["ws_down"].to(x2.dtype)
 
 
 def moe_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -138,7 +136,7 @@ def moe_apply_dense_ref(cfg: ModelConfig, p: Params, x: torch.Tensor
     for e in range(cfg.num_experts):
         g = x2 @ p["we_gate"][e].to(x2.dtype)
         u = x2 @ p["we_up"][e].to(x2.dtype)
-        o = (F.silu(g) * u) @ p["we_down"][e].to(x2.dtype)
+        o = (act_fn(cfg.act)(g) * u) @ p["we_down"][e].to(x2.dtype)
         w_e = torch.where(top_ids == e, top_w, 0.0).sum(-1).to(x2.dtype)
         y = y + o * w_e[:, None]
     if "ws_gate" in p:

@@ -22,8 +22,10 @@ from repro_torch.core.gptq import (HessianAccumulator, QuantizedTensor,
 from repro_torch.core.quant import make_quant_params, pack_codes
 from repro_torch.models import transformer as T
 
-# the dense decoders' linears; the other families' targets come with them
-QUANT_TARGETS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+# the linears of the families the port serves (the reference's list
+# without the MoE's shared experts, refused, and Mamba's, not ported yet)
+QUANT_TARGETS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                 "w_in", "w_gate_rec", "w_out_rec"}
 
 
 def require_rtn_family(cfg: ModelConfig) -> None:
@@ -73,6 +75,8 @@ def _din_for(name: str, w: torch.Tensor, cfg: ModelConfig) -> int:
         return w.shape[-2]
     if name == "wo":
         return cfg.num_heads * cfg.resolved_head_dim
+    if name == "w_out_rec":
+        return cfg.lru_width or cfg.d_model
     return cfg.d_model
 
 

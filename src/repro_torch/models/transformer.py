@@ -1,18 +1,24 @@
-"""Decoder assembly (dense and MoE, full-attention or sliding-window):
-init / the plain full-sequence forward / decode state / whole-prompt
-prefill (into the paged pool, or the ring cache of a sliding stack) /
-decode step / megastep / prefill chunk / unified step, and its variant
-chained on the device for the async engine.
+"""Decoder assembly (dense and MoE, full-attention or sliding-window, and
+the hybrid of RG-LRU and sliding-window layers): init / the plain
+full-sequence forward / decode state / whole-prompt prefill (into the
+paged pool, or the ring cache of a sliding layer, and the per-sequence
+recurrent state of an RG-LRU layer) / decode step / megastep / prefill
+chunk / unified step, and its variant chained on the device for the
+async engine.
 
 The JAX package scans over layer-stacked params with ``lax.scan``; here a
-Python loop walks the layers.  ``params["layers"]`` keeps the JAX layout
-(every leaf stacked on a leading L axis) at the public functions; the
-serving runner may pre-split it into a list of per-layer dicts once
-(``split_layers``), which every function here accepts too.  The paged
-pools are updated in place.
+Python loop walks the layers.  The params keep the JAX layout at the
+public functions: ``params["layers"]`` (every leaf stacked on a leading L
+axis) for a homogeneous stack, per-kind stacks ``rec_layers`` and
+``attn_layers`` for the hybrid (``layer_plan`` maps layer i to its stack
+and index).  The serving runner may pre-split the stacks into lists of
+per-layer dicts once (``split_layers``), which every function here
+accepts too.  The paged pools are updated in place; the recurrent state
+(``lru_h``, ``rec_conv``) comes back from each step as new tensors.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -31,6 +37,8 @@ from repro_torch.models.layers import (apply_norm, embed_init, linear,
                                        mlp_apply, mlp_init, norm_init,
                                        unembed)
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.ssm import (rglru_apply, rglru_decode, rglru_init,
+                                    rglru_prefill)
 
 Params = Dict[str, Any]
 
@@ -51,20 +59,51 @@ def supports_chunked_prefill(cfg: ModelConfig) -> bool:
     return _layer_kinds(cfg) == {"full"} and not cfg.is_encoder
 
 
-# the families the port serves, and whether each has routed experts
-PORTED_FAMILIES = {"dense": False, "moe": True}
+# the families the port serves: whether each has routed experts, and the
+# layer-kind sets it takes
+PORTED_FAMILIES = {"dense": (False, ({"full"}, {"sliding"})),
+                   "moe": (True, ({"full"}, {"sliding"})),
+                   "hybrid": (False, ({"recurrent", "sliding"},
+                                      {"recurrent"}))}
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     """Dense and MoE decoders whose layers are all full attention or all
-    sliding-window attention are served; other families raise."""
-    if PORTED_FAMILIES.get(cfg.family) != bool(cfg.num_experts) \
-            or _layer_kinds(cfg) not in ({"full"}, {"sliding"}) \
+    sliding-window attention, and the hybrid of RG-LRU and sliding-window
+    layers, are served; other families raise."""
+    experts, kinds = PORTED_FAMILIES.get(cfg.family, (None, ()))
+    if experts != bool(cfg.num_experts) or _layer_kinds(cfg) not in kinds \
             or cfg.is_encoder:
         raise NotImplementedError(
             f"{cfg.name}: only dense and MoE decoders of full-attention or "
-            "sliding-window layers are ported to repro_torch so far "
-            "(ROADMAP A11: other model families)")
+            "sliding-window layers and the RG-LRU hybrid are ported to "
+            "repro_torch so far (ROADMAP A11: other model families)")
+
+
+@functools.lru_cache(maxsize=64)
+def layer_plan(cfg: ModelConfig) -> Tuple[Tuple[str, str, int], ...]:
+    """(kind, stack, index) of each layer.  A homogeneous stack's layer i
+    is ``params["layers"]`` row i and pool layer i.  A hybrid's layers
+    are split by kind into ``rec_layers`` and ``attn_layers`` (as the
+    reference's ``init_params``), and the index counts within the kind:
+    an attention layer's row of the paged pool, a recurrent layer's row of
+    ``lru_h`` / ``rec_conv``."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    if len(set(kinds)) == 1:
+        return tuple((k, "layers", i) for i, k in enumerate(kinds))
+    seen = {"rec_layers": 0, "attn_layers": 0}
+    plan = []
+    for k in kinds:
+        stack = "rec_layers" if k == "recurrent" else "attn_layers"
+        plan.append((k, stack, seen[stack]))
+        seen[stack] += 1
+    return tuple(plan)
+
+
+def attn_layer_count(cfg: ModelConfig) -> Tuple[int, int]:
+    """(#attention layers, #recurrent layers)."""
+    na = sum(k in ("full", "sliding") for k, _, _ in layer_plan(cfg))
+    return na, cfg.num_layers - na
 
 
 def _require_chunkable(cfg: ModelConfig) -> None:
@@ -85,11 +124,14 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def init_layer(gen: Optional[torch.Generator], cfg: ModelConfig, device
-               ) -> Params:
+def init_layer(gen: Optional[torch.Generator], cfg: ModelConfig, device,
+               kind: str = "full") -> Params:
     p: Params = {"attn_norm": norm_init(cfg.d_model, cfg.norm, device),
-                 "mlp_norm": norm_init(cfg.d_model, cfg.norm, device),
-                 "attn": attn_init(gen, cfg, device)}
+                 "mlp_norm": norm_init(cfg.d_model, cfg.norm, device)}
+    if kind == "recurrent":
+        p["rec"] = rglru_init(gen, cfg, device)
+    else:
+        p["attn"] = attn_init(gen, cfg, device)
     if cfg.num_experts:
         p["moe"] = moe_init(gen, cfg, device)
     else:
@@ -106,7 +148,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     preallocated layer stacks before the next, so a load peaks near the
     stored size plus one f32 layer (qwen2-moe in bf16: 28.6 GB, not the
     57 GB of an all-f32 tree).  ``device="meta"`` gives the shapes
-    only."""
+    only.  A hybrid draws its layers in model order from the one seeded
+    generator into the per-kind stacks (the reference folds
+    ``hash(stack name)`` into each stack's key, which Python salts per
+    process, ROADMAP C12; nothing here depends on a hash)."""
     _require_ported(cfg)
     dev = resolve_device(device)
     gen = (None if dev.type == "meta"
@@ -120,17 +165,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
             * cfg.d_model ** -0.5
     if dtype is not None:
         params = cast_params(params, dtype)
-    stacks = None
-    for i in range(cfg.num_layers):
-        layer = init_layer(gen, cfg, dev)
+    plan = layer_plan(cfg)
+    sizes = {}
+    for _, stack, _ in plan:
+        sizes[stack] = sizes.get(stack, 0) + 1
+    for kind, stack, j in plan:
+        layer = init_layer(gen, cfg, dev, kind)
         if dtype is not None:
             layer = cast_params(layer, dtype)
-        if stacks is None:
-            stacks = _map(lambda t: torch.empty(
-                (cfg.num_layers, *t.shape), dtype=t.dtype, device=dev),
+        if stack not in params:
+            params[stack] = _map(lambda t: torch.empty(
+                (sizes[stack], *t.shape), dtype=t.dtype, device=dev),
                 layer)
-        _map(lambda dst, src: dst[i].copy_(src), stacks, layer)
-    params["layers"] = stacks
+        _map(lambda dst, src: dst[j].copy_(src), params[stack], layer)
     return params
 
 
@@ -142,15 +189,19 @@ def _map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+STACKS = ("layers", "rec_layers", "attn_layers")
+
+
 def split_layers(params: Params) -> Params:
-    """The same params with ``layers`` as a list of per-layer dicts of
-    views — built once, so a step does not re-slice the stacks."""
-    layers = params["layers"]
-    if isinstance(layers, list):
-        return params
-    n = _leaves(layers)[0].shape[0]
+    """The same params with each layer stack as a list of per-layer dicts
+    of views — built once, so a step does not re-slice the stacks."""
     out = dict(params)
-    out["layers"] = [_index(layers, i) for i in range(n)]
+    for name in STACKS:
+        layers = params.get(name)
+        if layers is None or isinstance(layers, list):
+            continue
+        n = _leaves(layers)[0].shape[0]
+        out[name] = [_index(layers, i) for i in range(n)]
     return out
 
 
@@ -168,22 +219,33 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def _layer(params: Params, i: int) -> Params:
-    layers = params["layers"]
-    return layers[i] if isinstance(layers, list) else _index(layers, i)
+def _layer(params: Params, i: int, cfg: Optional[ModelConfig] = None
+           ) -> Params:
+    """Layer i's params: row i of ``layers``, or with ``cfg`` the row
+    ``layer_plan`` names (a hybrid's per-kind stacks)."""
+    stack, j = ("layers", i) if cfg is None else layer_plan(cfg)[i][1:]
+    layers = params[stack]
+    return layers[j] if isinstance(layers, list) else _index(layers, j)
+
+
+# leaves the model reads in f32 whatever the activation dtype: the RG-LRU's
+# decay parameter always, its conv taps in decode (cast only in prefill)
+_F32_LEAVES = ("a_param", "conv_w")
 
 
 def keeps_dtype(path: str) -> bool:
     """``cast_params``'s rule for the leaf at a dotted ``path`` (or under a
-    key): norm weights stay f32, since the norms read them in f32."""
-    return any(k.endswith("norm") for k in path.split("."))
+    key): norm weights stay f32, since the norms read them in f32, and so
+    do the RG-LRU's ``a_param`` and ``conv_w``."""
+    keys = path.split(".")
+    return any(k.endswith("norm") for k in keys) or keys[-1] in _F32_LEAVES
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:
     """Cast every weight that the model only ever uses cast to the
     activation dtype (dense matrices, embeddings, biases) once, up front.
-    Bit-identical to casting at each product; norm weights stay f32 (the
-    norms read them in f32) and int4 dicts stay as they are."""
+    Bit-identical to casting at each product; the leaves ``keeps_dtype``
+    names stay f32 and int4 dicts stay as they are."""
     def walk(tree, key=""):
         if keeps_dtype(key):
             return tree
@@ -205,12 +267,16 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
 def apply_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, kind: str,
                 tap: Optional[Callable[[str, torch.Tensor], None]] = None
                 ) -> torch.Tensor:
-    """One pre-norm layer.  ``tap``, if given, sees the input of each
-    block's linears: ``tap("attn", h)`` and ``tap("mlp", h)``."""
+    """One pre-norm layer: attention or the RG-LRU, then the FFN.
+    ``tap``, if given, sees the input of each block's linears:
+    ``tap("attn", h)`` and ``tap("mlp", h)``."""
     h = apply_norm(lp["attn_norm"], x, cfg.norm, cfg.norm_eps)
     if tap is not None:
         tap("attn", h)
-    x = x + attn_apply(cfg, lp["attn"], h, kind=kind)
+    if kind == "recurrent":
+        x = x + rglru_apply(cfg, lp["rec"], h)
+    else:
+        x = x + attn_apply(cfg, lp["attn"], h, kind=kind)
     h = apply_norm(lp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
     if tap is not None:
         tap("mlp", h)
@@ -219,7 +285,8 @@ def apply_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, kind: str,
 
 def ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
     """The layer's FFN on h [B, S, d]: the routed and shared experts of
-    an MoE layer, else the SwiGLU MLP."""
+    an MoE layer, else the dense MLP (SwiGLU, or the non-gated GELU
+    MLP)."""
     if "moe" in lp:
         return moe_apply(cfg, lp["moe"], h)
     return mlp_apply(lp["mlp"], h, cfg.act)
@@ -243,8 +310,8 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
     Python loop over the layers (no remat: no training yet, A12)."""
     _require_ported(cfg)
     x = _embed_inputs(cfg, params, batch)
-    for i in range(cfg.num_layers):
-        x = apply_layer(cfg, _layer(params, i), x, cfg.layer_kind(i))
+    for i, (kind, _, _) in enumerate(layer_plan(cfg)):
+        x = apply_layer(cfg, _layer(params, i, cfg), x, kind)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return unembed(x, params["embed"], params.get("head"))
 
@@ -258,19 +325,29 @@ def make_decode_state(cfg: ModelConfig, max_seqs: int, num_blocks: int,
                       kv_cache_dtype: Optional[str] = None,
                       device="cuda") -> Dict[str, torch.Tensor]:
     """seq_lens [B] i32, block_table [B, MB] i32 and the (k, v) pools
-    [L, NB, BS, KV, D]: of ``dtype`` (the activation dtype by default),
-    or with ``kv_cache_dtype="int8"`` int8 values plus the (k, v) scale
-    pools [L, NB, KV] f32 (full-attention layers only, as in the
-    reference)."""
+    [L, NB, BS, KV, D] over the L attention layers: of ``dtype`` (the
+    activation dtype by default), or with ``kv_cache_dtype="int8"`` int8
+    values plus the (k, v) scale pools [L, NB, KV] f32 (full-attention
+    layers only, as in the reference).  A hybrid adds each recurrent
+    layer's per-slot state: ``lru_h`` [nr, B, w] f32 and ``rec_conv``
+    [nr, B, w, 3] of the pool dtype."""
     _require_ported(cfg)
     kv_mode = normalize_kv_cache_dtype(kv_cache_dtype)
+    na, nr = attn_layer_count(cfg)
+    if kv_mode == "int8" and not na:
+        raise ValueError(
+            f"kv_cache_dtype='int8' requested but {cfg.name} has no "
+            "attention KV cache to quantize (attention-free family "
+            f"{cfg.family!r}); drop the flag — SSM/recurrent state pools "
+            "are not paged KV")
     if kv_mode == "int8" and "sliding" in _layer_kinds(cfg):
         raise ValueError(
             "kv_cache_dtype='int8' does not support sliding-window "
             f"(ring-cache) attention layers ({cfg.name}); the ring "
             "overwrite pattern defeats per-block scale tracking")
     dev = resolve_device(device)
-    dims = (cfg.num_layers, num_blocks, cfg.paging.block_size,
+    dtype = dtype if dtype is not None else act_dtype(cfg)
+    dims = (na, num_blocks, cfg.paging.block_size,
             cfg.num_kv_heads, cfg.resolved_head_dim)
     st = {"seq_lens": torch.zeros(max_seqs, dtype=torch.int32, device=dev),
           "block_table": torch.zeros((max_seqs, max_blocks_per_seq),
@@ -279,9 +356,14 @@ def make_decode_state(cfg: ModelConfig, max_seqs: int, num_blocks: int,
         kp, vp, ks, vs = make_kv_pool_quant(*dims, device=dev)
         st.update(k_scales=ks, v_scales=vs)
     else:
-        kp, vp = make_kv_pool(*dims, dtype if dtype is not None
-                              else act_dtype(cfg), dev)
+        kp, vp = make_kv_pool(*dims, dtype, dev)
     st.update(k_pool=kp, v_pool=vp)
+    if nr:
+        w = cfg.lru_width or cfg.d_model
+        st["lru_h"] = torch.zeros((nr, max_seqs, w), dtype=torch.float32,
+                                  device=dev)
+        st["rec_conv"] = torch.zeros((nr, max_seqs, w, 3), dtype=dtype,
+                                     device=dev)
     return st
 
 
@@ -299,7 +381,9 @@ def prefill(cfg: ModelConfig, params: Params, state: Dict[str, torch.Tensor],
     batch: tokens [B, S] (right-padded), ctx_lens [B];
     state["block_table"] holds the wave's rows and state["seq_lens"] is
     set to ctx_lens.  Full-attention layers write the paged pool,
-    sliding-window layers their ring (``attn_prefill_ring``).  The
+    sliding-window layers their ring (``attn_prefill_ring``), RG-LRU
+    layers return the wave's rows of ``lru_h`` / ``rec_conv`` (the state
+    at each row's ctx_len) as new tensors [nr, B, ...].  The
     ``rt["prefill_chunk"]`` variant (chunks read back from the pool) is
     not ported (ROADMAP A3)."""
     _require_ported(cfg)
@@ -312,18 +396,28 @@ def prefill(cfg: ModelConfig, params: Params, state: Dict[str, torch.Tensor],
     state = dict(state)
     state["seq_lens"] = ctx_lens
     cache = cache_from_state(state)
-    for li in range(cfg.num_layers):
-        lp = _layer(params, li)
-        kind = cfg.layer_kind(li)
-        pf = attn_prefill_ring if kind == "sliding" else attn_prefill
+    mask = torch.arange(x.shape[1], device=x.device)[None, :] \
+        < ctx_lens.long()[:, None]
+    lru_h, rec_conv = [], []
+    for li, (kind, _, j) in enumerate(layer_plan(cfg)):
+        lp = _layer(params, li, cfg)
         hn = apply_norm(lp["attn_norm"], x, cfg.norm, cfg.norm_eps)
-        mix, cache = pf(cfg, lp["attn"], hn, kind=kind, cache=cache,
-                        layer=li, block_table=state["block_table"],
-                        ctx_lens=ctx_lens)
+        if kind == "recurrent":
+            mix, h, conv = rglru_prefill(cfg, lp["rec"], hn, mask, ctx_lens)
+            lru_h.append(h)
+            rec_conv.append(conv.to(state["rec_conv"].dtype))
+        else:
+            pf = attn_prefill_ring if kind == "sliding" else attn_prefill
+            mix, cache = pf(cfg, lp["attn"], hn, kind=kind, cache=cache,
+                            layer=j, block_table=state["block_table"],
+                            ctx_lens=ctx_lens)
         x = x + mix
         hn = apply_norm(lp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
         x = x + ffn(cfg, lp, hn)
     state.update(cache_to_state(cache))
+    if lru_h:
+        state["lru_h"] = torch.stack(lru_h)
+        state["rec_conv"] = torch.stack(rec_conv)
     idx = (ctx_lens.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
     return _final_logits(cfg, params, x.gather(1, idx)[:, 0]), state
 
@@ -377,22 +471,35 @@ def decode_step(cfg: ModelConfig, params: Params,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step for every slot.  tokens [B]: the last token per
     slot; state["seq_lens"] already counts it (0 = inactive slot, its KV
-    write is dropped).  Returns (logits [B, V] f32, state)."""
+    write is dropped).  RG-LRU layers step every slot's ``lru_h`` /
+    ``rec_conv`` row, as the reference does, and return them as new
+    tensors.  Returns (logits [B, V] f32, state)."""
     x = params["embed"][tokens.long()].to(act_dtype(cfg))          # [B, d]
     seq_lens = state["seq_lens"]
     cache = cache_from_state(state)
-    for li in range(cfg.num_layers):
-        lp = _layer(params, li)
+    lru_h, rec_conv = [], []
+    for li, (kind, _, j) in enumerate(layer_plan(cfg)):
+        lp = _layer(params, li, cfg)
         hn = apply_norm(lp["attn_norm"], x, cfg.norm, cfg.norm_eps)
-        mix, cache = attn_decode(cfg, lp["attn"], hn,
-                                 kind=cfg.layer_kind(li), cache=cache,
-                                 layer=li, block_table=state["block_table"],
-                                 seq_lens=seq_lens)
+        if kind == "recurrent":
+            mix, h, conv = rglru_decode(cfg, lp["rec"], hn,
+                                        state["lru_h"][j],
+                                        state["rec_conv"][j])
+            lru_h.append(h)
+            rec_conv.append(conv)
+        else:
+            mix, cache = attn_decode(cfg, lp["attn"], hn, kind=kind,
+                                     cache=cache, layer=j,
+                                     block_table=state["block_table"],
+                                     seq_lens=seq_lens)
         x = x + mix
         hn = apply_norm(lp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
         x = x + ffn(cfg, lp, hn[:, None])[:, 0]        # the [B, 1, d] route
     state = dict(state)
     state.update(cache_to_state(cache))
+    if lru_h:
+        state["lru_h"] = torch.stack(lru_h)
+        state["rec_conv"] = torch.stack(rec_conv)
     return _final_logits(cfg, params, x), state
 
 

@@ -2,10 +2,11 @@
 functions.
 
 Owns the paged KV pools (bf16, or int8 with their scales; updated in
-place), the unified step and its chained variant, the decode megastep,
-the per-token decode, the standalone prefill chunk, the whole-prompt
-prefill wave and sampling, and the copy-on-write block copies.  It knows
-nothing about queues or request lifecycles — the ``Scheduler`` does.
+place) and a hybrid's per-slot recurrent state, the unified step and its
+chained variant, the decode megastep, the per-token decode, the
+standalone prefill chunk, the whole-prompt prefill wave and sampling,
+and the copy-on-write block copies.  It knows nothing about queues or
+request lifecycles — the ``Scheduler`` does.
 ``dispatches`` counts the device calls issued (steps, samples and CoW
 copies), which the engine diffs per step; ``steps`` counts the decode
 steps, prefill chunks and whole-prompt waves the model ran, one attention
@@ -61,6 +62,8 @@ from repro_torch.serving.step_graph import (Fields, StepGraph, _unwords,
 
 # decode-state entries that are pool-shaped [L, NB, ...]
 _POOL_KEYS = ("k_pool", "v_pool", "k_scales", "v_scales")
+# per-slot recurrent state [nr, max_slots, ...] of a hybrid's RG-LRU layers
+_SLOT_KEYS = ("lru_h", "rec_conv")
 _SAMPLING_KEYS = ("keys", "counts", "temps", "top_ks", "top_ps", "poison")
 
 
@@ -414,7 +417,9 @@ class ModelRunner:
     def prefill(self, seqs, maxlen: int) -> torch.Tensor:
         """Prefill a wave of admitted sequences (prompts right-padded to
         ``maxlen``) into the pools, in place; returns the last-token
-        logits [len(seqs), V] on the device."""
+        logits [len(seqs), V] on the device.  A hybrid's recurrent state
+        rows are gathered at the wave's slots and written back there, in
+        place (the state keeps its tensors: step graphs read them)."""
         B = len(seqs)
         toks = np.zeros((B, maxlen), np.int32)
         lens = np.zeros((B,), np.int32)
@@ -423,9 +428,14 @@ class ModelRunner:
             toks[i, :s.seq_len] = s.req.prompt
             lens[i] = s.seq_len
             bt[i, :len(s.block_ids)] = s.block_ids
-        dev = self._upload(toks=toks, lens=lens, bt=bt)
+        dev = self._upload(toks=toks, lens=lens, bt=bt,
+                           slots=np.array([s.slot for s in seqs], np.int32))
         # the wave's own block table and lengths; the pools are shared
         sub = dict(self.state, block_table=dev["bt"], seq_lens=dev["lens"])
+        slots = dev["slots"].long()
+        slot_keys = [k for k in _SLOT_KEYS if k in self.state]
+        for k in slot_keys:
+            sub[k] = self.state[k].index_select(1, slots)
         self.dispatches += 1
         self.steps["wave"] += 1
         with self.tracer.span("dispatch:prefill", cat="device",
@@ -435,6 +445,8 @@ class ModelRunner:
                                     {"tokens": dev["toks"],
                                      "ctx_lens": dev["lens"]}, self.rt)
         self._keep({k: sub[k] for k in _POOL_KEYS if k in sub})
+        for k in slot_keys:
+            self.state[k].index_copy_(1, slots, sub[k])
         return logits
 
     @torch.no_grad()

@@ -103,8 +103,13 @@ def test_unported_paths_refuse():
     from repro_torch.serving import LLM, FaultInjector, ServingEngine
     with pytest.raises(NotImplementedError, match="A11"):
         get_config("falcon-mamba-7b")
-    with pytest.raises(NotImplementedError, match="A11"):
-        get_config("recurrentgemma-2b")
+    # the RG-LRU hybrid is served, ring-only, by synchronous waves
+    rcfg = get_reduced("recurrentgemma-2b", num_layers=3)
+    assert get_config("recurrentgemma-2b").family == "hybrid"
+    eng = ServingEngine(rcfg, T.init_params(rcfg, 0, device="cpu"),
+                        device="cpu", num_blocks=8, max_blocks_per_seq=2)
+    assert eng.scheduler.ring_only and not eng.chunked
+    assert not eng.async_step
     # the sliding-window stack is served, through whole-prompt waves over
     # private rings
     dcfg = get_reduced("h2o-danube-3-4b")

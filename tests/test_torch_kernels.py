@@ -250,6 +250,29 @@ def test_flash_attention_head_dim_120_vs_pallas_and_ref(case, dtype):
     _close(out, orc, dtype)
 
 
+@pytest.mark.parametrize("case", [
+    dict(Sq=20, Sk=20, sliding_window=8),               # sliding band
+    dict(Sq=8, Sk=20, q_offset=12, sliding_window=6),   # band at an offset
+], ids=["window", "offset-window"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_256_vs_pallas_and_ref(case, dtype):
+    """recurrentgemma-2b's sliding layers: head dim 256, 10 query heads
+    over 1 KV head (G = 10), windowed, on the CPU path."""
+    case = dict(case)
+    Sq, Sk = case.pop("Sq"), case.pop("Sk")
+    rng = np.random.default_rng(Sq + Sk + 256)
+    B, H, KV, D = 2, 10, 1, 256
+    q, tq = _pair(rng.normal(size=(B, Sq, H, D)), dtype)
+    k, tk = _pair(rng.normal(size=(B, Sk, KV, D)), dtype)
+    v, tv = _pair(rng.normal(size=(B, Sk, KV, D)), dtype)
+    out = ops.flash_attention(tq, tk, tv, None, **case)
+    pal = j_flash(q, k, v, None, block_q=8, block_k=8, interpret=True,
+                  **case)
+    orc = jref.flash_attention_ref(q, k, v, **case)
+    _close(out, pal, dtype)
+    _close(out, orc, dtype)
+
+
 # ------------------------------------------------------------ int4 matmul
 
 def _codes(rng, K, N):

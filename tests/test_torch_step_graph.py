@@ -3,15 +3,16 @@ on the CPU, where a "graph" is the recorded step function replayed on the
 same static buffers: the bookkeeping that the card's captured CUDA graphs
 share.
 
-Greedy drains with graphs on must equal the JAX engine's tokens (danube:
-the reference's teacher-forced tokens, ROADMAP C11) and the drains with
-graphs off, in every mode the card serves; each variant is captured once
-(the recompile sentinel's counterpart); the decode state keeps its
-storage; a returned output survives later replays; seeded sampling and
-the fault injector's poisoned dispatches give the eager engine's results.
-A planted fault (the copy-back of ``seq_lens`` dropped) must change the
-tokens, so the on/off parity can fail.  Models run in f32 at reduced
-sizes, so both packages' logits agree to rounding.
+Greedy drains with graphs on must equal the JAX engine's tokens (danube
+and recurrentgemma: the reference's teacher-forced tokens, ROADMAP C11)
+and the drains with graphs off, in every mode the card serves; each
+variant is captured once (the recompile sentinel's counterpart); the
+decode state keeps its storage; a returned output survives later
+replays; seeded sampling and the fault injector's poisoned dispatches
+give the eager engine's results.  A planted fault (the copy-back of
+``seq_lens``, or of recurrentgemma's ``lru_h`` or ``rec_conv``, dropped)
+must change the tokens, so the on/off parity can fail.  Models run in
+f32 at reduced sizes, so both packages' logits agree to rounding.
 """
 import types
 
@@ -67,6 +68,12 @@ def danube():
                    num_kv_heads=2, head_dim=16, sliding_window=12)
 
 
+@pytest.fixture(scope="module")
+def rgemma():
+    return _bridge("recurrentgemma-2b", dtype="float32", num_layers=6,
+                   sliding_window=12)
+
+
 DENSE_KW = dict(max_slots=4, num_blocks=128, max_blocks_per_seq=16,
                 prefill_bucket=32, max_num_batched_tokens=64)
 MOE_KW = dict(max_slots=3, num_blocks=48, max_blocks_per_seq=8,
@@ -86,7 +93,10 @@ MODES = {
                      {"unified", "megastep"}),
     "moe": ("moe", MOE_KW, {"chained"}),
     "danube": ("danube", DANUBE_KW, {"megastep"}),
+    "rgemma": ("rgemma", DANUBE_KW, {"megastep"}),
 }
+# the ring stacks, whose reference is teacher forcing
+RINGS = ("danube", "rgemma")
 
 
 def _prompts(seed, vocab, lens=None):
@@ -134,7 +144,7 @@ def test_graphed_drain_equals_reference_and_eager(mode, request):
     name, kw, kinds = MODES[mode]
     model = request.getfixturevalue(name)
     jcfg, cfg, params, _ = model
-    if name == "danube":
+    if name in RINGS:
         prompts = _prompts(3, cfg.vocab_size, lens=(5, 9, 20))
         mts = (30, 30, 30)
     else:
@@ -145,7 +155,7 @@ def test_graphed_drain_equals_reference_and_eager(mode, request):
     eager, off, _ = _serve(model, kw, prompts, sps, capture_graphs=False)
     assert got == eager
     assert off == {}                        # graphs off: nothing captured
-    if name == "danube":
+    if name in RINGS:
         want = _teacher_forced(jcfg, params, prompts, 30)
         assert [t for t, _ in got] == want
     else:
@@ -327,6 +337,42 @@ def test_planted_copy_back_fault_changes_the_tokens(dense, monkeypatch):
     monkeypatch.setattr(step_graph, "copy_back", lambda state, new: real(
         state, {k: v for k, v in new.items() if k != "seq_lens"}))
     broken, _, _ = _serve(dense, kw, prompts, sps)
+    assert broken != eager
+
+
+@pytest.fixture(scope="module")
+def rgemma_memory():
+    """recurrentgemma on the port's own seeded init (repeatable in every
+    process, unlike the reference's, ROADMAP C12), its RG-LRU decay set
+    to a ~ 0.9 a step, so the state carries ~10 steps back: the init's
+    decay, a ~ exp(-5), forgets a token within a step, and a stale state
+    then changes no greedy token."""
+    from repro_torch.models import transformer as T
+    cfg = get_reduced("recurrentgemma-2b", dtype="float32", num_layers=6,
+                      sliding_window=12)
+    params = T.init_params(cfg, 0, device="cpu")
+    params["rec_layers"]["rec"]["a_param"].fill_(-3.6)
+    return None, cfg, None, params
+
+
+@pytest.mark.parametrize("key", ["lru_h", "rec_conv"])
+def test_planted_recurrent_copy_back_fault_changes_the_tokens(
+        rgemma_memory, monkeypatch, key):
+    """recurrentgemma's per-slot recurrent state comes back from each
+    decode step as a new tensor: with its copy-back into the static state
+    dropped, a replay reads the state its capture left, and the graphed
+    drain must depart from the eager one."""
+    model = rgemma_memory
+    prompts = _prompts(3, model[1].vocab_size, lens=(5, 9, 20))
+    sps = SamplingParams(max_tokens=20)
+    eager, _, _ = _serve(model, DANUBE_KW, prompts, sps,
+                         capture_graphs=False)
+    sound, _, _ = _serve(model, DANUBE_KW, prompts, sps)
+    assert sound == eager
+    real = step_graph.copy_back
+    monkeypatch.setattr(step_graph, "copy_back", lambda state, new: real(
+        state, {k: v for k, v in new.items() if k != key}))
+    broken, _, _ = _serve(model, DANUBE_KW, prompts, sps)
     assert broken != eager
 
 
