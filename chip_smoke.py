@@ -152,9 +152,27 @@ Phases, each of which fails loudly (any failure exits non-zero):
              one of 2,040 tokens asking for 40 (its ring wraps after 8),
              graphs on and off, profiled: ``flash_attention`` 8 times a
              wave, 0 pageable copies, every served token against teacher
-             forcing; one wave's device time split between
-             ``gptq_matmul``, the static kernel, the RG-LRU scans and the
-             rest.
+             forcing, ``linear_scan`` 18 times a wave and a decode step;
+             one wave's device time split between ``gptq_matmul``, the
+             static kernel, the time scan and the rest.
+9. ssm     — falcon-mamba-7b (64 Mamba-1 layers, din 8192, state 16; no
+             attention, no paged pool): the time-scan kernel
+             (``csrc/time_scan.cu``) against its plain versions on the
+             card, each output within SCAN_REL_TOL of its RMS, bitwise
+             repeatable: ``selective_scan`` on a [8, 1024] wave with
+             ragged masked rows and on a decode step, ``linear_scan`` on
+             recurrentgemma's [8, 2048] wave (and whether it gives the
+             addcmul loop's bits); ``gptq_matmul`` at in_proj / out_proj
+             at decode and at the wave's 7,680 rows; the full-width model
+             cut to 2 layers card vs CPU in f32 (dense) and bf16
+             (rtn-int4): logits, ``ssm_h`` and ``ssm_conv``; then
+             full-depth ``LLM.load("falcon-mamba-7b", quant="rtn-int4")``
+             (each layer quantized as it is drawn) serves serve_prompts'
+             traffic on the engine's defaults (whole-prompt waves,
+             synchronous: checked), graphs on and off, profiled:
+             ``selective_scan`` 64 times a wave and a decode step, no
+             attention kernel, 0 pageable copies, every served token
+             against teacher forcing; one wave's device time split.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -968,8 +986,11 @@ def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2,
 # Phase 4: serve full-depth qwen2-1.5b with int4 weights
 # --------------------------------------------------------------------------
 
-def serve_prompts(vocab: int, lens=(20, 64 + 40, 64 + 300, 150, 420, 600,
-                                    777, 900), seed: int = 0):
+# the serves' prompt lengths; prompts 1 and 2 share 64 tokens
+SERVE_LENS = (20, 64 + 40, 64 + 300, 150, 420, 600, 777, 900)
+
+
+def serve_prompts(vocab: int, lens=SERVE_LENS, seed: int = 0):
     import numpy as np
     rng = np.random.default_rng(seed)
     ps = [rng.integers(0, vocab, n).tolist() for n in lens]
@@ -980,10 +1001,12 @@ def serve_prompts(vocab: int, lens=(20, 64 + 40, 64 + 300, 150, 420, 600,
 # The synchronous engine (read back every step, no span tracer): the
 # first four serves run it, the fifth the engine's defaults.
 SYNC = {"enable_async_step": False, "enable_telemetry": False}
+# the time-scan kernels, which only the recurrent families launch
+SCAN_KERNELS = {"selective_scan", "linear_scan"}
 BF16_CHUNKED_KERNELS = (
     {"paged_attention", "flash_attention_chunk", "gptq_matmul"},
     {"paged_attention_quant", "flash_attention_chunk_int8",
-     "flash_attention"})
+     "flash_attention"} | SCAN_KERNELS)
 # The serves: (label, LLM.load options, kernels that must launch, kernels
 # that must not).  Each runs its own path: the int8 serve never touches a
 # bf16-pool attention kernel, the whole-prompt serve never the chunk
@@ -993,11 +1016,12 @@ SERVES = (
     ("bf16-chunked", SYNC, *BF16_CHUNKED_KERNELS),
     ("int8-chunked", {**SYNC, "kv_cache_dtype": "int8"},
      {"paged_attention_quant", "flash_attention_chunk_int8", "gptq_matmul"},
-     {"paged_attention", "flash_attention_chunk", "flash_attention"}),
+     {"paged_attention", "flash_attention_chunk", "flash_attention"}
+     | SCAN_KERNELS),
     ("bf16-whole-prompt", {**SYNC, "enable_chunked_prefill": False},
      {"flash_attention", "paged_attention", "gptq_matmul"},
      {"flash_attention_chunk", "flash_attention_chunk_int8",
-      "paged_attention_quant"}),
+      "paged_attention_quant"} | SCAN_KERNELS),
     ("bf16-chunked-async", {}, *BF16_CHUNKED_KERNELS),
 )
 
@@ -1027,7 +1051,7 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
                 max_tokens: int = 32, kernels=(), label: str = "bf16-chunked",
                 options=None, must=(), never=(), profile: bool = False,
                 llm=None, quant="rtn-int4", lens=None,
-                graphs_off: bool = False) -> dict:
+                graphs_off: bool = False, state_keys=()) -> dict:
     """Serve the 8 requests of ``serve_prompts`` (of ``lens`` tokens when
     given) on ``llm`` or, when none is given, on ``LLM.load(config,
     quant=quant, **options)``; request i asks for ``max_tokens - 3 i`` new
@@ -1037,7 +1061,9 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
     graphs (``capture_graphs``) unless ``options`` turns them off; with
     ``graphs_off`` the same traffic is then served again by a second
     engine over the same weights with graphs off (``"off"`` in the
-    record), which must give the same tokens."""
+    record), which must give the same tokens, and the runner's state
+    entries ``state_keys`` after the serve within SERVE_STATE_TOL of
+    graphs off's (``"state_on_off"``)."""
     import torch
     from repro_torch.serving import LLM
     card = dev != "cpu"
@@ -1056,20 +1082,34 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
     prompts = serve_prompts(llm.cfg.vocab_size) if lens is None \
         else serve_prompts(llm.cfg.vocab_size, lens)
     out = serve_once(llm, prompts, max_tokens, kernels, label, options,
-                     must, never, profile)
+                     must, never, profile, state_keys)
     out.update(load_s=load_s, load_max_memory_allocated=load_peak)
     if graphs_off:
         engine_kw = {**(options or {}), "capture_graphs": False}
         off_llm = LLM(llm.cfg, llm.params, seed=0, device=dev, **engine_kw)
         out["off"] = off = serve_once(off_llm, prompts, max_tokens, kernels,
                                       label + "/graphs-off", engine_kw, must,
-                                      never, profile)
+                                      never, profile, state_keys)
         off_llm.close()
         del off_llm
         if off["tokens"] != out["tokens"]:
             raise AssertionError(
                 f"serve {label}: tokens with graphs on differ from graphs "
                 f"off (agreement {agreement(out['tokens'], off['tokens']):.3f})")
+        on_st, off_st = out.pop("state"), off.pop("state")
+        out["state_on_off"] = cmp = {
+            k: {"rel_err": _rel(on_st[k], off_st[k]),
+                "rms": off_st[k].pow(2).mean().sqrt().item(),
+                "bitwise": torch.equal(on_st[k], off_st[k]),
+                "finite": bool(torch.isfinite(on_st[k]).all())}
+            for k in state_keys}
+        del on_st, off_st
+        if not all(c["finite"] and c["rms"] > 0
+                   and c["rel_err"] <= SERVE_STATE_TOL for c in cmp.values()):
+            raise AssertionError(
+                f"serve {label}: the state after the serve with graphs on "
+                f"against graphs off (largest error over RMS, limit "
+                f"{SERVE_STATE_TOL}): {cmp}")
     del llm
     if card:
         torch.cuda.empty_cache()
@@ -1077,11 +1117,12 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
 
 
 def serve_once(llm, prompts, max_tokens, kernels, label, options, must,
-               never, profile) -> dict:
+               never, profile, state_keys=()) -> dict:
     """One warm request, then the serve of ``prompts`` on ``llm`` with
     its checks (finished, in vocabulary, full length, its own kernels,
     the attention launches, a clean allocator audit), then optionally its
-    profiled re-run; the record.  Step graphs: the kinds captured, each
+    profiled re-run; the record, with a CPU copy of the runner's state
+    entries ``state_keys`` as the serve left them (``"state"``).  Step graphs: the kinds captured, each
     variant once, none in the re-run, and the seconds and graph-pool
     bytes they cost (the pool released after)."""
     import torch
@@ -1121,6 +1162,7 @@ def serve_once(llm, prompts, max_tokens, kernels, label, options, must,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
+    state = {k: eng.runner.state[k].float().cpu() for k in state_keys}
     m = {k: eng.metrics.get(k, 0) - v for k, v in base.items()}
     steps = {k: eng.runner.steps[k] - steps0[k] for k in steps0}
     latency = {f"{k.split('_')[-1]}_p{q}_ms": h.percentile(q)
@@ -1211,7 +1253,7 @@ def serve_once(llm, prompts, max_tokens, kernels, label, options, must,
             "memory_allocated_at_start": start_alloc if card else None,
             "capture_graphs": graphed, "graphs": graphs,
             "capture_s": sum(g["capture_s"] for g in graphs.values()),
-            "graph_pool_bytes": pool_bytes,
+            "graph_pool_bytes": pool_bytes, "state": state,
             "gen_tokens": m["gen_tokens"], "prompt_tokens": m["prompt_tokens"],
             "gen_tok_s": m["gen_tokens"] / wall,
             "total_tok_s": (m["gen_tokens"] + m["prompt_tokens"]) / wall,
@@ -1234,7 +1276,9 @@ def serve_once(llm, prompts, max_tokens, kernels, label, options, must,
 OURS = {"paged_attention_": "paged_attention",
         "chunk_attention_": "flash_attention_chunk",
         "flash_attention_": "flash_attention", "gptq_m": "gptq_matmul",
-        "splitk_reduce_kernel": "gptq_matmul"}
+        "splitk_reduce_kernel": "gptq_matmul",
+        "selective_scan_kernel": "selective_scan",
+        "linear_scan_kernel": "linear_scan"}
 INT8_NAMES = {"paged_attention": "paged_attention_quant",
               "flash_attention_chunk": "flash_attention_chunk_int8"}
 
@@ -1813,11 +1857,11 @@ MOE_INT8 = {"paged_attention_quant", "flash_attention_chunk_int8"}
 # attention: chunked prefill over the paged pool only.
 MOE_SERVES = (
     ("moe-chunked-async", {}, MOE_BF16,
-     MOE_INT8 | {"flash_attention", "gptq_matmul"}),
+     MOE_INT8 | {"flash_attention", "gptq_matmul"} | SCAN_KERNELS),
     ("moe-chunked", SYNC, MOE_BF16,
-     MOE_INT8 | {"flash_attention", "gptq_matmul"}),
+     MOE_INT8 | {"flash_attention", "gptq_matmul"} | SCAN_KERNELS),
     ("moe-int8-chunked", {**SYNC, "kv_cache_dtype": "int8"}, MOE_INT8,
-     MOE_BF16 | {"flash_attention", "gptq_matmul"}))
+     MOE_BF16 | {"flash_attention", "gptq_matmul"} | SCAN_KERNELS))
 
 
 def check_moe_ffn(gen) -> dict:
@@ -2074,7 +2118,8 @@ DANUBE_LENS = (20, 64 + 40, 64 + 300, 150, 420, 600, 777, 8180)
 DANUBE_MAX_TOKENS = (32, 29, 26, 23, 20, 17, 14, 40)
 DANUBE_KERNELS = ({"flash_attention", "gptq_matmul"},
                   {"paged_attention", "paged_attention_quant",
-                   "flash_attention_chunk", "flash_attention_chunk_int8"})
+                   "flash_attention_chunk", "flash_attention_chunk_int8"}
+                  | SCAN_KERNELS)
 # the engine's defaults: a ring stack cannot chunk, and the async step
 # rides the unified (chunked) step, so the serve runs synchronous waves
 # and megasteps as the reference's engine does (``serve_ring``)
@@ -2320,11 +2365,11 @@ def teacher_forced(llm, prompts, served, ring_blocks=DANUBE_RING_BLOCKS
     the share equal (overall, per request, and for the wrapping request's
     tokens decoded from positions past the ring's end) and the gap, in
     the teacher's f32 logits, between its top logit and the served
-    token's: 0 where they agree, small where a bf16 near-tie flipped."""
+    token's: 0 where they agree, small where a bf16 near-tie flipped.
+    ``ring_blocks`` None: a model without rings (no wrap to report)."""
     import torch
     from repro_torch.models import transformer as T
     runner = llm.engine.runner
-    ring = ring_blocks * llm.cfg.paging.block_size
     same, gaps, per_request = [], [], []
     for prompt, toks in zip(prompts, served):
         seq = torch.tensor(prompt + toks[:-1], dtype=torch.int32,
@@ -2339,26 +2384,30 @@ def teacher_forced(llm, prompts, served, ring_blocks=DANUBE_RING_BLOCKS
         gaps += gap.cpu().tolist()
         per_request.append(sum(eq) / len(eq))
     long_prompt, long_eq = len(prompts[-1]), same[-1]
-    first_wrapped = ring - (long_prompt - 1)     # fed a position >= ring
     flat = [e for eq in same for e in eq]
-    return {"agreement": sum(flat) / len(flat), "tokens": len(flat),
-            "agreement_by_request": per_request,
-            "max_gap": max(gaps), "mean_gap": sum(gaps) / len(gaps),
-            "agreement_after_wrap": sum(long_eq[first_wrapped:])
-            / max(len(long_eq[first_wrapped:]), 1),
-            "last_position": long_prompt + len(served[-1]) - 1,
-            "ring_slots": ring}
+    out = {"agreement": sum(flat) / len(flat), "tokens": len(flat),
+           "agreement_by_request": per_request,
+           "max_gap": max(gaps), "mean_gap": sum(gaps) / len(gaps),
+           "last_position": long_prompt + len(served[-1]) - 1}
+    if ring_blocks is not None:
+        ring = ring_blocks * llm.cfg.paging.block_size
+        first_wrapped = ring - (long_prompt - 1)   # fed a position >= ring
+        out.update(agreement_after_wrap=sum(long_eq[first_wrapped:])
+                   / max(len(long_eq[first_wrapped:]), 1), ring_slots=ring)
+    return out
 
 
 def serve_ring(kernels, config: str = DANUBE, label: str = "danube-defaults",
                slots: int = DANUBE_WAVE[0],
                ring_blocks: int = DANUBE_RING_BLOCKS, lens=DANUBE_LENS,
-               max_tokens=DANUBE_MAX_TOKENS) -> tuple:
+               max_tokens=DANUBE_MAX_TOKENS, must_never=DANUBE_KERNELS
+               ) -> tuple:
     """Full-depth ``config`` (a stack without full-attention layers),
     ``LLM.load`` with ``rtn-int4`` on the engine's defaults over ``slots``
     private rings of ``ring_blocks`` blocks, serving ``lens``' traffic
-    (profiled), graphs on and again off; each served token held to
-    teacher forcing.  Returns (the LLM, the serve's record, the
+    (profiled), graphs on and again off, launching the kernels of
+    ``must_never``'s first set and none of its second; each served token
+    held to teacher forcing.  Returns (the LLM, the serve's record, the
     teacher-forced record); the caller closes the LLM."""
     import torch
     from repro_torch.configs.registry import get_config
@@ -2383,7 +2432,7 @@ def serve_ring(kernels, config: str = DANUBE, label: str = "danube-defaults",
                              f"synchronous and ring_only (chunked="
                              f"{eng.chunked}, async_step={eng.async_step}, "
                              f"ring_only={eng.scheduler.ring_only})")
-    must, never = DANUBE_KERNELS
+    must, never = must_never
     serve = phase_serve("cuda", config=config, kernels=kernels, label=label,
                         options=options, must=must, never=never,
                         profile=True, llm=llm, lens=lens,
@@ -2483,6 +2532,10 @@ RGEMMA_LINEARS = {"in/gate/out_rec, wq/wo": (2560, 2560),
 RGEMMA_GPTQ_SHAPES = [(lname, K, N, GS, (8, RGEMMA_WAVE[0] * RGEMMA_WAVE[1]))
                       for lname, (K, N) in RGEMMA_LINEARS.items()]
 RGEMMA_RING_BLOCKS = 128         # 128 blocks of 16 tokens: the 2,048 window
+# its serve launches the static kernel, the int4 matmul and the RG-LRU's
+# time scan (one launch a recurrent layer, wave or decode step)
+RGEMMA_KERNELS = (DANUBE_KERNELS[0] | {"linear_scan"},
+                  DANUBE_KERNELS[1] - {"linear_scan"})
 # serve_prompts' traffic with the 900-token prompt replaced by one of 2,040
 # tokens asking for 40 new tokens: it decodes positions 2,040 .. 2,078, so
 # its ring wraps after 8 tokens
@@ -2614,23 +2667,25 @@ def phase_hybrid_model(dev: str = "cuda", ref_dev: str = "cpu",
     return out
 
 
-def wave_split(llm, iters: int = 2) -> dict:
-    """One wave [8, 2048] of the served model (``T.prefill`` on the
-    runner's params and pools, random tokens; its recurrent rows are not
-    kept): its time between events (host launch gaps included), then the
-    same wave profiled, its device time split between ``gptq_matmul``, the
-    static kernel, the RG-LRU scans' per-step ``addcmul`` launches and
-    everything else (the gates, GELU, norms, RoPE, the ring writes, the
-    dense wr / wi products).  Writes the pools, so it runs after the
-    serves."""
+def wave_split(llm, wave=RGEMMA_WAVE, iters: int = 2) -> dict:
+    """One wave ``wave`` = (rows, width) of the served model (``T.prefill``
+    on the runner's params and pools, random tokens; its recurrent rows
+    are not kept): its time between events (host launch gaps included),
+    then the same wave profiled, its device time split between
+    ``gptq_matmul``, the static attention kernel, the time scans
+    (``selective_scan`` / ``linear_scan``; a torch ``addcmul`` a step in
+    trees before the scan kernel) and everything else (the gates and
+    projections, conv, norms, RoPE, the ring writes, the dense products).
+    Writes the pools, so it runs after the serves."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as T
     cfg, runner = llm.cfg, llm.engine.runner
-    B, S = RGEMMA_WAVE
+    B, S = wave
     st = dict(runner.state)
-    st["block_table"] = torch.arange(B * runner.mb, dtype=torch.int32,
-                                     device="cuda").reshape(B, runner.mb)
+    if "block_table" in st:
+        st["block_table"] = torch.arange(B * runner.mb, dtype=torch.int32,
+                                         device="cuda").reshape(B, runner.mb)
     gen = torch.Generator(device="cuda").manual_seed(7)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
                                      generator=gen, device="cuda",
@@ -2638,22 +2693,23 @@ def wave_split(llm, iters: int = 2) -> dict:
              "ctx_lens": torch.full((B,), S, dtype=torch.int32,
                                     device="cuda")}
 
-    def wave():
+    def run():
         T.prefill(cfg, runner.params, st, batch)
 
     with torch.no_grad():
-        ms = time_ms(wave, iters=iters)
+        ms = time_ms(run, iters=iters)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            wave()
+            run()
             torch.cuda.synchronize()
-    split = dict.fromkeys(("gptq_matmul", "flash_attention", "rglru_scan",
+    split = dict.fromkeys(("gptq_matmul", "flash_attention", "time_scan",
                            "other"), 0.0)
     launches = dict.fromkeys(split, 0)
     for name, on_device, dev_ms in _events(prof):
         if not on_device or "Memcpy" in name or "Memset" in name:
             continue
-        key = ours_name(name) or ("rglru_scan" if "addcmul" in name
-                                  else "other")
+        ours = ours_name(name)
+        key = ("time_scan" if ours in SCAN_KERNELS or "addcmul" in name
+               else ours or "other")
         split[key] += dev_ms
         launches[key] += 1
     busy = sum(split.values())
@@ -2705,7 +2761,8 @@ def phase_hybrid(report: dict, gen, kernels) -> list:
 
     llm, serve, tf = serve_ring(
         kernels, RGEMMA, "rgemma-defaults", RGEMMA_WAVE[0],
-        RGEMMA_RING_BLOCKS, RGEMMA_LENS, RGEMMA_MAX_TOKENS)
+        RGEMMA_RING_BLOCKS, RGEMMA_LENS, RGEMMA_MAX_TOKENS,
+        must_never=RGEMMA_KERNELS)
     r["serve"] = {serve["label"]: serve}
     r["teacher_forced"] = tf
     ring = tf["ring_slots"]
@@ -2714,6 +2771,7 @@ def phase_hybrid(report: dict, gen, kernels) -> list:
         raise AssertionError(f"rgemma: {serve['launches']['flash_attention']}"
                              f" static-kernel launches over {waves} waves "
                              "(want 8 a wave)")
+    check_scan_launches(serve, "linear_scan", 18)
     if serve["profile"]["pageable_copies"]:
         raise AssertionError("rgemma serve: pageable memcpys under the "
                              "profiler (want 0)")
@@ -2724,7 +2782,7 @@ def phase_hybrid(report: dict, gen, kernels) -> list:
         raise AssertionError(f"rgemma: served tokens against teacher "
                              f"forcing (agreement >= {TEACHER_AGREEMENT}, "
                              f"gap <= {TEACHER_GAP}): {tf}")
-    r["wave_split"] = ws = wave_split(llm)
+    r["wave_split"] = ws = wave_split(llm, RGEMMA_WAVE)
     r["kv_pool_bytes"] = serve["kv_pool_bytes"]
     r["recurrent_state_bytes"] = sum(
         llm.engine.runner.state[k].numel()
@@ -2750,6 +2808,485 @@ def phase_hybrid(report: dict, gen, kernels) -> list:
                     for k in ws["device_ms"]))
     r["seconds"] = time.perf_counter() - t_phase
     log(f"[hybrid] phase 8 took {r['seconds']:.1f} s")
+    return checks
+
+
+# --------------------------------------------------------------------------
+# Phase 9: the attention-free Mamba-1 stack (falcon-mamba-7b) and the
+# time-scan kernel it shares with the RG-LRU
+# --------------------------------------------------------------------------
+
+MAMBA = "falcon-mamba-7b"
+F32_FLOPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+# the scans in f32: each output's largest error over its own RMS
+SCAN_REL_TOL = 1e-4
+# the selective scan's check over din 8192 with a state of 16: the
+# serve's wave (its prompts padded to MAMBA_WAVE's 960, the kernels
+# line's time), a wave of 8 x 1024 with ragged lengths, both masked as
+# the model masks them (dt = 0, u = 0), and a decode step from a random
+# state
+MAMBA_SCAN = (8, 1024, 8192, 16)
+MAMBA_SCAN_LENS = (1024, 1000, 931, 777, 600, 420, 150, 20)
+# the linear scan's check: recurrentgemma's wave [8, 2048] over width 2560
+RGEMMA_SCAN = (8, 2048, 2560)
+MAMBA_LINEARS = {"in_proj": (4096, 16384), "out_proj": (8192, 4096)}
+# the serve's wave: 8 prompts of up to 900 tokens padded to 960
+MAMBA_WAVE = (8, 960)
+# every int4 linear at decode and at the wave's 7,680 rows
+MAMBA_GPTQ_SHAPES = [(lname, K, N, GS, (8, MAMBA_WAVE[0] * MAMBA_WAVE[1]))
+                     for lname, (K, N) in MAMBA_LINEARS.items()]
+# the full-width model cut to 2 layers, card vs CPU: f32 with dense
+# weights on an init whose state carries and moves the logits
+# (MAMBA_MEMORY), then bf16 with rtn-int4 weights on the served init.
+# Logits within MAMBA_TOL; ssm_h and ssm_conv each within
+# MAMBA_STATE_TOL of their own RMS (largest error over RMS, as the scan
+# checks), a limit that a state one decode step stale must exceed
+MAMBA_MODEL = {"layers": 2, "slots": 3, "lens": (100, 64, 30), "steps": 8}
+MAMBA_MODEL_RUNS = (("float32", None, True), ("bfloat16", "rtn-int4", False))
+MAMBA_TOL = {"float32": RING_LOGIT_TOL, "bfloat16": LOGIT_TOL}
+# bf16: int4 weights, bf16 activations; set between the sound reading
+# (ssm_h 0.094 of its RMS) and the stale controls (6.2 and more)
+MAMBA_STATE_TOL = {"float32": SCAN_REL_TOL, "bfloat16": 0.5}
+# the init's dt (0.001-0.1) and A (-1..-16) leave a state of ~4e-5 that
+# moves no logit; dt ~ 1 (dt_bias = softplus^-1(1)), A = -0.05 (the state
+# decays by ~0.95 a step) and out_proj x 4 make the logits depend on it,
+# as tests/test_torch_ssm.py's mamba_memory does
+MAMBA_MEMORY = {"dt_bias": 0.5413, "A": -0.05, "out_proj_scale": 4.0}
+# the served model's next-token logits with its state against a zero
+# state must move by more than this: ten times the bf16 model check's
+# logit tolerance
+STATE_EFFECT_MIN = 10 * LOGIT_TOL
+# the serve's final ssm_h / ssm_conv with graphs on against graphs off:
+# largest error over the RMS
+SERVE_STATE_TOL = SCAN_REL_TOL
+# its serve launches the selective scan and the int4 matmul, nothing else
+MAMBA_KERNELS = ({"selective_scan", "gptq_matmul"},
+                 {"paged_attention", "paged_attention_quant",
+                  "flash_attention_chunk", "flash_attention_chunk_int8",
+                  "flash_attention", "linear_scan"})
+
+
+def _scan_bound(nbytes: float, flops: float):
+    """The f32 scans' bound: bytes over 3.35 TB/s or flops over the f32
+    peak outside the tensor cores, whichever is longer."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / F32_FLOPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def _scan_case(name: str, label: str, kernel, plain, args, nbytes, flops):
+    """One scan case: the kernel against its plain version on the same
+    inputs (each output within SCAN_REL_TOL of its RMS), called twice and
+    bitwise equal, timed beside the plain version and its bound."""
+    import torch
+    got = kernel(*args)
+    again = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    errs, rel = [], 0.0
+    for g, a, w in zip(got, again, want):
+        if not torch.equal(g, a):
+            raise AssertionError(f"{name} {label}: two calls differ")
+        err = (g - w).abs().max().item()
+        rms = w.float().pow(2).mean().sqrt().item()
+        errs.append(err)
+        rel = max(rel, err / rms)
+        if not (bool(torch.isfinite(g).all()) and err <= SCAN_REL_TOL * rms):
+            raise AssertionError(f"{name} {label}: max err {err:.3e} over "
+                                 f"RMS {rms:.3e} (limit {SCAN_REL_TOL})")
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want))
+    row = {"case": label, "max_abs_err": max(errs), "rel_err": rel,
+           "bitwise_equal_to_plain": bitwise,
+           "ms": time_ms(lambda: kernel(*args)),
+           "plain_ms": time_ms(lambda: plain(*args), iters=2),
+           "bound": _scan_bound(nbytes, flops)}
+    log(f"{name} {label}: kernel_ms={row['ms']:.4f} "
+        f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound'][0]:.5f} "
+        f"({row['bound'][1]}) max_abs_err={row['max_abs_err']:.3e} "
+        f"rel_err={rel:.2e} bitwise_equal_to_plain={bitwise}")
+    return row
+
+
+def check_selective_scan(gen) -> dict:
+    """The Mamba-1 selective scan at falcon-mamba-7b's widths: the
+    serve's wave and a [8, 1024] wave, each from a zero state with ragged
+    rows masked (dt = 0, u = 0 past each row's length, as ``_ssm_inner``
+    passes them), and one decode step (S = 1) from a random state,
+    against ``selective_scan_ref``.  The serve's wave gives the kernels
+    line its time."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.time_scan import selective_scan
+    b, S, din, N = MAMBA_SCAN
+    dev = "cuda"
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device=dev).repeat(din, 1)
+    rows = []
+    wb, ws = MAMBA_WAVE
+    for label, s, lens, h0 in (
+            (f"serve wave [{wb},{ws}] din {din} N {N}, prompts "
+             f"{SERVE_LENS}", ws, SERVE_LENS,
+             torch.zeros((wb, din, N), device=dev)),
+            (f"wave [{b},{S}] din {din} N {N}, ragged {MAMBA_SCAN_LENS}",
+             S, MAMBA_SCAN_LENS,
+             torch.zeros((b, din, N), device=dev)),
+            (f"decode [{b},1] din {din} N {N} from a random state", 1,
+             (1,) * b, torch.randn((b, din, N), generator=gen, device=dev))):
+        mask = (torch.arange(s, device=dev)[None] < torch.tensor(
+            lens, device=dev)[:, None])[..., None]
+        dt = (torch.rand((b, s, din), generator=gen, device=dev) * 0.099
+              + 0.001) * mask
+        u = torch.randn((b, s, din), generator=gen, device=dev) * mask
+        Bm = torch.randn((b, s, N), generator=gen, device=dev)
+        Cm = torch.randn((b, s, N), generator=gen, device=dev)
+        nbytes = 4 * (3 * b * s * din + 2 * b * s * N + din * N
+                      + 2 * b * din * N)
+        flops = b * s * din * (7 * N + 1)
+        rows.append(_scan_case("selective_scan", label, selective_scan,
+                               ref.selective_scan_ref,
+                               (dt, u, Bm, Cm, A, h0), nbytes, flops))
+        del dt, u, Bm, Cm, mask
+    main = rows[0]
+    return {"name": "selective_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/time_scan.cu",
+            "replaces": "src/repro/models/ssm.py:99 (the lax.scan step of "
+                        "_ssm_inner; not a Pallas site)",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound": main["bound"], "library_ms": None,
+            "shape": main["case"] + "; no single torch call computes it",
+            "cases": rows}
+
+
+def check_linear_scan(gen) -> dict:
+    """The RG-LRU's recurrence at recurrentgemma-2b's wave [8, 2048] x
+    2560, ragged rows state-transparent (a = 1, g = 0), from a random
+    state, against ``linear_scan_ref`` (one ``addcmul`` a step, the path
+    it replaces on the card): whether the kernel's fmaf gives the
+    addcmul's bits is recorded."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.time_scan import linear_scan
+    b, S, w = RGEMMA_SCAN
+    dev = "cuda"
+    lens = torch.tensor(RGEMMA_LENS, device=dev)
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None])[..., None]
+    a = torch.where(mask, torch.rand((b, S, w), generator=gen, device=dev)
+                    * 0.5 + 0.5, 1.0)
+    g = torch.randn((b, S, w), generator=gen, device=dev) * mask
+    h0 = torch.randn((b, w), generator=gen, device=dev)
+    row = _scan_case("linear_scan", f"rgemma wave [{b},{S}] w {w}, ragged "
+                     f"{tuple(lens.tolist())}", linear_scan,
+                     ref.linear_scan_ref, (a, g, h0),
+                     4 * (3 * b * S * w + 2 * b * w), 2 * b * S * w)
+    return {"name": "linear_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/time_scan.cu",
+            "replaces": "src/repro/models/ssm.py:215 (the lax.scan step of "
+                        "_rglru_scan; not a Pallas site)",
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound": row["bound"],
+            "library_ms": None,
+            "bitwise_equal_to_addcmul": row["bitwise_equal_to_plain"],
+            "shape": row["case"] + "; no single torch call computes it",
+            "cases": [row]}
+
+
+def check_scan_launches(serve: dict, name: str, layers: int) -> None:
+    """A scan kernel launched once a recurrent layer for every wave and
+    decode step the runner ran, in the serve and in its graphs-off
+    twin."""
+    for rec in (serve, serve.get("off")):
+        if rec is None:
+            continue
+        steps = rec["runner_steps"]
+        want = layers * (steps["wave"] + steps["decode"])
+        if rec["launches"][name] != want or not want:
+            raise AssertionError(
+                f"serve {rec['label']}: {rec['launches'][name]} {name} "
+                f"launches, want {layers} x the runner's waves and decode "
+                f"steps {steps} = {want}")
+
+
+def mamba_memory(params) -> None:
+    """Set a falcon-mamba tree (stacked layers, before quantizing) to
+    MAMBA_MEMORY in place: its state then carries and moves the
+    logits."""
+    import math
+    ssm = params["layers"]["ssm"]
+    ssm["dt_bias"].fill_(MAMBA_MEMORY["dt_bias"])
+    ssm["A_log"].fill_(math.log(-MAMBA_MEMORY["A"]))
+    ssm["out_proj"].mul_(MAMBA_MEMORY["out_proj_scale"])
+
+
+def _rel(got, want) -> float:
+    """Largest error over the reference's RMS."""
+    rms = want.pow(2).mean().sqrt().item()
+    return (got - want).abs().max().item() / rms if rms else float("inf")
+
+
+def phase_ssm_model(dev: str = "cuda", ref_dev: str = "cpu",
+                    reduced: bool = False) -> dict:
+    """falcon-mamba-7b at full width cut to MAMBA_MODEL's layers, in f32
+    with dense weights on MAMBA_MEMORY's init and in bf16 with rtn-int4
+    weights on the served init: the same params and tokens through
+    ``T.prefill``
+    and teacher-forced ``T.decode_step``s on ``dev`` and on ``ref_dev``.
+    Every step's logits within MAMBA_TOL of the dtype; ``ssm_h`` and
+    ``ssm_conv`` after the wave and at the end within MAMBA_STATE_TOL of
+    their RMS.  Two controls on ``ref_dev`` show that the checks can
+    fail: the state one decode step stale must miss MAMBA_STATE_TOL, and
+    the last step's logits from a zero state must miss MAMBA_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import tree_to
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantize import quantize_params_rtn
+    mm = MAMBA_MODEL
+    base = get_reduced(MAMBA) if reduced else get_config(MAMBA)
+    rng = np.random.default_rng(0)
+    B, lens, n = mm["slots"], np.array(mm["lens"], np.int32), mm["steps"]
+    S = int(lens.max())
+    toks = rng.integers(0, base.vocab_size, (B, S + n)).astype(np.int32)
+    out = {}
+    for dtype, quant, memory in MAMBA_MODEL_RUNS:
+        t0 = time.perf_counter()
+        cfg = base.replace(num_layers=mm["layers"], dtype=dtype)
+        params = T.init_params(cfg, 1, ref_dev)
+        if memory:
+            mamba_memory(params)
+        if quant:
+            params = quantize_params_rtn(params, cfg, GS)
+        res = {}
+        with torch.no_grad():
+            for d in (ref_dev, dev):
+                p = T.split_layers(T.cast_params(tree_to(params, d),
+                                                 T.act_dtype(cfg)))
+                st = T.make_decode_state(cfg, B, 8, 2, device=d)
+                logits, st = T.prefill(cfg, p, st, {
+                    "tokens": torch.from_numpy(toks[:, :S]).to(d),
+                    "ctx_lens": torch.from_numpy(lens).to(d)})
+                steps = [logits.float().cpu()]
+                wave = (st["ssm_h"].cpu(), st["ssm_conv"].float().cpu())
+                for t in range(n):
+                    pos = lens + t
+                    st["seq_lens"] = torch.from_numpy(pos + 1).to(d)
+                    last = torch.from_numpy(toks[np.arange(B), pos]).to(d)
+                    prev = st
+                    logits, st = T.decode_step(cfg, p, dict(prev), last)
+                    steps.append(logits.float().cpu())
+                res[d] = (torch.stack(steps), *wave, st["ssm_h"].cpu(),
+                          st["ssm_conv"].float().cpu())
+                if d == ref_dev:
+                    stale = (prev["ssm_h"].cpu(),
+                             prev["ssm_conv"].float().cpu())
+                    zeroed, _ = T.decode_step(cfg, p, dict(
+                        prev, ssm_h=torch.zeros_like(prev["ssm_h"]),
+                        ssm_conv=torch.zeros_like(prev["ssm_conv"])), last)
+                    zeroed = zeroed.float().cpu()
+                del p, st, prev
+        del params
+        (l0, hw0, cw0, h0, c0), (l1, hw1, cw1, h1, c1) = res[ref_dev], \
+            res[dev]
+        tol, stol = MAMBA_TOL[dtype], MAMBA_STATE_TOL[dtype]
+        r = {"quant": quant, "memory_init": memory,
+             "logit_max_abs_err": (l1 - l0).abs().max().item(),
+             "max_abs_logit": l0.abs().max().item(),
+             "ssm_h_rel_err": max(_rel(hw1, hw0), _rel(h1, h0)),
+             "ssm_conv_rel_err": max(_rel(cw1, cw0), _rel(c1, c0)),
+             "ssm_h_max_abs_err": max((hw1 - hw0).abs().max().item(),
+                                      (h1 - h0).abs().max().item()),
+             "max_abs_ssm_h": h0.abs().max().item(),
+             "ssm_conv_max_abs_err": max((cw1 - cw0).abs().max().item(),
+                                         (c1 - c0).abs().max().item()),
+             "greedy_agreement": float((l1.argmax(-1) == l0.argmax(-1))
+                                       .float().mean()),
+             "control_stale_ssm_h_rel": _rel(stale[0], h0),
+             "control_stale_ssm_conv_rel": _rel(stale[1], c0),
+             "control_zero_state_logit_change":
+                 (zeroed - l0[-1]).abs().max().item(),
+             "tolerance": tol, "state_tolerance": stol,
+             "seconds": time.perf_counter() - t0}
+        out[dtype] = r
+        sound = (r["logit_max_abs_err"] <= tol
+                 and r["ssm_h_rel_err"] <= stol
+                 and r["ssm_conv_rel_err"] <= stol
+                 and bool(torch.isfinite(l1).all()))
+        seen = (r["control_stale_ssm_h_rel"] > stol
+                and r["control_stale_ssm_conv_rel"] > stol
+                and r["control_zero_state_logit_change"] > tol)
+        if not (sound and seen):
+            raise AssertionError(f"mamba model {dtype}: card vs CPU within "
+                                 f"the limits {sound}, controls past them "
+                                 f"{seen}: {r}")
+    out.update(config=base.name, layers=mm["layers"],
+               prompt_lens=list(mm["lens"]), decode_steps=n,
+               memory=MAMBA_MEMORY)
+    return out
+
+
+def serve_ssm(kernels, dev: str = "cuda", reduced: bool = False) -> tuple:
+    """Full-depth falcon-mamba-7b, ``LLM.load`` with ``rtn-int4`` on the
+    engine's defaults (a Mamba stack cannot chunk: whole-prompt waves on
+    the synchronous engine, no block table on the device), serving
+    ``serve_prompts``' traffic unchanged, graphs on and off, profiled on
+    the card; ``selective_scan`` once a layer for every wave and decode
+    step; every served token held to teacher forcing.  Returns (the LLM,
+    the serve's record, the teacher-forced record); the caller closes the
+    LLM."""
+    import torch
+    from repro_torch.serving import LLM
+    card = dev != "cpu"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM.load(MAMBA, quant="rtn-int4", seed=0, device=dev,
+                   reduced=reduced)
+    if card:
+        torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() if card else None
+    eng = llm.engine
+    log(f"[serve] {MAMBA} rtn-int4 loaded in {load_s:.2f} s (init and RTN "
+        f"a layer at a time {llm.load_s.get('init', 0.0):.2f} s), peak "
+        f"{load_peak} B; engine chunked={eng.chunked} "
+        f"async_step={eng.async_step} ring_only={eng.scheduler.ring_only}")
+    if eng.chunked or eng.async_step or eng.scheduler.ring_only \
+            or "block_table" in eng.runner.state:
+        raise AssertionError(f"{MAMBA}: a Mamba stack must run whole-prompt "
+                             "waves, synchronous, without a device block "
+                             f"table (chunked={eng.chunked}, async_step="
+                             f"{eng.async_step}, state "
+                             f"{sorted(eng.runner.state)})")
+    # on the CPU the plain versions run and no counter moves
+    must, never = MAMBA_KERNELS if card else ((), ())
+    serve = phase_serve(dev, config=MAMBA, kernels=kernels,
+                        label="mamba-defaults", options={}, must=must,
+                        never=never, profile=card, llm=llm, graphs_off=True,
+                        state_keys=("ssm_h", "ssm_conv"))
+    serve["load_s"], serve["load_max_memory_allocated"] = load_s, load_peak
+    if card:
+        check_scan_launches(serve, "selective_scan", llm.cfg.num_layers)
+    tf = teacher_forced(llm, serve_prompts(llm.cfg.vocab_size),
+                        serve["tokens"], ring_blocks=None)
+    return llm, serve, tf
+
+
+def state_effect(llm) -> dict:
+    """How far the served model's next-token logits move with its
+    recurrent state: a wave of serve_prompts' first two prompts, then one
+    decode step from the wave's ``ssm_h`` / ``ssm_conv`` and the same
+    step from zeros; the largest logit change beside the logits' scale,
+    and the share of rows whose greedy token moved: the served tokens see
+    a state fault only where it moves a token (the serve's state itself
+    is held graphs on against off)."""
+    import torch
+    from repro_torch.models import transformer as T
+    cfg, runner = llm.cfg, llm.engine.runner
+    dev = runner.device
+    prompts = serve_prompts(cfg.vocab_size)[:2]
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
+                        device=dev)
+    toks = torch.zeros((len(prompts), int(lens.max())), dtype=torch.int32,
+                       device=dev)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    with torch.no_grad():
+        st = T.make_decode_state(cfg, len(prompts), 8, 2, device=dev)
+        logits, st = T.prefill(cfg, runner.params, st,
+                               {"tokens": toks, "ctx_lens": lens})
+        nxt = logits.argmax(-1).int()
+        st["seq_lens"] = lens + 1
+        kept, _ = T.decode_step(cfg, runner.params, dict(st), nxt)
+        zeroed, _ = T.decode_step(cfg, runner.params, dict(
+            st, ssm_h=torch.zeros_like(st["ssm_h"]),
+            ssm_conv=torch.zeros_like(st["ssm_conv"])), nxt)
+    return {"max_abs_logit_change": (kept - zeroed).abs().max().item(),
+            "max_abs_logit": kept.abs().max().item(),
+            "argmax_moved_share": (kept.argmax(-1) != zeroed.argmax(-1))
+            .float().mean().item(),
+            "next_token_is_last_input": (nxt == toks[torch.arange(
+                len(prompts)), lens.long() - 1]).float().mean().item()}
+
+
+def phase_ssm(report: dict, gen, kernels) -> list:
+    """Phase 9 on the card: the time-scan kernel's two entry points
+    (``selective_scan`` at falcon-mamba's wave and decode, ``linear_scan``
+    at recurrentgemma's wave), ``gptq_matmul`` at falcon-mamba's
+    in_proj / out_proj (decode and the wave's rows), the 2-layer
+    full-width model card vs CPU (f32 and bf16 int4), then full-depth
+    falcon-mamba-7b with ``rtn-int4`` served on the engine's defaults,
+    graphs on and off, profiled: 0 pageable copies, no attention kernel,
+    ``selective_scan`` 64 times a wave and a decode step, the state after
+    the serve equal on and off, every served token held to teacher
+    forcing, a zero state moving the logits past STATE_EFFECT_MIN; one
+    wave's time split.  Returns the kernel checks."""
+    import torch
+    r = report["ssm"] = {}
+    t_phase = time.perf_counter()
+    checks = [check_selective_scan(gen), check_linear_scan(gen)]
+    g = check_gptq_matmul(
+        gen, shapes=MAMBA_GPTQ_SHAPES, main_shape=("in_proj", 8),
+        shape="x[8,4096] @ int4[4096,16384] gs 32 (in_proj, decode)",
+        library_max_m=8192)
+    g["label"] = "gptq_matmul[mamba]"
+    checks.append(g)
+    for k in checks:
+        lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        log(f"[kernel] {k.get('label', k['name'])}: kernel_ms={k['ms']:.4f} "
+            f"plain_ms={k['plain_ms']:.4f} library_ms={lib} "
+            f"bound_ms={k['bound'][0]:.5f} ({k['bound'][1]}) "
+            f"max_abs_err={k['max_abs_err']:.3e} [{k['shape']}]")
+    log(f"[kernel] linear_scan bitwise equal to one addcmul a step: "
+        f"{checks[1]['bitwise_equal_to_addcmul']}")
+    r["kernels"] = checks
+    r["model"] = res = phase_ssm_model()
+    log(f"[model] {MAMBA_MODEL['layers']}-layer full-width {MAMBA} card vs "
+        f"CPU: {json.dumps(res)}")
+    log_time("ssm model")
+
+    llm, serve, tf = serve_ssm(kernels)
+    r["serve"] = {serve["label"]: serve}
+    r["teacher_forced"] = tf
+    log_serve(serve["label"], serve, "rtn-int4")
+    if serve["profile"]["pageable_copies"]:
+        raise AssertionError("mamba serve: pageable memcpys under the "
+                             "profiler (want 0)")
+    if not teacher_ok(tf):
+        raise AssertionError(f"mamba: served tokens against teacher forcing "
+                             f"(agreement >= {TEACHER_AGREEMENT}, gap <= "
+                             f"{TEACHER_GAP}): {tf}")
+    r["state_effect"] = se = state_effect(llm)
+    log(f"[ssm] the served model's logits with its state against a zero "
+        f"state: {json.dumps(se)}; the state after the serve with graphs "
+        f"on against off: {json.dumps(serve['state_on_off'])}")
+    if not se["max_abs_logit_change"] > STATE_EFFECT_MIN:
+        raise AssertionError(f"mamba: a zero state moves the served model's "
+                             f"logits by {se['max_abs_logit_change']} (want "
+                             f"> {STATE_EFFECT_MIN}): the decode step does "
+                             "not read its state")
+    r["wave_split"] = ws = wave_split(llm, MAMBA_WAVE)
+    state = llm.engine.runner.state
+    r["state_bytes"] = {k: state[k].numel() * state[k].element_size()
+                        for k in ("ssm_h", "ssm_conv")}
+    llm.close()
+    del llm
+    torch.cuda.empty_cache()
+    log(f"[serve] {serve['label']}: 0 pageable memcpys; no KV pool; state "
+        f"{json.dumps(r['state_bytes'])} B; selective_scan "
+        f"{serve['launches']['selective_scan']} launches over runner steps "
+        f"{json.dumps(serve['runner_steps'])}; teacher forcing over all "
+        f"{tf['tokens']} tokens: agreement {tf['agreement']:.3f} (by "
+        f"request {json.dumps(tf['agreement_by_request'])}), logit gap max "
+        f"{tf['max_gap']:.4f} mean {tf['mean_gap']:.5f}")
+    log(f"[wave] one wave {ws['wave']}: {ws['ms']:.1f} ms between events, "
+        f"{ws['device_busy_ms']:.1f} ms of device time: "
+        + ", ".join(f"{k} {ws['device_ms'][k]:.1f} ms "
+                    f"({ws['device_share'][k]:.3f}, "
+                    f"{ws['device_launches'][k]} launches)"
+                    for k in ws["device_ms"]))
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"[ssm] phase 9 took {r['seconds']:.1f} s")
     return checks
 
 
@@ -2857,6 +3394,8 @@ def main() -> int:
     log_time("sliding phase")
     hybrid_checks = phase_hybrid(report, gen, ops.KERNELS)
     log_time("hybrid phase")
+    ssm_checks = phase_ssm(report, gen, ops.KERNELS)
+    log_time("ssm phase")
 
     record = []
     # each check's launches come from the serves of its own phase
@@ -2866,7 +3405,12 @@ def main() -> int:
                             + [(k, report["sliding"]["serve"])
                                for k in sliding_checks]
                             + [(k, report["hybrid"]["serve"])
-                               for k in hybrid_checks]):
+                               for k in hybrid_checks]
+                            # the RG-LRU's scan runs in recurrentgemma's
+                            # serve, the selective scan in falcon-mamba's
+                            + [(k, report["hybrid" if k["name"] ==
+                                        "linear_scan" else "ssm"]["serve"])
+                               for k in ssm_checks]):
         by_serve = {lb: sv["launches"][k["name"]]
                     for lb, sv in phase_serves.items()}
         if phase_serves is serves:
@@ -2882,7 +3426,8 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
             "bound_by": k["bound"][1], "library_ms": k["library_ms"],
             "shape": k["shape"]})
-    report["kernels"] = kernels + moe_checks + sliding_checks + hybrid_checks
+    report["kernels"] = (kernels + moe_checks + sliding_checks
+                         + hybrid_checks + ssm_checks)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -19,9 +19,12 @@ from repro_torch.kernels.gptq_matmul import gptq_matmul
 from repro_torch.kernels.paged_attention import paged_attention as _paged
 from repro_torch.kernels.paged_attention_quant import (
     paged_attention_quant as _paged_quant)
+from repro_torch.kernels.time_scan import linear_scan as _linear_scan
+from repro_torch.kernels.time_scan import selective_scan as _selective_scan
 
 KERNELS = (_paged, _paged_quant, flash_attention_chunk,
-           flash_attention_chunk_int8, _flash, gptq_matmul)
+           flash_attention_chunk_int8, _flash, gptq_matmul, _selective_scan,
+           _linear_scan)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -110,3 +113,20 @@ def quant_matmul(x: torch.Tensor, params: Dict[str, torch.Tensor]
     if "bias" in params:
         y = y + params["bias"].to(y.dtype)
     return y.reshape(*lead, -1)
+
+
+def selective_scan(dt, u, B, C, A, h0):
+    """The Mamba-1 selective scan over time: dt, u [Bt, S, din], B, C
+    [Bt, S, N], A [din, N], h0 [Bt, din, N], all f32 -> (y [Bt, S, din],
+    h_last [Bt, din, N])."""
+    if _on_cuda(dt):
+        return _selective_scan(dt, u, B, C, A, h0)
+    return _ref.selective_scan_ref(dt, u, B, C, A, h0)
+
+
+def linear_scan(a, g, h0):
+    """The RG-LRU recurrence h_t = a_t h_{t-1} + g_t: a, g [Bt, S, w], h0
+    [Bt, w], all f32 -> (hs [Bt, S, w], h_last [Bt, w])."""
+    if _on_cuda(a):
+        return _linear_scan(a, g, h0)
+    return _ref.linear_scan_ref(a, g, h0)

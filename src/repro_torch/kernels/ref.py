@@ -104,3 +104,33 @@ def gptq_matmul_ref(x: torch.Tensor, qweight: torch.Tensor,
     w = (codes - zeros.repeat_interleave(gs, 0)) \
         * scales.repeat_interleave(gs, 0)
     return (x.float() @ w).to(x.dtype)
+
+
+def selective_scan_ref(dt: torch.Tensor, u: torch.Tensor, B: torch.Tensor,
+                       C: torch.Tensor, A: torch.Tensor, h0: torch.Tensor):
+    """The Mamba-1 selective scan, the JAX package's ``_ssm_inner`` step as
+    a loop over time in f32: ``h = exp(dt_t A) h + (dt_t u_t) B_t``, ``y_t
+    = sum_n h C_t``.  dt, u [Bt, S, din]; B, C [Bt, S, N]; A [din, N]; h0
+    [Bt, din, N].  Returns (y [Bt, S, din], h_last [Bt, din, N])."""
+    y = torch.empty_like(dt)
+    h = h0
+    for t in range(dt.shape[1]):
+        da = torch.exp(dt[:, t, :, None] * A[None])
+        h = da * h + (dt[:, t] * u[:, t])[..., None] * B[:, t, None, :]
+        y[:, t] = torch.einsum("bdn,bn->bd", h, C[:, t])
+    return y, h
+
+
+def linear_scan_ref(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor):
+    """The RG-LRU's recurrence ``h_t = a_t h_{t-1} + g_t`` in f32, one
+    ``addcmul`` per time step into a time-major buffer (row t contiguous).
+    a, g [Bt, S, w]; h0 [Bt, w].  Returns (hs [Bt, S, w], h_last [Bt,
+    w])."""
+    a_t = a.transpose(0, 1).contiguous()                        # [S, B, w]
+    g_t = g.transpose(0, 1).contiguous()
+    hs = torch.empty_like(a_t)
+    h = h0
+    for t in range(a_t.shape[0]):
+        torch.addcmul(g_t[t], a_t[t], h, out=hs[t])
+        h = hs[t]
+    return hs.transpose(0, 1), h

@@ -23,9 +23,10 @@ from repro_torch.core.quant import make_quant_params, pack_codes
 from repro_torch.models import transformer as T
 
 # the linears of the families the port serves (the reference's list
-# without the MoE's shared experts, refused, and Mamba's, not ported yet)
+# without the MoE's shared experts, refused); Mamba's x_proj and dt_proj
+# stay dense, as in the reference
 QUANT_TARGETS = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
-                 "w_in", "w_gate_rec", "w_out_rec"}
+                 "in_proj", "out_proj", "w_in", "w_gate_rec", "w_out_rec"}
 
 
 def require_rtn_family(cfg: ModelConfig) -> None:
@@ -77,29 +78,41 @@ def _din_for(name: str, w: torch.Tensor, cfg: ModelConfig) -> int:
         return cfg.num_heads * cfg.resolved_head_dim
     if name == "w_out_rec":
         return cfg.lru_width or cfg.d_model
+    if name == "out_proj":
+        return cfg.ssm_expand * cfg.d_model
     return cfg.d_model
 
 
-def _quantize_leaf(w: torch.Tensor, din: int, group_size: int,
-                   n_lead: int = 0) -> Dict[str, torch.Tensor]:
-    lead = tuple(w.shape[:n_lead])
+def _quantize_leaf(w: torch.Tensor, din: int,
+                   group_size: int) -> Dict[str, torch.Tensor]:
     n = 1
-    for s in w.shape[n_lead:]:
+    for s in w.shape:
         n *= s
         if n == din:
-            return _rtn_pack(w.reshape(*lead, din, -1), group_size)
+            return _rtn_pack(w.reshape(din, -1), group_size)
         if n > din:
             break
-    raise ValueError(f"cannot split {tuple(w.shape)} (lead={n_lead}) at "
-                     f"din={din}")
+    raise ValueError(f"cannot split {tuple(w.shape)} at din={din}")
 
 
 def quantize_params_rtn(params: Dict[str, Any], cfg: ModelConfig,
                         group_size: int = 128) -> Dict[str, Any]:
     """Replace every QUANT_TARGETS leaf with its int4 dict
     {qweight [.., K/8, N] i32, scales/zeros [.., K/gs, N] f32,
-    g_idx [.., K] i32}.  Refuses MoE models (ROADMAP C8)."""
+    g_idx [.., K] i32}.  Refuses MoE models (ROADMAP C8).  ``params`` may
+    be the whole tree (layer stacks under ``*layers`` keys) or one
+    layer's dict: the codes of a layer are the same either way, so
+    ``LLM.load`` quantizes each layer as it is drawn.  A stacked leaf is
+    quantized one layer at a time, so the f32 temporaries are one
+    layer's (falcon-mamba-7b's whole in_proj stack would need ~60 GB)."""
     require_rtn_family(cfg)
+
+    def leaf(k, v, stacked):
+        din = _din_for(k, v, cfg)
+        if not stacked:
+            return _quantize_leaf(v, din, group_size)
+        per = [_quantize_leaf(w, din, group_size) for w in v]
+        return {f: torch.stack([q[f] for q in per]) for f in per[0]}
 
     def walk(tree, stacked):
         out = {}
@@ -107,8 +120,7 @@ def quantize_params_rtn(params: Dict[str, Any], cfg: ModelConfig,
             if isinstance(v, dict):
                 out[k] = walk(v, stacked or k.endswith("layers"))
             elif k in QUANT_TARGETS:
-                out[k] = _quantize_leaf(v, _din_for(k, v, cfg), group_size,
-                                        n_lead=1 if stacked else 0)
+                out[k] = leaf(k, v, stacked)
             else:
                 out[k] = v
         return out

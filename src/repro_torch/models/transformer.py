@@ -1,10 +1,10 @@
-"""Decoder assembly (dense and MoE, full-attention or sliding-window, and
-the hybrid of RG-LRU and sliding-window layers): init / the plain
-full-sequence forward / decode state / whole-prompt prefill (into the
-paged pool, or the ring cache of a sliding layer, and the per-sequence
-recurrent state of an RG-LRU layer) / decode step / megastep / prefill
-chunk / unified step, and its variant chained on the device for the
-async engine.
+"""Decoder assembly (dense and MoE, full-attention or sliding-window, the
+hybrid of RG-LRU and sliding-window layers, and the attention-free
+Mamba-1 stack): init / the plain full-sequence forward / decode state /
+whole-prompt prefill (into the paged pool, or the ring cache of a
+sliding layer, and the per-sequence recurrent state of an RG-LRU or
+Mamba layer) / decode step / megastep / prefill chunk / unified step,
+and its variant chained on the device for the async engine.
 
 The JAX package scans over layer-stacked params with ``lax.scan``; here a
 Python loop walks the layers.  The params keep the JAX layout at the
@@ -14,7 +14,8 @@ axis) for a homogeneous stack, per-kind stacks ``rec_layers`` and
 and index).  The serving runner may pre-split the stacks into lists of
 per-layer dicts once (``split_layers``), which every function here
 accepts too.  The paged pools are updated in place; the recurrent state
-(``lru_h``, ``rec_conv``) comes back from each step as new tensors.
+(``lru_h``, ``rec_conv``; a Mamba stack's ``ssm_h``, ``ssm_conv``) comes
+back from each step as new tensors.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ from repro_torch.models.layers import (apply_norm, embed_init, linear,
                                        unembed)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import (rglru_apply, rglru_decode, rglru_init,
-                                    rglru_prefill)
+                                    rglru_prefill, ssm_apply, ssm_decode,
+                                    ssm_init, ssm_prefill)
 
 Params = Dict[str, Any]
 
@@ -54,7 +56,8 @@ def _layer_kinds(cfg: ModelConfig) -> set:
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
     """Chunked serving prefill needs every layer's state in the paged pool:
     homogeneous full-attention stacks.  A sliding-window stack keeps a
-    ring per sequence, which a chunk cannot re-enter mid-prompt, so it is
+    ring per sequence, and a recurrent or Mamba layer a state per
+    sequence, which a chunk cannot re-enter mid-prompt, so they are
     served through whole-prompt waves, as in the reference."""
     return _layer_kinds(cfg) == {"full"} and not cfg.is_encoder
 
@@ -64,30 +67,32 @@ def supports_chunked_prefill(cfg: ModelConfig) -> bool:
 PORTED_FAMILIES = {"dense": (False, ({"full"}, {"sliding"})),
                    "moe": (True, ({"full"}, {"sliding"})),
                    "hybrid": (False, ({"recurrent", "sliding"},
-                                      {"recurrent"}))}
+                                      {"recurrent"})),
+                   "ssm": (False, ({"ssm"},))}
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     """Dense and MoE decoders whose layers are all full attention or all
-    sliding-window attention, and the hybrid of RG-LRU and sliding-window
-    layers, are served; other families raise."""
+    sliding-window attention, the hybrid of RG-LRU and sliding-window
+    layers and the Mamba-1 stack are served; other families raise."""
     experts, kinds = PORTED_FAMILIES.get(cfg.family, (None, ()))
     if experts != bool(cfg.num_experts) or _layer_kinds(cfg) not in kinds \
             or cfg.is_encoder:
         raise NotImplementedError(
             f"{cfg.name}: only dense and MoE decoders of full-attention or "
-            "sliding-window layers and the RG-LRU hybrid are ported to "
-            "repro_torch so far (ROADMAP A11: other model families)")
+            "sliding-window layers, the RG-LRU hybrid and the Mamba-1 stack "
+            "are ported to repro_torch so far (ROADMAP A11: other model "
+            "families)")
 
 
 @functools.lru_cache(maxsize=64)
 def layer_plan(cfg: ModelConfig) -> Tuple[Tuple[str, str, int], ...]:
     """(kind, stack, index) of each layer.  A homogeneous stack's layer i
-    is ``params["layers"]`` row i and pool layer i.  A hybrid's layers
-    are split by kind into ``rec_layers`` and ``attn_layers`` (as the
-    reference's ``init_params``), and the index counts within the kind:
-    an attention layer's row of the paged pool, a recurrent layer's row of
-    ``lru_h`` / ``rec_conv``."""
+    is ``params["layers"]`` row i and pool (or ``ssm_h``) layer i.  A
+    hybrid's layers are split by kind into ``rec_layers`` and
+    ``attn_layers`` (as the reference's ``init_params``), and the index
+    counts within the kind: an attention layer's row of the paged pool,
+    a recurrent layer's row of ``lru_h`` / ``rec_conv``."""
     kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
     if len(set(kinds)) == 1:
         return tuple((k, "layers", i) for i, k in enumerate(kinds))
@@ -101,7 +106,7 @@ def layer_plan(cfg: ModelConfig) -> Tuple[Tuple[str, str, int], ...]:
 
 
 def attn_layer_count(cfg: ModelConfig) -> Tuple[int, int]:
-    """(#attention layers, #recurrent layers)."""
+    """(#attention layers, #recurrent (RG-LRU or Mamba) layers)."""
     na = sum(k in ("full", "sliding") for k, _, _ in layer_plan(cfg))
     return na, cfg.num_layers - na
 
@@ -110,8 +115,8 @@ def _require_chunkable(cfg: ModelConfig) -> None:
     if not supports_chunked_prefill(cfg):
         raise NotImplementedError(
             f"{cfg.name}: chunked prefill needs a full-attention stack; "
-            "sliding-window stacks prefill whole prompts, as in the "
-            "reference")
+            "sliding-window, recurrent and Mamba stacks prefill whole "
+            "prompts, as in the reference")
 
 
 # --------------------------------------------------------------------------
@@ -126,6 +131,9 @@ def _stack(trees):
 
 def init_layer(gen: Optional[torch.Generator], cfg: ModelConfig, device,
                kind: str = "full") -> Params:
+    if kind == "ssm":                    # the mixer alone: no MLP
+        return {"attn_norm": norm_init(cfg.d_model, cfg.norm, device),
+                "ssm": ssm_init(gen, cfg, device)}
     p: Params = {"attn_norm": norm_init(cfg.d_model, cfg.norm, device),
                  "mlp_norm": norm_init(cfg.d_model, cfg.norm, device)}
     if kind == "recurrent":
@@ -140,14 +148,18 @@ def init_layer(gen: Optional[torch.Generator], cfg: ModelConfig, device,
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
-                dtype: Optional[torch.dtype] = None) -> Params:
+                dtype: Optional[torch.dtype] = None,
+                layer_fn: Optional[Callable[[Params], Params]] = None
+                ) -> Params:
     """Random params from ``seed`` in the JAX package's layout (the
     numbers differ from ``jax.random``'s; tests bridge JAX params
     instead): f32, or with ``dtype`` every weight but the norms cast to
     it as it is drawn.  Each layer is drawn, cast and copied into
     preallocated layer stacks before the next, so a load peaks near the
     stored size plus one f32 layer (qwen2-moe in bf16: 28.6 GB, not the
-    57 GB of an all-f32 tree).  ``device="meta"`` gives the shapes
+    57 GB of an all-f32 tree).  ``layer_fn``, if given, transforms each
+    drawn (and cast) layer before it is stored, as ``LLM.load`` quantizes
+    each layer to int4 as it is drawn.  ``device="meta"`` gives the shapes
     only.  A hybrid draws its layers in model order from the one seeded
     generator into the per-kind stacks (the reference folds
     ``hash(stack name)`` into each stack's key, which Python salts per
@@ -173,6 +185,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         layer = init_layer(gen, cfg, dev, kind)
         if dtype is not None:
             layer = cast_params(layer, dtype)
+        if layer_fn is not None:
+            layer = layer_fn(layer)
         if stack not in params:
             params[stack] = _map(lambda t: torch.empty(
                 (sizes[stack], *t.shape), dtype=t.dtype, device=dev),
@@ -229,14 +243,17 @@ def _layer(params: Params, i: int, cfg: Optional[ModelConfig] = None
 
 
 # leaves the model reads in f32 whatever the activation dtype: the RG-LRU's
-# decay parameter always, its conv taps in decode (cast only in prefill)
-_F32_LEAVES = ("a_param", "conv_w")
+# decay parameter always, its and Mamba's conv taps in decode (cast only in
+# prefill), and Mamba's A_log (A = -exp(A_log) in f32), conv bias (added
+# in f32 in decode), dt_bias and D (cast at each use, as the reference
+# does: kept f32, they give its numbers in every dtype)
+_F32_LEAVES = ("a_param", "conv_w", "A_log", "conv_b", "dt_bias", "D")
 
 
 def keeps_dtype(path: str) -> bool:
     """``cast_params``'s rule for the leaf at a dotted ``path`` (or under a
     key): norm weights stay f32, since the norms read them in f32, and so
-    do the RG-LRU's ``a_param`` and ``conv_w``."""
+    do the leaves of ``_F32_LEAVES``."""
     keys = path.split(".")
     return any(k.endswith("norm") for k in keys) or keys[-1] in _F32_LEAVES
 
@@ -273,6 +290,8 @@ def apply_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor, kind: str,
     h = apply_norm(lp["attn_norm"], x, cfg.norm, cfg.norm_eps)
     if tap is not None:
         tap("attn", h)
+    if kind == "ssm":                    # the mixer alone: no MLP
+        return x + ssm_apply(cfg, lp["ssm"], h)
     if kind == "recurrent":
         x = x + rglru_apply(cfg, lp["rec"], h)
     else:
@@ -324,13 +343,15 @@ def make_decode_state(cfg: ModelConfig, max_seqs: int, num_blocks: int,
                       max_blocks_per_seq: int, dtype=None,
                       kv_cache_dtype: Optional[str] = None,
                       device="cuda") -> Dict[str, torch.Tensor]:
-    """seq_lens [B] i32, block_table [B, MB] i32 and the (k, v) pools
-    [L, NB, BS, KV, D] over the L attention layers: of ``dtype`` (the
-    activation dtype by default), or with ``kv_cache_dtype="int8"`` int8
-    values plus the (k, v) scale pools [L, NB, KV] f32 (full-attention
-    layers only, as in the reference).  A hybrid adds each recurrent
-    layer's per-slot state: ``lru_h`` [nr, B, w] f32 and ``rec_conv``
-    [nr, B, w, 3] of the pool dtype."""
+    """seq_lens [B] i32 and, when the model has L > 0 attention layers,
+    block_table [B, MB] i32 and the (k, v) pools [L, NB, BS, KV, D]: of
+    ``dtype`` (the activation dtype by default), or with
+    ``kv_cache_dtype="int8"`` int8 values plus the (k, v) scale pools [L,
+    NB, KV] f32 (full-attention layers only, as in the reference).  A
+    hybrid adds each recurrent layer's per-slot state: ``lru_h`` [nr, B,
+    w] f32 and ``rec_conv`` [nr, B, w, 3] of ``dtype``.  A Mamba stack
+    has no pool and no table, only its per-slot state: ``ssm_h`` [L, B,
+    din, N] f32 and ``ssm_conv`` [L, B, din, W-1] of ``dtype``."""
     _require_ported(cfg)
     kv_mode = normalize_kv_cache_dtype(kv_cache_dtype)
     na, nr = attn_layer_count(cfg)
@@ -347,18 +368,27 @@ def make_decode_state(cfg: ModelConfig, max_seqs: int, num_blocks: int,
             "overwrite pattern defeats per-block scale tracking")
     dev = resolve_device(device)
     dtype = dtype if dtype is not None else act_dtype(cfg)
-    dims = (na, num_blocks, cfg.paging.block_size,
-            cfg.num_kv_heads, cfg.resolved_head_dim)
-    st = {"seq_lens": torch.zeros(max_seqs, dtype=torch.int32, device=dev),
-          "block_table": torch.zeros((max_seqs, max_blocks_per_seq),
-                                     dtype=torch.int32, device=dev)}
-    if kv_mode == "int8":
-        kp, vp, ks, vs = make_kv_pool_quant(*dims, device=dev)
-        st.update(k_scales=ks, v_scales=vs)
-    else:
-        kp, vp = make_kv_pool(*dims, dtype, dev)
-    st.update(k_pool=kp, v_pool=vp)
-    if nr:
+    st = {"seq_lens": torch.zeros(max_seqs, dtype=torch.int32, device=dev)}
+    if na:
+        dims = (na, num_blocks, cfg.paging.block_size,
+                cfg.num_kv_heads, cfg.resolved_head_dim)
+        st["block_table"] = torch.zeros((max_seqs, max_blocks_per_seq),
+                                        dtype=torch.int32, device=dev)
+        if kv_mode == "int8":
+            kp, vp, ks, vs = make_kv_pool_quant(*dims, device=dev)
+            st.update(k_scales=ks, v_scales=vs)
+        else:
+            kp, vp = make_kv_pool(*dims, dtype, dev)
+        st.update(k_pool=kp, v_pool=vp)
+    if cfg.family == "ssm":
+        din = cfg.ssm_expand * cfg.d_model
+        st["ssm_h"] = torch.zeros((cfg.num_layers, max_seqs, din,
+                                   cfg.ssm_state), dtype=torch.float32,
+                                  device=dev)
+        st["ssm_conv"] = torch.zeros((cfg.num_layers, max_seqs, din,
+                                      cfg.ssm_conv - 1), dtype=dtype,
+                                     device=dev)
+    elif nr:
         w = cfg.lru_width or cfg.d_model
         st["lru_h"] = torch.zeros((nr, max_seqs, w), dtype=torch.float32,
                                   device=dev)
@@ -383,7 +413,9 @@ def prefill(cfg: ModelConfig, params: Params, state: Dict[str, torch.Tensor],
     set to ctx_lens.  Full-attention layers write the paged pool,
     sliding-window layers their ring (``attn_prefill_ring``), RG-LRU
     layers return the wave's rows of ``lru_h`` / ``rec_conv`` (the state
-    at each row's ctx_len) as new tensors [nr, B, ...].  The
+    at each row's ctx_len) as new tensors [nr, B, ...], Mamba layers
+    those of ``ssm_h`` / ``ssm_conv`` [L, B, ...] (a Mamba stack has no
+    pool and no ``block_table``).  The
     ``rt["prefill_chunk"]`` variant (chunks read back from the pool) is
     not ported (ROADMAP A3)."""
     _require_ported(cfg)
@@ -395,13 +427,19 @@ def prefill(cfg: ModelConfig, params: Params, state: Dict[str, torch.Tensor],
     x = params["embed"][tokens.long()].to(act_dtype(cfg))        # [B, S, d]
     state = dict(state)
     state["seq_lens"] = ctx_lens
-    cache = cache_from_state(state)
+    cache = cache_from_state(state) if "k_pool" in state else None
     mask = torch.arange(x.shape[1], device=x.device)[None, :] \
         < ctx_lens.long()[:, None]
-    lru_h, rec_conv = [], []
+    lru_h, rec_conv, ssm_h, ssm_conv = [], [], [], []
     for li, (kind, _, j) in enumerate(layer_plan(cfg)):
         lp = _layer(params, li, cfg)
         hn = apply_norm(lp["attn_norm"], x, cfg.norm, cfg.norm_eps)
+        if kind == "ssm":
+            mix, h, conv = ssm_prefill(cfg, lp["ssm"], hn, mask, ctx_lens)
+            ssm_h.append(h)
+            ssm_conv.append(conv.to(state["ssm_conv"].dtype))
+            x = x + mix
+            continue
         if kind == "recurrent":
             mix, h, conv = rglru_prefill(cfg, lp["rec"], hn, mask, ctx_lens)
             lru_h.append(h)
@@ -414,10 +452,10 @@ def prefill(cfg: ModelConfig, params: Params, state: Dict[str, torch.Tensor],
         x = x + mix
         hn = apply_norm(lp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
         x = x + ffn(cfg, lp, hn)
-    state.update(cache_to_state(cache))
-    if lru_h:
-        state["lru_h"] = torch.stack(lru_h)
-        state["rec_conv"] = torch.stack(rec_conv)
+    if cache is not None:
+        state.update(cache_to_state(cache))
+    _stack_states(state, lru_h=lru_h, rec_conv=rec_conv, ssm_h=ssm_h,
+                  ssm_conv=ssm_conv)
     idx = (ctx_lens.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
     return _final_logits(cfg, params, x.gather(1, idx)[:, 0]), state
 
@@ -471,16 +509,24 @@ def decode_step(cfg: ModelConfig, params: Params,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step for every slot.  tokens [B]: the last token per
     slot; state["seq_lens"] already counts it (0 = inactive slot, its KV
-    write is dropped).  RG-LRU layers step every slot's ``lru_h`` /
-    ``rec_conv`` row, as the reference does, and return them as new
-    tensors.  Returns (logits [B, V] f32, state)."""
+    write is dropped).  RG-LRU and Mamba layers step every slot's state
+    row (``lru_h`` / ``rec_conv``, ``ssm_h`` / ``ssm_conv``), as the
+    reference does, and return them as new tensors.  Returns (logits [B,
+    V] f32, state)."""
     x = params["embed"][tokens.long()].to(act_dtype(cfg))          # [B, d]
     seq_lens = state["seq_lens"]
-    cache = cache_from_state(state)
-    lru_h, rec_conv = [], []
+    cache = cache_from_state(state) if "k_pool" in state else None
+    lru_h, rec_conv, ssm_h, ssm_conv = [], [], [], []
     for li, (kind, _, j) in enumerate(layer_plan(cfg)):
         lp = _layer(params, li, cfg)
         hn = apply_norm(lp["attn_norm"], x, cfg.norm, cfg.norm_eps)
+        if kind == "ssm":
+            mix, h, conv = ssm_decode(cfg, lp["ssm"], hn, state["ssm_h"][j],
+                                      state["ssm_conv"][j])
+            ssm_h.append(h)
+            ssm_conv.append(conv)
+            x = x + mix
+            continue
         if kind == "recurrent":
             mix, h, conv = rglru_decode(cfg, lp["rec"], hn,
                                         state["lru_h"][j],
@@ -496,11 +542,19 @@ def decode_step(cfg: ModelConfig, params: Params,
         hn = apply_norm(lp["mlp_norm"], x, cfg.norm, cfg.norm_eps)
         x = x + ffn(cfg, lp, hn[:, None])[:, 0]        # the [B, 1, d] route
     state = dict(state)
-    state.update(cache_to_state(cache))
-    if lru_h:
-        state["lru_h"] = torch.stack(lru_h)
-        state["rec_conv"] = torch.stack(rec_conv)
+    if cache is not None:
+        state.update(cache_to_state(cache))
+    _stack_states(state, lru_h=lru_h, rec_conv=rec_conv, ssm_h=ssm_h,
+                  ssm_conv=ssm_conv)
     return _final_logits(cfg, params, x), state
+
+
+def _stack_states(state: Dict[str, torch.Tensor], **rows) -> None:
+    """Each per-layer list of recurrent state rows that a step filled,
+    stacked into ``state`` as a new tensor [layers, B, ...]."""
+    for name, per_layer in rows.items():
+        if per_layer:
+            state[name] = torch.stack(per_layer)
 
 
 def _sample(logits, sampling: Dict[str, Any], counts, guard):

@@ -196,7 +196,8 @@ class ServingEngine:
         ring_only = bool(cfg.sliding_window) and not any(
             cfg.layer_kind(i) == "full" for i in range(cfg.num_layers))
         # chunked prefill needs every layer's prefill state to live in the
-        # paged pool; ring stacks keep the whole-prompt path
+        # paged pool; ring, recurrent and Mamba stacks keep the
+        # whole-prompt path (and with it the synchronous step)
         self.chunked = bool(enable_chunked_prefill) \
             and T.supports_chunked_prefill(cfg)
         alloc = BlockAllocator(

@@ -105,7 +105,11 @@ class LLM:
         "int8" (int8 values plus one f32 scale per block and KV head).
         MoE configs serve with ``quant=None`` only: the reference refuses
         ``gptq-int4`` for them and cannot serve its ``rtn-int4`` (ROADMAP
-        C8), so both raise ``ValueError`` before anything is loaded.
+        C8), so both raise ``ValueError`` before anything is loaded; the
+        hybrid and Mamba families take ``rtn-int4`` and refuse
+        ``gptq-int4``, as the reference.  A seeded ``rtn-int4`` load
+        quantizes each layer as it is drawn (``load_s["init"]`` covers
+        both).
         reduced: the tiny same-family CPU config.  overrides:
         ``ModelConfig.replace`` fields applied after config resolution.
         checkpoint: a directory the JAX package's ``Checkpointer`` wrote;
@@ -142,17 +146,26 @@ class LLM:
         # them so from the start (a bf16 qwen2-moe peaks near its 28.6 GB)
         dtype = T.act_dtype(cfg) if quant is None else None
         t0 = time.perf_counter()
+        rtn_as_drawn = quant == "rtn-int4" and checkpoint is None
         if checkpoint is not None:
             params = restore_params(checkpoint,
                                     T.init_params(cfg, device="meta"), dev,
                                     dtype)
         else:
-            params = T.init_params(cfg, seed, dev, dtype=dtype)
+            # rtn-int4 quantizes each layer as it is drawn (the same codes
+            # as the whole tree's): the load never holds the f32 tree
+            # (falcon-mamba-7b: 28 GB); a restored tree is quantized a
+            # layer at a time after the restore
+            params = T.init_params(
+                cfg, seed, dev, dtype=dtype,
+                layer_fn=(lambda layer: quantize_params_rtn(
+                    layer, cfg, group_size=quant_group_size))
+                if rtn_as_drawn else None)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         load_s = {"restore" if checkpoint is not None else "init":
                   time.perf_counter() - t0}
-        if quant == "rtn-int4":
+        if quant == "rtn-int4" and not rtn_as_drawn:
             params = quantize_params_rtn(params, cfg,
                                          group_size=quant_group_size)
         elif quant == "gptq-int4":

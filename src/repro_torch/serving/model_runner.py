@@ -2,7 +2,9 @@
 functions.
 
 Owns the paged KV pools (bf16, or int8 with their scales; updated in
-place) and a hybrid's per-slot recurrent state, the unified step and its
+place) and the per-slot recurrent state of a hybrid's RG-LRU layers or a
+Mamba stack (which has no pool and no block table: the host keeps its
+block bookkeeping, the device gets no table), the unified step and its
 chained variant, the decode megastep, the per-token decode, the
 standalone prefill chunk, the whole-prompt prefill wave and sampling,
 and the copy-on-write block copies.  It knows nothing about queues or
@@ -62,8 +64,9 @@ from repro_torch.serving.step_graph import (Fields, StepGraph, _unwords,
 
 # decode-state entries that are pool-shaped [L, NB, ...]
 _POOL_KEYS = ("k_pool", "v_pool", "k_scales", "v_scales")
-# per-slot recurrent state [nr, max_slots, ...] of a hybrid's RG-LRU layers
-_SLOT_KEYS = ("lru_h", "rec_conv")
+# per-slot recurrent state [layers, max_slots, ...] of a hybrid's RG-LRU
+# layers and of a Mamba stack
+_SLOT_KEYS = ("lru_h", "rec_conv", "ssm_h", "ssm_conv")
 _SAMPLING_KEYS = ("keys", "counts", "temps", "top_ks", "top_ps", "poison")
 
 
@@ -180,6 +183,9 @@ class ModelRunner:
         self.state = T.make_decode_state(cfg, max_slots, num_blocks, self.mb,
                                          kv_cache_dtype=self.kv_cache_dtype,
                                          device=self.device)
+        # the tables the device keeps: a Mamba stack has no block table
+        self._table_keys = tuple(k for k in ("block_table", "seq_lens")
+                                 if k in self.state)
         # the chained step's feed buffer when nothing is in flight
         self.zero_prev = torch.zeros(max_slots + 1, dtype=torch.int32,
                                      device=self.device)
@@ -204,13 +210,19 @@ class ModelRunner:
         ``sync_tables`` since the last dispatch ride along into state."""
         tables = self._tables
         if tables is not None:
-            arrays["_bt"], arrays["_sl"] = tables
+            arrays.update(self._table_arrays(tables))
             self._tables = None
         dev = self._staging.upload(arrays)
         if tables is not None:
-            self._keep({"block_table": dev.pop("_bt"),
-                        "seq_lens": dev.pop("_sl")})
+            self._keep({k: dev.pop(f"t_{k}") for k in self._table_keys})
         return dev
+
+    def _table_arrays(self, tables: Tuple[np.ndarray, np.ndarray]) -> dict:
+        """The host tables ``sync_tables`` built, by the staged names of
+        the ones the device keeps."""
+        return {f"t_{k}": t for k, t in zip(("block_table", "seq_lens"),
+                                             tables)
+                if k in self._table_keys}
 
     def _keep(self, new: Dict[str, torch.Tensor]) -> None:
         """Take state entries an eager dispatch produced: copied into the
@@ -256,8 +268,10 @@ class ModelRunner:
         gather, the megastep's step index, and the tables ``sync_tables``
         may send along (``t_set`` says whether it did)."""
         B, MB = self.max_slots, self.mb
-        f: Fields = {"t_bt": ((B, MB), np.int32), "t_sl": ((B,), np.int32),
-                     "t_set": ((), np.bool_)}
+        shapes = {"block_table": (B, MB), "seq_lens": (B,)}
+        f: Fields = {f"t_{k}": (shapes[k], np.int32)
+                     for k in self._table_keys}
+        f["t_set"] = ((), np.bool_)
         if kind != "chunk":
             rows = B if kind == "megastep" else B + 1
             f.update(toks=((B,), np.int32), active=((B,), np.bool_),
@@ -306,8 +320,8 @@ class ModelRunner:
         inputs of its kind's graph."""
         g = self._graph(kind)
         if self._tables is not None:
-            arrays = dict(arrays, t_bt=self._tables[0],
-                          t_sl=self._tables[1], t_set=np.bool_(True))
+            arrays = dict(arrays, **self._table_arrays(self._tables),
+                          t_set=np.bool_(True))
             self._tables = None
         g.stage(self._staging, arrays)
         return g
@@ -324,10 +338,9 @@ class ModelRunner:
         """Inside a step: the staged tables written into the static state
         where ``t_set`` (and ``now``) hold, else the state kept."""
         on = inp["t_set"] if now is None else inp["t_set"] & now
-        for name, src in (("block_table", inp["t_bt"]),
-                          ("seq_lens", inp["t_sl"])):
+        for name in self._table_keys:
             dst = self.state[name]
-            dst.copy_(torch.where(on, src, dst))
+            dst.copy_(torch.where(on, inp[f"t_{name}"], dst))
 
     @staticmethod
     def _graph_sampling(inp: dict, key: tuple) -> dict:
@@ -417,9 +430,11 @@ class ModelRunner:
     def prefill(self, seqs, maxlen: int) -> torch.Tensor:
         """Prefill a wave of admitted sequences (prompts right-padded to
         ``maxlen``) into the pools, in place; returns the last-token
-        logits [len(seqs), V] on the device.  A hybrid's recurrent state
-        rows are gathered at the wave's slots and written back there, in
-        place (the state keeps its tensors: step graphs read them)."""
+        logits [len(seqs), V] on the device.  The wave starts each row's
+        recurrent state (a hybrid's RG-LRU layers, a Mamba stack) from
+        zeros and returns its rows, which are written at the wave's slots
+        in place (the state keeps its tensors: step graphs read them).  A
+        model without attention layers gets no block table."""
         B = len(seqs)
         toks = np.zeros((B, maxlen), np.int32)
         lens = np.zeros((B,), np.int32)
@@ -428,14 +443,15 @@ class ModelRunner:
             toks[i, :s.seq_len] = s.req.prompt
             lens[i] = s.seq_len
             bt[i, :len(s.block_ids)] = s.block_ids
-        dev = self._upload(toks=toks, lens=lens, bt=bt,
+        tables = {"bt": bt} if "block_table" in self.state else {}
+        dev = self._upload(toks=toks, lens=lens, **tables,
                            slots=np.array([s.slot for s in seqs], np.int32))
         # the wave's own block table and lengths; the pools are shared
-        sub = dict(self.state, block_table=dev["bt"], seq_lens=dev["lens"])
+        sub = dict(self.state, seq_lens=dev["lens"])
+        if tables:
+            sub["block_table"] = dev["bt"]
         slots = dev["slots"].long()
         slot_keys = [k for k in _SLOT_KEYS if k in self.state]
-        for k in slot_keys:
-            sub[k] = self.state[k].index_select(1, slots)
         self.dispatches += 1
         self.steps["wave"] += 1
         with self.tracer.span("dispatch:prefill", cat="device",

@@ -76,7 +76,9 @@ def copy_back(state: Dict[str, torch.Tensor],
     is not the static tensor itself back into ``state``'s tensor, in place
     (inside the captured region, so a replay does it too).  Pools are
     updated in place and come back as the same tensors; ``seq_lens``
-    comes back as a fresh tensor (``seq_lens + active``)."""
+    comes back as a fresh tensor (``seq_lens + active``), and so does the
+    recurrent state of RG-LRU and Mamba layers (``lru_h`` / ``rec_conv``,
+    ``ssm_h`` / ``ssm_conv``)."""
     for k, t in new.items():
         if k in state and t is not state[k]:
             state[k].copy_(t)

@@ -14,6 +14,7 @@ import time
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.registry import get_reduced as j_get_reduced
 from repro.models import transformer as JT
@@ -36,6 +37,21 @@ MODES = [
 POOLS = ["bf16", "int8"]
 ENGINE_KW = dict(max_slots=2, num_blocks=64, max_blocks_per_seq=8,
                  max_num_batched_tokens=8)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file's steps on one torch intra-op thread.  The watchdog
+    scenario times work steps of a tiny model (~10 ms each alone); with
+    torch's default of one thread per core in each of several test
+    processes on the same cores, every small op waits at a barrier for
+    threads the other processes hold, and the steps take 0.7-2.7 s, so a
+    0.4 s stall no longer exceeds 3x their average.  One thread keeps
+    the steps near 10 ms under that load."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -178,10 +178,14 @@ def test_rglru_decode_chain_matches_jax(rgemma):
 
 
 def test_mamba_half_is_refused_by_name():
+    """The Mamba half of ``models/ssm.py`` is ported (falcon-mamba-7b,
+    ``tests/test_torch_ssm.py``); a family still unported is refused by
+    name, at the registry and at the model."""
+    with pytest.raises(NotImplementedError, match="hubert-xlarge"):
+        get_config("hubert-xlarge")
     with pytest.raises(NotImplementedError, match="A11"):
-        S.ssm_init(None, get_reduced(ARCH))
-    with pytest.raises(NotImplementedError, match="falcon-mamba"):
-        get_config("falcon-mamba-7b")
+        T.init_params(get_reduced(ARCH).replace(family="audio"),
+                      device="meta")
 
 
 # ------------------------------------------------------------ model

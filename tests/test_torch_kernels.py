@@ -21,6 +21,8 @@ from repro.kernels.gptq_matmul import gptq_matmul as j_gptq
 from repro.kernels.paged_attention import paged_attention as j_paged
 from repro.kernels.paged_attention_quant import \
     paged_attention_quant as j_paged_quant
+from repro.models.ssm import CHUNK as J_CHUNK
+from repro.models.ssm import _chunked_time_scan as j_time_scan
 from repro_torch.core.alibi import alibi_slopes
 from repro_torch.core.quant import dequantize, pack_int4, unpack_int4
 from repro_torch.kernels import ops, ref
@@ -346,6 +348,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.kernels.paged_attention_quant import \
         paged_attention_quant
+    from repro_torch.kernels.time_scan import linear_scan, selective_scan
     q = torch.zeros(2, 4, 16)
     pool = torch.zeros(3, 8, 2, 16)
     pool8 = torch.zeros(3, 8, 2, 16, dtype=torch.int8)
@@ -372,10 +375,52 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(torch.zeros(1, 8, 4, 16), torch.zeros(1, 8, 2, 16),
                         torch.zeros(1, 8, 2, 16))
+    scan = torch.zeros(2, 5, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        selective_scan(scan, scan, torch.zeros(2, 5, 16),
+                       torch.zeros(2, 5, 16), torch.zeros(8, 16),
+                       torch.zeros(2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        linear_scan(scan, scan, torch.zeros(2, 8))
     kernels = (paged_attention, paged_attention_quant, gptq_matmul,
                flash_attention_chunk, flash_attention_chunk_int8,
-               flash_attention)
+               flash_attention, selective_scan, linear_scan)
     assert set(ops.KERNELS) == set(kernels)
     assert [k.launches for k in kernels] == [0] * len(kernels)
     with pytest.raises(ValueError, match="device"):
         ops.paged_attention(q.to("meta"), pool, pool, None, None)
+
+
+@pytest.mark.parametrize("S", [1, 37, 300])
+def test_linear_scan_ref_matches_the_reference_scan(S):
+    """``linear_scan_ref`` (the RG-LRU's recurrence, ``ops.linear_scan``
+    on the CPU) against the reference's chunked ``lax.scan`` of its step
+    ``h = a h + g`` (300 steps cross its 128-step chunks), with
+    state-transparent positions (a = 1, g = 0) among them.  The final
+    state is held to the reference's last step, and to the reference's
+    carry only where no padded last chunk feeds it (ROADMAP C14)."""
+    rng = np.random.default_rng(S)
+    a = rng.uniform(0.5, 1.0, (3, S, 40)).astype(np.float32)
+    g = rng.normal(size=(3, S, 40)).astype(np.float32)
+    a[1, S // 2:], g[1, S // 2:] = 1.0, 0.0
+    h0 = rng.normal(size=(3, 40)).astype(np.float32)
+
+    def step(h, x_t):
+        a_t, g_t = x_t
+        h = a_t * h + g_t
+        return h, h
+
+    jh, jhs = j_time_scan(step, jnp.asarray(h0),
+                          (jnp.asarray(a.transpose(1, 0, 2)),
+                           jnp.asarray(g.transpose(1, 0, 2))), J_CHUNK)
+    hs, h = ops.linear_scan(torch.from_numpy(a), torch.from_numpy(g),
+                            torch.from_numpy(h0))
+    want = np.asarray(jhs).transpose(1, 0, 2)
+    _close(hs, want, "float32")
+    _close(h, want[:, -1], "float32")
+    assert torch.equal(h, hs[:, -1])
+    if not (S > J_CHUNK and S % J_CHUNK):
+        _close(h, jh, "float32")
+    if S > 1:                     # the transparent half of row 1 holds
+        held = hs[1, S // 2 - 1:S // 2].expand(S - S // 2, -1)
+        assert torch.equal(hs[1, S // 2:], held)
