@@ -173,6 +173,40 @@ Phases, each of which fails loudly (any failure exits non-zero):
              ``selective_scan`` 64 times a wave and a decode step, no
              attention kernel, 0 pageable copies, every served token
              against teacher forcing; one wave's device time split.
+10. vlm    — llava-next-mistral-7b (a dense GQA decoder, 32 query heads
+             over 8 KV heads, behind 2,880 patch embeddings): the decode
+             and chunk kernels at its G = 4 in every case of PAGED_CASES
+             / CHUNK_CASES, the static kernel at the vision wave's shape
+             [4, 3080] causal, ``gptq_matmul`` at its linears (K 14,336
+             for w_down) at decode and at the wave's 12,320 rows; the
+             full-width model cut to 2 layers card vs CPU with the prefix
+             in f32 (dense) and bf16 (rtn-int4): ``T.prefill`` (seq_lens
+             prefix + text) and 3 decode steps, greedy agreement, and
+             other patch embeddings moving the logits (the control); then
+             full-depth ``LLM.load("llava-next-mistral-7b",
+             quant="rtn-int4")`` serves serve_prompts' text traffic on
+             the engine's defaults (``llava-defaults``: chunked, async,
+             graphs on and off, profiled, 0 pageable copies), and
+             ``vision_wave`` runs four requests of 2,880 patches plus 20
+             to 200 text tokens through one ``T.prefill`` and 16
+             ``T.decode_step``s over a private table, launches counted
+             per wave and step, every token held to teacher forcing
+             (``T.forward`` over prefix, text and served tokens); the
+             wave's device time split.
+11. audio  — hubert-xlarge (an encoder: layernorm, non-causal ALiBi, 16
+             query heads over 16 KV heads at head dim 80, 504 frame
+             labels; no decode): the static kernel's D = 80 instantiation
+             (HMMA in its SASS, ptxas's registers and spills) on frames
+             [8, 1500] not causal with ALiBi, causal, and not causal
+             without ALiBi, timed beside SDPA with the same additive
+             bias; ``gptq_matmul`` at its linears at 12,000 rows; the
+             full-width encoder cut to 2 layers card vs CPU in f32 and
+             bf16 (rtn-int4); then the full-depth rtn-int4 bf16
+             ``T.forward`` on [8, 1500] frames: finite logits, 48 static
+             launches each not causal with ALiBi at head dim 80,
+             ``gptq_matmul`` as its plans give, device ms, frames per
+             second, peak memory and time split, held to the f32 forward
+             of the same int4 weights.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -1313,19 +1347,36 @@ def _events(prof):
         yield e.name(), on_device, e.duration_ns() / 1e6 if on_device else 0.0
 
 
-def _traced(prof, names) -> tuple:
-    """From a profile: each of ``names``' kernel launches in the device
-    records, and the host's calls among LAUNCH_CALLS."""
-    traced, calls = dict.fromkeys(names, 0), {}
-    for name, on_device, _ in _events(prof):
-        if not on_device:
+def _marked_window(prof, names) -> tuple:
+    """From a profile holding one spin kernel (``torch.cuda._sleep``, the
+    marker): each of ``names``' kernel records that started before the
+    marker and after it, our device functions' records after it by their
+    first 60 characters, and the host's calls among LAUNCH_CALLS."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    marks = [e.start_ns() for e in events
+             if e.device_type() == cuda and "spin_kernel" in e.name()]
+    if len(marks) != 1:
+        raise AssertionError(f"launch accounting: {len(marks)} marker "
+                             "kernels in the profile (want 1)")
+    before, after = dict.fromkeys(names, 0), dict.fromkeys(names, 0)
+    functions, calls = {}, {}
+    for e in events:
+        name = e.name()
+        if e.device_type() != cuda:
             if name in LAUNCH_CALLS:
                 calls[name] = calls.get(name, 0) + 1
             continue
         ours = ours_name(name)
-        if ours in traced:
-            traced[ours] += 1
-    return traced, calls
+        if ours not in after:
+            continue
+        if e.start_ns() < marks[0]:
+            before[ours] += 1
+        else:
+            after[ours] += 1
+            functions[name[:60]] = functions.get(name[:60], 0) + 1
+    return before, after, functions, calls
 
 
 def check_launch_accounting(llm, kernels, label: str) -> dict:
@@ -1334,20 +1385,21 @@ def check_launch_accounting(llm, kernels, label: str) -> dict:
     profiler's device records must equal its wrapper's counter over the
     same window (a replay adds the launches its capture recorded: this
     holds that accounting to the device's own record), and graphs must
-    have been launched.  The window is short and padded by a synchronize
-    and 0.5 s on both sides: over a whole serve the profiler loses tens
-    to hundreds of ~200,000 device records, in such a window once in a
-    while a few (an H100 at 700 W).  So a window may read short
-    and is run again, up to ACCOUNTING_WINDOWS times; one must be exact,
-    and none may read more than the counters.  A window that also runs
-    eager steps (a whole-prompt engine's wave) has read a few
-    ``gptq_matmul`` launches short in most runs (6; eager windows in
-    general): there the shortfall is recorded (``records_short``), not
-    held to 0."""
+    have been launched.  The window is padded by a synchronize and 0.5 s
+    on both sides.  The profiler loses the first few kernel records of a
+    session (an H100 at 700 W: 2 to 6 ``gptq_matmul`` records in the
+    windows of four serves, eager or graphed, and the same six in every
+    window of llava's late in the script), so inside the session a
+    warm-up request runs first, then a marker kernel, and only the
+    records after the marker are held to the counters, zeroed at the
+    marker (the warm-up's own shortfall is logged).  A window that reads
+    short is run again, up to ACCOUNTING_WINDOWS times; one must be
+    exact, and none may read more than the counters."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import SamplingParams
     prompts = serve_prompts(llm.cfg.vocab_size)[:2]
+    warm = [list(range(1, 25))]
     tries = []
     for _ in range(ACCOUNTING_WINDOWS):
         for k in kernels:
@@ -1355,14 +1407,27 @@ def check_launch_accounting(llm, kernels, label: str) -> dict:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             time.sleep(0.5)
+            llm.generate(warm, SamplingParams(max_tokens=2))
+            torch.cuda.synchronize()
+            warm_counted = {k.name: k.launches for k in kernels}
+            for k in kernels:
+                k.launches = 0
+            torch.cuda._sleep(1000)          # the marker
             llm.generate(prompts, SamplingParams(max_tokens=8))
             torch.cuda.synchronize()
             time.sleep(0.5)
         counted = {k.name: k.launches for k in kernels}
-        traced, calls = _traced(prof, counted)
+        warm_traced, traced, functions, calls = _marked_window(prof, counted)
         short = {k: n - traced[k] for k, n in counted.items()
                  if n != traced[k]}
+        warm_short = {k: n - warm_traced[k] for k, n in warm_counted.items()
+                      if n != warm_traced[k]}
         tries.append(short)
+        if short or warm_short:      # what the window ran, for the record
+            log(f"[profile] {label}: window short by {json.dumps(short)} "
+                f"(the warm-up by {json.dumps(warm_short)}); host calls "
+                f"{json.dumps(calls)}; records by function "
+                f"{json.dumps(functions)}")
         if any(v < 0 for v in short.values()):
             raise AssertionError(f"serve {label}: more kernel launches in "
                                  f"the profiler's records {traced} than the "
@@ -1370,14 +1435,14 @@ def check_launch_accounting(llm, kernels, label: str) -> dict:
         if not calls.get("cudaGraphLaunch"):
             raise AssertionError(f"serve {label}: no cudaGraphLaunch with "
                                  f"graphs on: {calls}")
-        if not short or not llm.engine.chunked:
+        if not short:
             break
     else:
         raise AssertionError(f"serve {label}: kernel launches in the "
                              f"profiler's records short of the wrappers' "
                              f"counters {counted} in every window: {tries}")
     return {"launches": counted, "records_short": tries,
-            "all_graphed": llm.engine.chunked, "host_launch_calls": calls}
+            "host_launch_calls": calls}
 
 
 def profile_serve(llm, prompts, sps, outs, kernels=()) -> dict:
@@ -2037,13 +2102,10 @@ def log_serve(label: str, serve: dict, quant) -> None:
         f"ours_ms={json.dumps(prof['ours_ms'])}")
     acc = serve["launch_accounting"]
     if acc is not None:
-        last = acc["records_short"][-1]
         log(f"[profile] {label}: two requests profiled "
-            f"{len(acc['records_short'])} time(s), kernel records "
-            + ("equal the counters" if not last else
-               f"short of the counters by {json.dumps(last)} (eager wave "
-               "in the window)")
-            + f" {json.dumps(acc['launches'])}; host calls "
+            f"{len(acc['records_short'])} time(s), kernel records equal "
+            f"the counters {json.dumps(acc['launches'])}; host calls (the "
+            f"warm-up's and the marker's included) "
             f"{json.dumps(acc['host_launch_calls'])}")
     for row in prof["top"]:
         log(f"[profile]   {row['ms']:9.2f} ms  {row['calls']:6d} calls  "
@@ -2195,29 +2257,30 @@ def check_flash_attention_d120(gen):
               _qkv(gen, 2, 512, 512, h, kv, d),
               {"alibi_slopes": alibi_slopes(h, "cuda"),
                "sliding_window": 128})]
-    return _flash_wave_record(cases, "flash_attention[D=120]", win)
+    return _flash_wave_record(cases, "flash_attention[D=120]",
+                              f"causal, window {win}")
 
 
-def _flash_wave_record(cases, label: str, win: int) -> dict:
-    """``cases`` (the first a serve's wave, causal inside window ``win``)
+def _flash_wave_record(cases, label: str, what: str) -> dict:
+    """``cases`` (the first a serve's wave, which ``what`` describes)
     through ``_flash_rows`` against the plain version run one (sequence,
     KV head) group at a time; the kernel's record under ``label``, its
     numbers the wave's."""
     worst, rows = _flash_rows(cases, _plain_by_group)
-    q, k, v = cases[0][1]
+    (q, k, v), kw = cases[0][1:]
     (b, S, h, d), kv = q.shape, k.shape[2]
     main = rows[0]
+    also = "; ".join(c[0] for c in cases[1:])
     return {"name": "flash_attention", "label": label, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:386",
             "max_abs_err": worst, "ms": main["ms"],
-            "plain_ms": time_ms(lambda: _plain_by_group(
-                q, k, v, sliding_window=win), iters=1),
+            "plain_ms": time_ms(lambda: _plain_by_group(q, k, v, **kw),
+                                iters=1),
             "bound": main["bound"], "library_ms": main["library_ms"],
-            "shape": f"q[{b},{S},{h},{d}] k/v[{b},{S},{kv},{d}] causal, "
-                     f"window {win}; checked also at "
-                     + "; ".join(c[0] for c in cases[1:])
-                     + "; plain version one (sequence, KV head) at a time",
+            "shape": f"q[{b},{S},{h},{d}] k/v[{b},{S},{kv},{d}] {what}; "
+                     + (f"checked also at {also}; " if also else "")
+                     + "plain version one (sequence, KV head) at a time",
             "per_case": rows}
 
 
@@ -2587,7 +2650,8 @@ def check_flash_attention_d256(gen):
              ("q_offset 64, window 100, Sq 200 < Sk 333",
               _qkv(gen, 2, 200, 333, h, kv, d),
               {"q_offset": 64, "sliding_window": 100})]
-    return _flash_wave_record(cases, "flash_attention[D=256]", win)
+    return _flash_wave_record(cases, "flash_attention[D=256]",
+                              f"causal, window {win}")
 
 
 def phase_hybrid_model(dev: str = "cuda", ref_dev: str = "cpu",
@@ -2678,7 +2742,6 @@ def wave_split(llm, wave=RGEMMA_WAVE, iters: int = 2) -> dict:
     projections, conv, norms, RoPE, the ring writes, the dense products).
     Writes the pools, so it runs after the serves."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as T
     cfg, runner = llm.cfg, llm.engine.runner
     B, S = wave
@@ -2693,9 +2756,19 @@ def wave_split(llm, wave=RGEMMA_WAVE, iters: int = 2) -> dict:
              "ctx_lens": torch.full((B,), S, dtype=torch.int32,
                                     device="cuda")}
 
-    def run():
-        T.prefill(cfg, runner.params, st, batch)
+    out = device_split(lambda: T.prefill(cfg, runner.params, st, batch),
+                       iters)
+    return {"wave": [B, S], **out}
 
+
+def device_split(run, iters: int = 2) -> dict:
+    """``run``'s time between events (``time_ms``: host launch gaps
+    included), then ``run`` once under the profiler, its device time
+    split between ``gptq_matmul``, the static attention kernel, the time
+    scans (``selective_scan`` / ``linear_scan``; a torch ``addcmul`` a step
+    in trees before the scan kernel) and everything else."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     with torch.no_grad():
         ms = time_ms(run, iters=iters)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2713,7 +2786,7 @@ def wave_split(llm, wave=RGEMMA_WAVE, iters: int = 2) -> dict:
         split[key] += dev_ms
         launches[key] += 1
     busy = sum(split.values())
-    return {"wave": [B, S], "ms": ms, "device_busy_ms": busy,
+    return {"ms": ms, "device_busy_ms": busy,
             "device_ms": split, "device_share": {k: v / busy for k, v in
                                                  split.items()},
             "device_launches": launches}
@@ -3290,6 +3363,746 @@ def phase_ssm(report: dict, gen, kernels) -> list:
     return checks
 
 
+# --------------------------------------------------------------------------
+# Phase 10: the vision-prefixed decoder (llava-next-mistral-7b: 2,880
+# patch embeddings before the text, over the paged pool)
+# --------------------------------------------------------------------------
+
+LLAVA = "llava-next-mistral-7b"
+LLAVA_HEADS = (32, 8)            # its query heads over KV heads: G = 4
+LLAVA_LINEARS = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
+                 "gate/up": (4096, 14336), "down": (14336, 4096)}
+# the vision wave: four requests, each 2,880 patches and 20 to 200 text
+# tokens (right-padded to 200), then VISION_STEPS greedy decode steps
+VISION_TEXT = (20, 77, 150, 200)
+VISION_STEPS = 16
+VISION_ROWS = len(VISION_TEXT) * (2880 + max(VISION_TEXT))     # 12,320
+# every int4 linear at decode (8 rows) and at the vision wave's rows
+LLAVA_GPTQ_SHAPES = [(lname, K, N, GS, (8, VISION_ROWS))
+                     for lname, (K, N) in LLAVA_LINEARS.items()]
+# the 2-layer full-width model, card vs CPU: requests of 20 and 200 text
+# tokens behind the prefix, then 3 teacher-forced decode steps; f32 with
+# dense weights on both requests, then bf16 with rtn-int4 weights (the
+# served form) on the 200-token one alone (the CPU's bf16 products and
+# its per-call int4 dequantization took 88 s for the pair on the card's
+# host, 2.1x f32's 29 s)
+VLM_MODEL = {"layers": 2, "text": (20, 200), "steps": 3,
+             "rows": {"float32": (0, 1), "bfloat16": (1,)}}
+VLM_TOL = {"float32": MOE_LOGIT_TOL, "bfloat16": LOGIT_TOL}
+# greedy tokens of the card against the CPU's (the logits within the
+# tolerance above may still flip a near-tie)
+MODEL_AGREEMENT = 0.95
+
+
+def check_paged_vision(gen) -> dict:
+    """The bf16 decode kernel at the vision decode's shape: llava's 32
+    query heads over 8 KV heads, four sequences of 2,880 patches plus
+    VISION_TEXT's text over a table of ceil((2,880 + 200 + VISION_STEPS) /
+    16) = 194 blocks a sequence, as ``vision_wave`` builds it, so that
+    ``plan`` takes the same 25 splits and combines them in one launch.
+    seq_lens of the first and of the last decode step (2,901..3,096
+    keys): live rows within TOL of the plain version and every row within
+    FLASH_REL_TOL of its own RMS (``row_rel_err``; an output over ~3,000
+    keys is ~0.03 in size, so TOL alone is no check there), two calls
+    bitwise equal.  Two controls hold the same kernel output to the plain
+    version with one page, and with one split's 8 pages, of every
+    sequence dropped (the table closed up, seq_lens 16 or 128 shorter:
+    exactly those keys gone); both must miss FLASH_REL_TOL.  The last
+    step is timed beside its plain version and its bound."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention, plan
+    dev = "cuda"
+    H, KV = LLAVA_HEADS
+    b, n = len(VISION_TEXT), VISION_STEPS
+    mb = -(-(2880 + max(VISION_TEXT) + n) // BS)
+    walk = plan(b, KV, H // KV, D, mb, BS)
+    nb = 1024
+    q = torch.randn((b, H, D), generator=gen, device=dev).bfloat16()
+    pools = tuple(torch.randn((nb, BS, KV, D), generator=gen,
+                              device=dev).bfloat16() for _ in range(2))
+    bt = torch.randperm(nb, generator=gen, device=dev)[:b * mb] \
+        .reshape(b, mb).int()
+    first = tuple(2880 + t + 1 for t in VISION_TEXT)
+    last = tuple(2880 + t + n for t in VISION_TEXT)
+    rows = []
+    for label, lens in (("vision decode step 1", first),
+                        (f"vision decode step {n}", last)):
+        sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+        def call():
+            return paged_attention(q, *pools, bt, sl)
+        out = call()
+        want = ref.paged_attention_ref(q, *pools, bt, sl)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        rel = row_rel_err(out, want)
+        if not (err <= TOL and rel <= FLASH_REL_TOL):
+            raise AssertionError(
+                f"paged_attention {label}: max err {err} (tol {TOL}), row "
+                f"err over RMS {rel} (limit {FLASH_REL_TOL})")
+        _repeat_equal("paged_attention", label, call, out)
+        toks, pages = sum(lens), sum(-(-x // BS) for x in lens)
+        nbytes = 2 * (2 * b * H * D) + toks * KV * D * 2 * 2 \
+            + 4 * (b + pages)
+        rows.append({"case": label, "seq_lens": list(lens),
+                     "max_abs_err": err, "row_rel_err": rel,
+                     "ms": time_ms(call),
+                     "bound": bound_ms(nbytes, 4 * H * D * toks)})
+        log(f"paged_attention[vision] {label}: kernel_ms={rows[-1]['ms']:.4f}"
+            f" bound_ms={rows[-1]['bound'][0]:.5f} max_abs_err={err:.3e} "
+            f"row_rel_err={rel:.3e}")
+    # controls on the last step: drop page 40 (keys 640..655), or the
+    # split of pages 40..47, of every sequence
+    controls = {}
+    for label, p0, k in (("one page dropped", 40, 1),
+                         ("one split dropped", 40, walk.pps)):
+        cut = torch.cat([bt[:, :p0], bt[:, p0 + k:], bt[:, :k]], 1)
+        sl = torch.tensor([x - k * BS for x in last], dtype=torch.int32,
+                          device=dev)
+        want = ref.paged_attention_ref(q, *pools, cut, sl)
+        controls[label] = {
+            "max_abs_err": (out.float() - want.float()).abs().max().item(),
+            "row_rel_err": row_rel_err(out, want)}
+        if not controls[label]["row_rel_err"] > FLASH_REL_TOL:
+            raise AssertionError(f"paged_attention[vision] control {label}:"
+                                 f" {controls[label]} within the limit "
+                                 f"{FLASH_REL_TOL}: the check is blind")
+    log(f"paged_attention[vision] controls (must miss {FLASH_REL_TOL}): "
+        f"{json.dumps(controls)}")
+    sl = torch.tensor(last, dtype=torch.int32, device=dev)
+    main = rows[-1]
+    return {"name": "paged_attention", "label": "paged_attention[vision]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:131",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "row_rel_err": max(r["row_rel_err"] for r in rows),
+            "ms": main["ms"],
+            "plain_ms": time_ms(lambda: ref.paged_attention_ref(
+                q, *pools, bt, sl), iters=3),
+            "bound": main["bound"], "library_ms": None, "heads": [H, KV],
+            "splits": walk.splits, "controls": controls,
+            "serves": ("vision-wave",),
+            "shape": f"q[{b},{H},{D}] pool[{nb},{BS},{KV},{D}] table "
+                     f"[{b},{mb}] ({walk.splits} splits) seq_lens "
+                     f"{list(last)}; checked also {list(first)}",
+            "per_case": rows}
+
+
+def _vision_embeds(cfg, rows: int, seed: int):
+    """Patch embeddings [rows, num_prefix_embeds, d] f32 at the reference
+    data pipeline's scale (x 0.1), from a seeded numpy generator."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((rows, cfg.num_prefix_embeds, cfg.d_model),
+                                dtype=np.float32) * 0.1)
+
+
+def _gptq_launches(cfg, M: int, layers: int) -> int:
+    """``gptq_matmul``'s launches for ``layers`` layers of ``cfg``'s int4
+    linears at M rows in bf16: each call launches the product and, where
+    its plan splits K, the split-K sum."""
+    import torch
+    from repro_torch.kernels.gptq_matmul import plan
+    d, hd = cfg.d_model, cfg.num_heads * cfg.resolved_head_dim
+    kvd = cfg.num_kv_heads * cfg.resolved_head_dim
+    f = cfg.d_ff
+    shapes = [(d, hd), (d, kvd), (d, kvd), (hd, d), (d, f), (f, d)]
+    if cfg.act in ("silu", "swiglu"):
+        shapes.append((d, f))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return layers * sum(plan(M, K, N, GS, sms).launches for K, N in shapes)
+
+
+def _rope_tables(cfg, dev: str, ref_dev: str, positions: int) -> dict:
+    """RoPE's frequency table ``theta ** (-i / (D / 2))`` as each device's
+    ``pow`` computes it: the elements that differ, and the largest angle
+    difference they make at the last of ``positions``."""
+    import torch
+    d2 = cfg.resolved_head_dim // 2
+    a, b = ((cfg.rope_theta ** (-torch.arange(0, d2, dtype=torch.float32,
+                                              device=d) / d2)).cpu()
+            for d in (dev, ref_dev))
+    last = torch.tensor(float(positions - 1))
+    return {"freqs_differing": int((a != b).sum()), "freqs": d2,
+            "angle_max_abs_diff": (last * a - last * b).abs().max().item()}
+
+
+def _rope_on(ref_dev: str, call):
+    """``call()`` with every RoPE rotation computed on ``ref_dev`` (its
+    ``pow``, ``cos`` and ``sin``) and moved back: a forward on the card
+    that differs from the CPU's in everything but RoPE."""
+    from repro_torch.models import attention
+    rope = attention.rope
+    attention.rope = lambda x, pos, theta: rope(
+        x.to(ref_dev), pos.to(ref_dev), theta).to(x.device)
+    try:
+        return call()
+    finally:
+        attention.rope = rope
+
+
+def phase_vlm_model(dev: str = "cuda", ref_dev: str = "cpu",
+                    reduced: bool = False) -> dict:
+    """llava-next-mistral-7b at full width cut to VLM_MODEL's 2 layers, in
+    f32 with dense weights and in bf16 with rtn-int4 weights: the same
+    params, 2,880 patch embeddings, tables and tokens through ``T.prefill``
+    (the prefix counts as context: ``seq_lens`` must read prefix + text)
+    and 3 teacher-forced ``T.decode_step``s on ``dev`` and on ``ref_dev``
+    (VLM_MODEL's rows of the dtype); every step's logits within VLM_TOL
+    of the dtype; ``T.forward`` over
+    the longer request's prefix and text on both, its greedy tokens at
+    every one of its 3,080 positions agreeing on at least MODEL_AGREEMENT
+    (a share of 8 served logits rows would be all or nothing: one bf16
+    near-tie flips an eighth); and on ``dev`` the same prefill with other
+    patch embeddings, whose logits must move past the tolerance (the
+    prefix is attended).  In f32, with ``dev`` not ``ref_dev``, it also
+    records, and does not hold, RoPE's part in the error: the two devices'
+    frequency tables (``_rope_tables``) and the forward on ``dev`` again
+    with RoPE computed on ``ref_dev`` (``_rope_on``)."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import tree_to
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantize import quantize_params_rtn
+    vm = VLM_MODEL
+    base = get_reduced(LLAVA) if reduced else get_config(LLAVA)
+    P = base.num_prefix_embeds
+    rng = np.random.default_rng(0)
+    every, n = np.array(vm["text"], np.int32), vm["steps"]
+    S = int(every.max())
+    all_toks = rng.integers(0, base.vocab_size,
+                            (len(every), S + n)).astype(np.int32)
+    all_ve = _vision_embeds(base, len(every), 1)
+    all_other = _vision_embeds(base, len(every), 2)
+    mb = -(-(P + S + n) // base.paging.block_size)
+    out = {}
+    for dtype, quant in (("float32", None), ("bfloat16", "rtn-int4")):
+        t0 = time.perf_counter()
+        sel = list(vm["rows"][dtype])
+        B, lens, toks = len(sel), every[sel], all_toks[sel]
+        ve, other = all_ve[sel], all_other[sel]
+        table = np.arange(B * mb, dtype=np.int32).reshape(B, mb)
+        cfg = base.replace(num_layers=vm["layers"], dtype=dtype)
+        params = T.init_params(cfg, 1, ref_dev)
+        if quant:
+            params = quantize_params_rtn(params, cfg, GS)
+        res = {}
+        with torch.no_grad():
+            for d in (ref_dev, dev):
+                p = T.split_layers(T.cast_params(tree_to(params, d),
+                                                 T.act_dtype(cfg)))
+
+                def wave(embeds):
+                    st = T.make_decode_state(cfg, B, B * mb, mb, device=d)
+                    st["block_table"] = torch.from_numpy(table).to(d)
+                    return T.prefill(cfg, p, st, {
+                        "tokens": torch.from_numpy(toks[:, :S]).to(d),
+                        "ctx_lens": torch.from_numpy(lens).to(d),
+                        "vision_embeds": torch.from_numpy(embeds).to(d)})
+                logits, st = wave(ve)
+                seq_lens = st["seq_lens"].cpu().tolist()
+                steps = [logits.float().cpu()]
+                for t in range(n):
+                    pos = lens + t
+                    st["seq_lens"] = torch.from_numpy(P + pos + 1).to(d)
+                    logits, st = T.decode_step(
+                        cfg, p, st,
+                        torch.from_numpy(toks[np.arange(B), pos]).to(d))
+                    steps.append(logits.float().cpu())
+                moved = None
+                if d == dev:
+                    moved = (wave(other)[0].float().cpu()
+                             - steps[0]).abs().max().item()
+                del st
+                # the longer request alone: 3,080 positions, half the
+                # CPU's time of both
+                one = {"tokens": torch.from_numpy(toks[-1:, :S]).to(d),
+                       "vision_embeds": torch.from_numpy(ve[-1:]).to(d)}
+                fwd = T.forward(cfg, p, one)
+                if d == dev and quant is None and dev != ref_dev:
+                    rope_probe = _rope_on(ref_dev, lambda: T.forward(
+                        cfg, p, one)).float().cpu()
+                res[d] = (torch.stack(steps), seq_lens, moved,
+                          fwd.float().cpu())
+                del p, fwd
+        del params
+        (l0, sl0, _, f0), (l1, sl1, moved, f1) = res[ref_dev], res[dev]
+        tol = VLM_TOL[dtype]
+        r = {"quant": quant, "logit_max_abs_err": (l1 - l0).abs().max().item(),
+             "max_abs_logit": l0.abs().max().item(),
+             "served_rows_greedy_agreement": float(
+                 (l1.argmax(-1) == l0.argmax(-1)).float().mean()),
+             "greedy_agreement": float((f1.argmax(-1) == f0.argmax(-1))
+                                       .float().mean()),
+             "forward_positions": f0.shape[0] * f0.shape[1],
+             "forward_logit_max_abs_err": (f1 - f0).abs().max().item(),
+             "other_prefix_max_abs_logit_change": moved,
+             "text_lens": lens.tolist(),
+             "seq_lens_after_prefill": sl1, "tolerance": tol,
+             "seconds": time.perf_counter() - t0}
+        if quant is None and dev != ref_dev:
+            r["rope"] = _rope_tables(cfg, dev, ref_dev, P + S)
+            r["rope"]["forward_logit_max_abs_err_rope_on_ref"] = \
+                (rope_probe - f0).abs().max().item()
+        out[dtype] = r
+        want_lens = (P + lens).tolist()
+        if not (r["logit_max_abs_err"] <= tol
+                and r["greedy_agreement"] >= MODEL_AGREEMENT
+                and bool(torch.isfinite(l1).all())
+                and sl0 == sl1 == want_lens and moved > tol):
+            raise AssertionError(f"vlm model {dtype}: card vs CPU {r} "
+                                 f"(seq_lens want {want_lens}, the other "
+                                 f"prefix must move the logits past {tol})")
+    out.update(config=base.name, layers=vm["layers"], prefix=P,
+               text_lens=list(vm["text"]), decode_steps=n)
+    return out
+
+
+def vision_wave(llm, kernels, dev: str = "cuda") -> dict:
+    """The served model (the runner's rtn-int4 params) at full depth on
+    the vision path the reference takes (``transformer.prefill`` /
+    ``decode_step`` with ``batch["vision_embeds"]``; its engine passes no
+    image): four requests, each 2,880 patch embeddings and VISION_TEXT's
+    text tokens, in one ``T.prefill`` over a private table of ceil((2,880
+    + 200 + VISION_STEPS) / 16) blocks a request, then VISION_STEPS greedy
+    ``T.decode_step``s over the paged pool.  Every served token (the
+    wave's and each step's) is held to teacher forcing: ``T.forward`` over
+    [prefix + text + the served tokens before it], on the card.  Launches
+    are counted from zero for the wave and for each step: the static
+    kernel once a layer in the wave, the decode kernel once a layer a
+    step, ``gptq_matmul`` as its plans give for each linear.  On the card
+    the wave's device time is split (``device_split``).  Returns the
+    record, with the launches of the wave and every step
+    (``"launches"``)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    cfg, params = llm.cfg, llm.engine.runner.params
+    card = dev != "cpu"
+    P, B = cfg.num_prefix_embeds, len(VISION_TEXT)
+    lens = np.array(VISION_TEXT, np.int32)
+    if cfg.d_model < 4096:                 # a reduced config's rehearsal
+        lens = np.minimum(lens, 40)
+    S, n = int(lens.max()), VISION_STEPS
+    rng = np.random.default_rng(3)
+    text = rng.integers(1, cfg.vocab_size, (B, S)).astype(np.int32)
+    ve = torch.from_numpy(_vision_embeds(cfg, B, 4)).to(dev)
+    mb = -(-(P + S + n) // cfg.paging.block_size)
+    st = T.make_decode_state(cfg, B, B * mb, mb, device=dev)
+    st["block_table"] = torch.arange(B * mb, dtype=torch.int32,
+                                     device=dev).reshape(B, mb)
+    batch = {"tokens": torch.from_numpy(text).to(dev),
+             "ctx_lens": torch.from_numpy(lens).to(dev), "vision_embeds": ve}
+    for k in kernels:
+        k.launches = 0
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, st = T.prefill(cfg, params, dict(st), batch)
+        if card:
+            torch.cuda.synchronize()
+        wave_s = time.perf_counter() - t0
+        wave_launches = {k.name: k.launches for k in kernels}
+        served, step_logits = [logits.argmax(-1).int()], [logits.float()]
+        step_launches = []
+        for t in range(n):
+            for k in kernels:
+                k.launches = 0
+            st["seq_lens"] = torch.from_numpy(P + lens + t + 1).to(dev)
+            logits, st = T.decode_step(cfg, params, st, served[-1])
+            step_launches.append({k.name: k.launches for k in kernels})
+            served.append(logits.argmax(-1).int())
+            step_logits.append(logits.float())
+        if card:
+            torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t0 - wave_s
+        peak = torch.cuda.max_memory_allocated() if card else None
+        served = torch.stack(served, 1).cpu()            # [B, n + 1]
+        step_logits = torch.stack(step_logits, 1)        # [B, n + 1, V]
+        # teacher forcing: the forward over prefix, text and the served
+        # tokens before each one
+        same, gaps, rel = [], [], 0.0
+        for b in range(B):
+            seq = torch.cat([torch.from_numpy(text[b, :lens[b]]),
+                             served[b, :-1].long()]).to(dev)
+            lg = T.forward(cfg, params, {"tokens": seq[None],
+                                         "vision_embeds": ve[b:b + 1]})[
+                0, P + int(lens[b]) - 1:].float()
+            got = served[b].to(dev).long()
+            gaps += (lg.max(-1).values - lg.gather(-1, got[:, None])[:, 0]) \
+                .cpu().tolist()
+            same += (lg.argmax(-1) == got).cpu().tolist()
+            rel = max(rel, ((step_logits[b] - lg).abs().max()
+                            / lg.abs().max()).item())
+    total = {k: wave_launches[k] + sum(s[k] for s in step_launches)
+             for k in wave_launches}
+    out = {"requests": B, "prefix": P, "text_lens": lens.tolist(),
+           "wave_rows": [B, P + S], "decode_steps": n,
+           "blocks_per_request": mb, "wave_s": wave_s, "steps_s": steps_s,
+           "max_memory_allocated": peak, "launches": total,
+           "wave_launches": wave_launches, "step_launches": step_launches[0],
+           "teacher_forced": {
+               "agreement": sum(same) / len(same), "tokens": len(same),
+               "max_gap": max(gaps), "mean_gap": sum(gaps) / len(gaps),
+               "max_rel_logit_err": rel}}
+    if card:
+        L = cfg.num_layers
+        want_wave = {"flash_attention": L,
+                     "gptq_matmul": _gptq_launches(cfg, B * (P + S), L),
+                     "paged_attention": 0, "flash_attention_chunk": 0}
+        want_step = {"flash_attention": 0, "paged_attention": L,
+                     "gptq_matmul": _gptq_launches(cfg, B, L),
+                     "flash_attention_chunk": 0}
+        got_wave = {k: wave_launches.get(k, 0) for k in want_wave}
+        bad = [s for s in step_launches
+               if {k: s.get(k, 0) for k in want_step} != want_step]
+        if got_wave != want_wave or bad:
+            raise AssertionError(f"vision wave: launches {got_wave} (want "
+                                 f"{want_wave}), decode steps off "
+                                 f"{want_step}: {bad[:2]}")
+        out["wave_split"] = device_split(
+            lambda: T.prefill(cfg, params, dict(st), batch))
+        out["wave_split"]["wave"] = out["wave_rows"]
+    return out
+
+
+def phase_vlm(report: dict, gen, kernels) -> list:
+    """Phase 10 on the card: the decode and chunk kernels at llava's G = 4
+    (32 query heads over 8 KV heads), the decode kernel again at the
+    vision decode's 194-block tables and ~3,000 keys (``check_paged_vision``:
+    25 splits, rows held to their RMS), the static kernel at the vision
+    wave's shape (causal, G = 4), ``gptq_matmul`` at its linears at decode
+    and at the wave's 12,320 rows (K 14,336 for w_down); the 2-layer
+    full-width model card vs CPU with the 2,880-patch prefix (f32 and bf16
+    int4, and the other-prefix control); full-depth llava-next-mistral-7b
+    with ``rtn-int4`` weights served on the engine's defaults
+    (``llava-defaults``: text prompts, chunked, async, graphs on and off,
+    profiled, 0 pageable copies), then the vision wave (``vision_wave``:
+    four requests of 2,880 patches plus text, one prefill and 16 decode
+    steps, every token held to teacher forcing) and its time split.
+    Returns the kernel checks."""
+    import torch
+    from repro_torch.serving import LLM
+    r = report["vlm"] = {}
+    t_phase = time.perf_counter()
+    checks = []
+    for check, label in ((check_paged_attention, "paged_attention[G=4]"),
+                         (check_flash_attention_chunk,
+                          "flash_attention_chunk[G=4]")):
+        k = check(gen, heads=LLAVA_HEADS)
+        k["label"], k["serves"] = label, ("llava-defaults",)
+        checks.append(k)
+    checks.append(check_paged_vision(gen))
+    h, kv = LLAVA_HEADS
+    b, S = len(VISION_TEXT), 2880 + max(VISION_TEXT)
+    checks.append(_flash_wave_record(
+        [(f"vision wave [{b},{S}] causal, G = 4",
+          _qkv(gen, b, S, S, h, kv, D), {})],
+        "flash_attention[vision]", "causal"))
+    g = check_gptq_matmul(
+        gen, shapes=LLAVA_GPTQ_SHAPES, main_shape=("gate/up", 8),
+        shape="x[8,4096] @ int4[4096,14336] gs 32 (w_up, decode)",
+        library_max_m=8192)
+    g["label"] = "gptq_matmul[llava]"
+    checks.append(g)
+    for k in checks:
+        lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        log(f"[kernel] {k['label']}: kernel_ms={k['ms']:.4f} "
+            f"plain_ms={k['plain_ms']:.4f} library_ms={lib} "
+            f"bound_ms={k['bound'][0]:.5f} ({k['bound'][1]}) "
+            f"max_abs_err={k['max_abs_err']:.3e} [{k['shape']}]")
+    r["kernels"] = checks
+    log_time("vlm kernels")
+    r["model"] = res = phase_vlm_model()
+    log(f"[model] {VLM_MODEL['layers']}-layer full-width {LLAVA} with a "
+        f"2,880-patch prefix, card vs CPU: {json.dumps(res)}")
+    log_time("vlm model")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM.load(LLAVA, quant="rtn-int4", seed=0)
+    torch.cuda.synchronize()
+    load_s, load_peak = time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+    eng = llm.engine
+    log(f"[serve] {LLAVA} rtn-int4 loaded in {load_s:.2f} s, peak "
+        f"{load_peak} B; engine chunked={eng.chunked} "
+        f"async_step={eng.async_step}")
+    if not (eng.chunked and eng.async_step):
+        raise AssertionError(f"{LLAVA}: its defaults must be chunked and "
+                             "async, as any full-attention decoder's")
+    serve = phase_serve("cuda", config=LLAVA, kernels=kernels,
+                        label="llava-defaults", options={},
+                        must=BF16_CHUNKED_KERNELS[0],
+                        never=BF16_CHUNKED_KERNELS[1],
+                        profile=True, llm=llm, graphs_off=True)
+    serve["load_s"], serve["load_max_memory_allocated"] = load_s, load_peak
+    log_serve("llava-defaults", serve, "rtn-int4")
+    if serve["profile"]["pageable_copies"]:
+        raise AssertionError("llava serve: pageable memcpys under the "
+                             "profiler (want 0)")
+    log_time("vlm serve")
+    wave = vision_wave(llm, kernels)
+    ws, tf = wave.pop("wave_split"), wave["teacher_forced"]
+    log(f"[vision] {json.dumps(wave)}")
+    if not (tf["agreement"] >= TEACHER_AGREEMENT
+            and tf["max_gap"] <= TEACHER_GAP):
+        raise AssertionError(f"vision wave: served tokens against teacher "
+                             f"forcing (agreement >= {TEACHER_AGREEMENT}, "
+                             f"gap <= {TEACHER_GAP}): {tf}")
+    wave["wave_split"] = ws
+    log(f"[wave] one vision wave {ws['wave']}: {ws['ms']:.1f} ms between "
+        f"events, {ws['device_busy_ms']:.1f} ms of device time: "
+        + ", ".join(f"{k} {ws['device_ms'][k]:.1f} ms "
+                    f"({ws['device_share'][k]:.3f}, "
+                    f"{ws['device_launches'][k]} launches)"
+                    for k in ws["device_ms"]))
+    r["serve"] = {"llava-defaults": serve,
+                  "vision-wave": {"launches": wave["launches"]}}
+    r["vision"] = wave
+    llm.close()
+    del llm
+    torch.cuda.empty_cache()
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"[vlm] phase 10 took {r['seconds']:.1f} s")
+    return checks
+
+
+# --------------------------------------------------------------------------
+# Phase 11: the audio encoder (hubert-xlarge: layernorm, non-causal ALiBi,
+# head dim 80 on the static kernel)
+# --------------------------------------------------------------------------
+
+HUBERT = "hubert-xlarge"
+HUBERT_HEADS = (16, 16, 80)      # its query heads, KV heads and head dim
+HUBERT_FRAMES = (8, 1500)        # 30 s of audio at 20 ms a frame, 8 clips
+HUBERT_LINEARS = {"wq/wk/wv/wo": (1280, 1280), "up": (1280, 5120),
+                  "down": (5120, 1280)}
+HUBERT_GPTQ_SHAPES = [(lname, K, N, GS, (HUBERT_FRAMES[0] * HUBERT_FRAMES[1],))
+                      for lname, (K, N) in HUBERT_LINEARS.items()]
+# the static kernel's D = 80 instantiation, as cuobjdump and ptxas name it
+D80_KERNEL = "flash_attention_mma_kernelILi80E"
+# the 2-layer full-width encoder on frames [2, 1500], card vs CPU
+AUDIO_MODEL = {"layers": 2, "frames": (2, 1500)}
+AUDIO_TOL = {"float32": MOE_LOGIT_TOL, "bfloat16": LOGIT_TOL}
+# the full-depth bf16 forward against the f32 forward of the same int4
+# weights on the card: the RMS of the logits' difference over the f32
+# logits' RMS, and the share of frames whose argmax label agrees
+HUBERT_DEPTH_RMS_REL = 0.05
+HUBERT_DEPTH_AGREEMENT = 0.9
+
+
+def check_flash_attention_d80(gen):
+    """The static kernel at hubert-xlarge's heads (16 over 16, head dim
+    80, five k-steps of 16, unpadded) on its frames [8, 1500]: not causal
+    with ALiBi by |q_pos - k_pos| (the encoder's case), causal, and not
+    causal without ALiBi; each against the plain version one (sequence,
+    KV head) at a time, timed beside SDPA with the same additive bias."""
+    from repro_torch.core.alibi import alibi_slopes
+    h, kv, d = HUBERT_HEADS
+    b, S = HUBERT_FRAMES
+    slopes = alibi_slopes(h, "cuda")
+    cases = [(f"hubert [{b},{S}] not causal, ALiBi",
+              _qkv(gen, b, S, S, h, kv, d),
+              {"causal": False, "alibi_slopes": slopes}),
+             (f"[{b},{S}] causal", _qkv(gen, b, S, S, h, kv, d), {}),
+             (f"[{b},{S}] not causal, no ALiBi",
+              _qkv(gen, b, S, S, h, kv, d), {"causal": False})]
+    return _flash_wave_record(cases, "flash_attention[D=80]",
+                              "not causal, ALiBi |q - k|")
+
+
+def phase_audio_model(dev: str = "cuda", ref_dev: str = "cpu",
+                      reduced: bool = False) -> dict:
+    """hubert-xlarge at full width cut to AUDIO_MODEL's 2 layers, in f32
+    with dense weights and in bf16 with rtn-int4 weights: the same params
+    and frames [2, 1500, 1280] through ``T.forward`` on ``dev`` and on
+    ``ref_dev``; logits within AUDIO_TOL of the dtype, argmax labels
+    agreeing on at least MODEL_AGREEMENT of the frames."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import tree_to
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantize import quantize_params_rtn
+    base = get_reduced(HUBERT) if reduced else get_config(HUBERT)
+    rng = np.random.default_rng(0)
+    frames = (rng.standard_normal((*AUDIO_MODEL["frames"], base.d_model),
+                                  dtype=np.float32) * 0.1)
+    out = {}
+    for dtype, quant in (("float32", None), ("bfloat16", "rtn-int4")):
+        t0 = time.perf_counter()
+        cfg = base.replace(num_layers=AUDIO_MODEL["layers"], dtype=dtype)
+        params = T.init_params(cfg, 1, ref_dev)
+        if quant:
+            params = quantize_params_rtn(params, cfg, GS)
+        res = {}
+        with torch.no_grad():
+            for d in (ref_dev, dev):
+                p = T.split_layers(T.cast_params(tree_to(params, d),
+                                                 T.act_dtype(cfg)))
+                res[d] = T.forward(cfg, p, {"frames": torch.from_numpy(
+                    frames).to(d)}).float().cpu()
+                del p
+        del params
+        l0, l1 = res[ref_dev], res[dev]
+        tol = AUDIO_TOL[dtype]
+        r = {"quant": quant, "logit_max_abs_err": (l1 - l0).abs().max().item(),
+             "max_abs_logit": l0.abs().max().item(),
+             "logit_rms": l0.pow(2).mean().sqrt().item(),
+             "label_agreement": float((l1.argmax(-1) == l0.argmax(-1))
+                                      .float().mean()),
+             "tolerance": tol, "seconds": time.perf_counter() - t0}
+        out[dtype] = r
+        if not (r["logit_max_abs_err"] <= tol
+                and r["label_agreement"] >= MODEL_AGREEMENT
+                and bool(torch.isfinite(l1).all())):
+            raise AssertionError(f"audio model {dtype}: card vs CPU {r}")
+    out.update(config=base.name, layers=AUDIO_MODEL["layers"],
+               frames=list(AUDIO_MODEL["frames"]))
+    return out
+
+
+def hubert_depth(kernels, dev: str = "cuda", reduced: bool = False) -> dict:
+    """Full-depth hubert-xlarge (48 layers) with rtn-int4 weights drawn a
+    layer at a time from seed 0: ``T.forward`` on HUBERT_FRAMES' frames
+    [8, 1500, 1280] in bf16, counted from zero (the static kernel 48
+    times, every launch not causal with ALiBi at head dim 80;
+    ``gptq_matmul`` as its plans give for 48 x 6 linears), finite logits
+    [8, 1500, 504], its device ms (``time_ms``), frames per second and
+    peak memory, and its device time split (``device_split``); then the
+    f32 forward of the same int4 weights on the
+    card, against which the bf16 logits are held: RMS of the difference
+    over RMS within HUBERT_DEPTH_RMS_REL, argmax labels agreeing on at
+    least HUBERT_DEPTH_AGREEMENT of the frames."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantize import quantize_params_rtn
+    card = dev != "cpu"
+    cfg = get_reduced(HUBERT) if reduced else get_config(HUBERT)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, 0, dev, layer_fn=lambda layer:
+                           quantize_params_rtn(layer, cfg, GS))
+    load_s = time.perf_counter() - t0
+    b, S = HUBERT_FRAMES if not reduced else (2, 64)
+    rng = np.random.default_rng(5)
+    frames = torch.from_numpy(rng.standard_normal(
+        (b, S, cfg.d_model), dtype=np.float32) * 0.1).to(dev)
+    bf16 = T.split_layers(T.cast_params(params, torch.bfloat16))
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    # each static-kernel launch's (head dim, causal, ALiBi), as the wrapper
+    # records them where it launches
+    flash_attention.launch_kinds.clear()
+    with torch.no_grad():
+        logits = T.forward(cfg, bf16, {"frames": frames})
+        if card:
+            torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    kinds = dict(flash_attention.launch_kinds)
+    peak = torch.cuda.max_memory_allocated() if card else None
+    out = {"config": cfg.name, "layers": cfg.num_layers, "frames": [b, S],
+           "init_s": load_s, "launches": launches,
+           "flash_calls": sorted((str(k), n) for k, n in kinds.items()),
+           "logits": list(logits.shape),
+           "finite": bool(torch.isfinite(logits).all()),
+           "max_memory_allocated": peak}
+    if card:
+        out["split"] = split = device_split(lambda: T.forward(
+            cfg, bf16, {"frames": frames}))
+        out["ms"] = split["ms"]
+        out["frames_per_s"] = b * S / (split["ms"] / 1e3)
+    with torch.no_grad():
+        f32 = T.split_layers(params)
+        want = T.forward(cfg.replace(dtype="float32"), f32,
+                         {"frames": frames}).float()
+    got = logits.float()
+    out["vs_f32"] = cmp = {
+        "rms_rel_err": ((got - want).pow(2).mean().sqrt()
+                        / want.pow(2).mean().sqrt()).item(),
+        "max_abs_err": (got - want).abs().max().item(),
+        "max_abs_logit": want.abs().max().item(),
+        "label_agreement": (got.argmax(-1) == want.argmax(-1)).float()
+        .mean().item(),
+        "rms_rel_limit": HUBERT_DEPTH_RMS_REL,
+        "agreement_limit": HUBERT_DEPTH_AGREEMENT}
+    if not (out["finite"] and out["logits"] == [b, S, cfg.vocab_size]
+            and cmp["rms_rel_err"] <= HUBERT_DEPTH_RMS_REL
+            and cmp["label_agreement"] >= HUBERT_DEPTH_AGREEMENT):
+        raise AssertionError(f"hubert full depth: {out}")
+    if card:
+        L, d = cfg.num_layers, cfg.resolved_head_dim
+        want_gptq = _gptq_launches(cfg, b * S, L)
+        if kinds != {(d, False, True): L} \
+                or launches["flash_attention"] != L \
+                or launches["gptq_matmul"] != want_gptq:
+            raise AssertionError(
+                f"hubert full depth: static-kernel launches {kinds} (want "
+                f"{L} x (head dim {d}, not causal, ALiBi)), counters "
+                f"{launches} (gptq_matmul want {want_gptq})")
+    return out
+
+
+def phase_audio(report: dict, gen, kernels) -> list:
+    """Phase 11 on the card: the static kernel's D = 80 instantiation (HMMA
+    in its SASS, ptxas's registers and spills) at hubert's frames, not
+    causal with ALiBi, causal, and not causal without ALiBi;
+    ``gptq_matmul`` at its linears at the frames' 12,000 rows; the
+    2-layer full-width encoder card vs CPU (f32 and bf16 int4); the
+    full-depth rtn-int4 forward (``hubert_depth``) with its time split.
+    Returns the kernel checks."""
+    import torch
+    from repro_torch.kernels import build
+    r = report["audio"] = {}
+    t_phase = time.perf_counter()
+    sass = {n: c for n, c in report["tensor_core_sass"].items()
+            if D80_KERNEL in n}
+    if not sass or not all(sass.values()):
+        raise AssertionError(f"{D80_KERNEL}: no HMMA in its SASS: {sass}")
+    usage = ptxas_usage(build.LOGS.get("flash_attention", ""), D80_KERNEL)
+    r["d80_sass_hmma"], r["d80_ptxas"] = sum(sass.values()), usage
+    log(f"[audio] flash_attention_mma_kernel<80>: {r['d80_sass_hmma']} HMMA "
+        "in its SASS; ptxas "
+        + (json.dumps(usage) if usage else "not measured (cached build)"))
+    checks = [check_flash_attention_d80(gen)]
+    g = check_gptq_matmul(
+        gen, shapes=HUBERT_GPTQ_SHAPES, main_shape=("up", 12000),
+        shape="x[12000,1280] @ int4[1280,5120] gs 32 (w_up, the frames)",
+        library_max_m=16384)
+    g["label"] = "gptq_matmul[hubert]"
+    checks.append(g)
+    for k in checks:
+        lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        log(f"[kernel] {k['label']}: kernel_ms={k['ms']:.4f} "
+            f"plain_ms={k['plain_ms']:.4f} library_ms={lib} "
+            f"bound_ms={k['bound'][0]:.5f} ({k['bound'][1]}) "
+            f"max_abs_err={k['max_abs_err']:.3e} [{k['shape']}]")
+    r["kernels"] = checks
+    r["model"] = res = phase_audio_model()
+    log(f"[model] {AUDIO_MODEL['layers']}-layer full-width {HUBERT} card vs "
+        f"CPU: {json.dumps(res)}")
+    log_time("audio model")
+    r["depth"] = dp = hubert_depth(kernels)
+    log(f"[audio] full-depth {HUBERT} rtn-int4 bf16 forward: "
+        f"{json.dumps(dp)}")
+    r["serve"] = {"hubert-forward": {"launches": dp["launches"]}}
+    torch.cuda.empty_cache()
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"[audio] phase 11 took {r['seconds']:.1f} s")
+    return checks
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3396,6 +4209,10 @@ def main() -> int:
     log_time("hybrid phase")
     ssm_checks = phase_ssm(report, gen, ops.KERNELS)
     log_time("ssm phase")
+    vlm_checks = phase_vlm(report, gen, ops.KERNELS)
+    log_time("vlm phase")
+    audio_checks = phase_audio(report, gen, ops.KERNELS)
+    log_time("audio phase")
 
     record = []
     # each check's launches come from the serves of its own phase
@@ -3410,9 +4227,17 @@ def main() -> int:
                             # serve, the selective scan in falcon-mamba's
                             + [(k, report["hybrid" if k["name"] ==
                                         "linear_scan" else "ssm"]["serve"])
-                               for k in ssm_checks]):
+                               for k in ssm_checks]
+                            # llava's serve and its vision wave with its
+                            # decode steps; hubert's full-depth forward
+                            + [(k, report["vlm"]["serve"])
+                               for k in vlm_checks]
+                            + [(k, report["audio"]["serve"])
+                               for k in audio_checks]):
+        # a check of one serve's shapes counts that serve's launches only
         by_serve = {lb: sv["launches"][k["name"]]
-                    for lb, sv in phase_serves.items()}
+                    for lb, sv in phase_serves.items()
+                    if lb in k.get("serves", phase_serves)}
         if phase_serves is serves:
             by_serve["gptq-load"] = \
                 report["gptq"]["load"]["launches"][k["name"]]
@@ -3427,7 +4252,8 @@ def main() -> int:
             "bound_by": k["bound"][1], "library_ms": k["library_ms"],
             "shape": k["shape"]})
     report["kernels"] = (kernels + moe_checks + sliding_checks
-                         + hybrid_checks + ssm_checks)
+                         + hybrid_checks + ssm_checks + vlm_checks
+                         + audio_checks)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

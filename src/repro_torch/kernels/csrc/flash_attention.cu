@@ -16,7 +16,7 @@
 // byte at S = 960, far above the ~295 at which the bf16 tensor cores stop
 // waiting on memory.
 //
-// bf16 (the serving type), head dim 64, 120, 128 or 256: tensor cores.  One
+// bf16 (the serving type), head dim 64, 80, 120, 128 or 256: tensor cores.  One
 // block of 4 warps per (query head, sequence, tile of 64 query tokens);
 // each warp owns 16 query rows and runs the FlashAttention-2 tile routine
 // of mma_attention.cuh (mma.sync.m16n8k16, Q in registers, online softmax
@@ -42,7 +42,16 @@
 // fragments are read from the staged Q at each k-step instead of held
 // (mma_q_in_regs), and the block's shared memory is (64 + 2 x 2 x 64)
 // rows of 264 bf16 = 168,960 bytes, one block per SM.  Its ten query
-// heads are ten blocks over the same K/V tiles, which L2 serves.
+// heads are ten blocks over the same K/V tiles, which L2 serves.  Head dim
+// 80 (hubert-xlarge, an encoder: 16 query heads over 16 KV heads, not
+// causal, ALiBi) is five k-steps of 16, so it runs unpadded: Q K^T takes
+// 5 k-steps and P V 10 C tiles of 8 columns, where padding to 128 would
+// spend 3/8 of both products on zeros.  Its staged rows are 80 + 8 = 88
+// bf16 = 176 bytes = 11 16-byte chunks, an odd count, so the 8 rows of an
+// ldmatrix 8 x 8 matrix fall in 8 distinct bank groups, as at 128 + 8.
+// Without the causal mask every block walks every key tile (k_end = Sk),
+// so the heaviest-first order does nothing there, and only the tile that
+// crosses Sk pays for the mask.
 //
 // f32 (a check path on the card, not serving): the CUDA-core body shared
 // with the chunk kernel (common.cuh), any head dim that is a multiple of
@@ -253,7 +262,7 @@ int launch_f32(const void* q, const void* k, const void* v,
 }  // namespace
 
 // BQ (query tokens per block) is read by the f32 body only; the bf16 body
-// takes head dim 64, 120, 128 or 256 and refuses any other.
+// takes head dim 64, 80, 120, 128 or 256 and refuses any other.
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v,
     const float* slopes, void* out, int B, int Sq, int Sk, int H, int KV,
@@ -270,6 +279,9 @@ extern "C" int flash_attention_launch(
     if (D == 120)
       return launch_mma<120>(q, k, v, slopes, out, B, Sq, Sk, H, KV,
                              q_offset, causal, window, use_alibi, s);
+    if (D == 80)
+      return launch_mma<80>(q, k, v, slopes, out, B, Sq, Sk, H, KV,
+                            q_offset, causal, window, use_alibi, s);
     if (D == 64)
       return launch_mma<64>(q, k, v, slopes, out, B, Sq, Sk, H, KV,
                             q_offset, causal, window, use_alibi, s);

@@ -121,9 +121,13 @@ struct MmaRow {
 // (scaled, ALiBi by |q_pos - k_pos| where the row's slope != 0), the mask
 // live(q_pos, k_pos) only when MASK, the online-softmax update, P @ V.
 // row(g, hi) gives the position and slope of warp row g + 8 * hi (g < 8,
-// hi 0 or 1: the two rows a lane holds).  Every live key has k_pos <=
-// q_pos in all three callers, so |q_pos - k_pos| is the Pallas kernels'
-// max(q_pos - k_pos, 0) wherever it is not masked.  The static kernel's
+// hi 0 or 1: the two rows a lane holds).  Under a causal mask every live
+// key has k_pos <= q_pos, so |q_pos - k_pos| is the Pallas kernels'
+// max(q_pos - k_pos, 0) wherever it is not masked.  Without one (the
+// static kernel's encoder case) the bias is |q_pos - k_pos|, the
+// reference's oracle grouped_attention, where its Pallas _fa_kernel takes
+// max(q_pos - k_pos, 0) (ROADMAP C3): the port holds to the oracle, as its
+// plain version does.  The static kernel's
 // hook, q_pos0 + g + hi * 8, compiles to the same SASS as the scalar
 // position and slope this routine took before the hook.
 template <int D, int BK, bool MASK, typename RowFn, typename LiveFn>

@@ -10,9 +10,9 @@
 
 The bf16 bodies of both run on the tensor cores and are built for the
 head dims that ``MMA_HEAD_DIMS`` lists for each kernel (the static kernel
-also for 120, staged padded to 128, and for 256, its Q fragments read
-from shared memory at each k-step); their f32 bodies (CUDA cores) take
-any multiple of 8.
+also for 80, five k-steps of 16 unpadded, for 120, staged padded to 128,
+and for 256, its Q fragments read from shared memory at each k-step);
+their f32 bodies (CUDA cores) take any multiple of 8.
 
 CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the plain
 versions in ``kernels/ref.py``.
@@ -20,6 +20,7 @@ versions in ``kernels/ref.py``.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -28,7 +29,7 @@ from repro_torch.kernels import build
 
 ROWS_PER_BLOCK = 48   # f32 bodies: query rows (tokens x heads) per block
 # the bf16 (tensor-core) instantiations of each attention kernel
-MMA_HEAD_DIMS = {"flash_attention": (64, 120, 128, 256),
+MMA_HEAD_DIMS = {"flash_attention": (64, 80, 120, 128, 256),
                  "flash_attention_chunk": (64, 128),
                  "flash_attention_chunk_int8": (64, 128),
                  "paged_attention": (64, 128),
@@ -151,12 +152,14 @@ def check_head_dim(D: int, dtype: torch.dtype,
 
 class FlashAttention:
     """Callable wrapper of the static prefill kernel; ``launches`` counts
-    kernel launches."""
+    kernel launches, ``launch_kinds`` counts them by (head dim, causal,
+    ALiBi)."""
 
     name = "flash_attention"
 
     def __init__(self):
         self.launches = 0
+        self.launch_kinds: Counter = Counter()
         self._fn = None
 
     def _launcher(self):
@@ -200,6 +203,7 @@ class FlashAttention:
             int(alibi_slopes is not None), build.stream_of(dev))
         build.check_launch(self.name, err)
         self.launches += 1
+        self.launch_kinds[(D, bool(causal), alibi_slopes is not None)] += 1
         return out
 
 

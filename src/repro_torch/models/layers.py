@@ -22,22 +22,26 @@ def dense_init(gen: torch.Generator, shape, in_axis_size: Optional[int] = None,
 
 # ---------------------------------------------------------------- norms
 def norm_init(d: int, kind: str, device="cpu") -> Params:
-    _require_rmsnorm(kind)
-    return {"w": torch.ones(d, device=device)}
-
-
-def _require_rmsnorm(kind: str) -> None:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"{kind!r} is not ported yet (ROADMAP A11)")
+    """RMSNorm's weight ``w``; layernorm adds a zero bias ``b``."""
+    p = {"w": torch.ones(d, device=device)}
+    if kind == "layernorm":
+        p["b"] = torch.zeros(d, device=device)
+    return p
 
 
 def apply_norm(p: Params, x: torch.Tensor, kind: str, eps: float
                ) -> torch.Tensor:
-    """RMSNorm in f32 (the norm of every config the port serves)."""
-    _require_rmsnorm(kind)
+    """RMSNorm, or layernorm (mean and biased variance), in f32; the
+    weight and layernorm's bias are applied to the f32 normalised value
+    before the cast back to x's dtype, as in the reference."""
     xf = x.float()
-    xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (xf * p["w"].float()).to(x.dtype)
+    if kind == "rmsnorm":
+        xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (xf * p["w"].float()).to(x.dtype)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * p["w"].float() + p["b"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------- RoPE

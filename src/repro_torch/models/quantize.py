@@ -43,10 +43,9 @@ def require_rtn_family(cfg: ModelConfig) -> None:
 
 
 def require_gptq_family(cfg: ModelConfig) -> None:
-    """GPTQ takes the dense family only (the reference also takes its vlm
-    and audio families, which the port does not serve yet), with the
-    reference's message."""
-    if cfg.family != "dense":
+    """GPTQ takes the dense, vlm and audio families, as the reference,
+    with its message."""
+    if cfg.family not in ("dense", "vlm", "audio"):
         raise ValueError(
             f"gptq-int4 supports dense-family models, not "
             f"{cfg.family!r} ({cfg.name}); use quant='rtn-int4'")
@@ -136,8 +135,10 @@ def calibration_hessians(cfg: ModelConfig, params: Dict[str, Any],
                          calib_batches: Sequence[Dict[str, Any]]
                          ) -> List[Tuple[HessianAccumulator,
                                          HessianAccumulator]]:
-    """Replay the unquantized layers on ``calib_batches`` (each
-    {"tokens": [B, S]}, tensors or numpy arrays) through ``T.apply_layer``,
+    """Replay the unquantized layers on ``calib_batches`` (each a batch
+    ``T.forward`` takes: {"tokens": [B, S]}, with ``vision_embeds`` for
+    the vision frontend if wanted, or {"frames": [B, S, d]} for the audio
+    encoder; tensors or numpy arrays) through ``T.apply_layer``,
     the layer body ``T.forward`` runs, and accumulate per layer the Hessians of the attention input
     (``wq``'s) and the MLP input (``w_gate``'s), on the params' device.
     Each layer feeds the next its unquantized output, as in the JAX
@@ -188,12 +189,12 @@ def gptq_quantize_model(cfg: ModelConfig, params: Dict[str, Any],
                         calib_batches: Sequence[Dict[str, Any]],
                         qcfg: Optional[QuantConfig] = None, *,
                         timings: Optional[dict] = None) -> Dict[str, Any]:
-    """Hessian-weighted GPTQ of a dense model's linears, on the params'
-    device.  ``wq/wk/wv`` share the attention-input Hessian and
-    ``w_gate/w_up`` the MLP-input one; ``wo`` and ``w_down`` take the
-    identity Hessian (RTN), as in the JAX package.  ``timings``, if
-    given, receives the seconds of "calibration" (forward + Hessians),
-    "obq" and "pack"."""
+    """Hessian-weighted GPTQ of a dense, vlm or audio model's linears, on
+    the params' device.  ``wq/wk/wv`` share the attention-input Hessian
+    and ``w_gate/w_up`` (``w_up`` alone in a GELU MLP) the MLP-input one;
+    ``wo`` and ``w_down`` take the identity Hessian (RTN), as in the JAX
+    package.  ``timings``, if given, receives the seconds of
+    "calibration" (forward + Hessians), "obq" and "pack"."""
     qcfg = qcfg or cfg.quant or QuantConfig()
     dev = params["embed"].device
     t0 = _clock(dev)
@@ -209,8 +210,9 @@ def gptq_quantize_model(cfg: ModelConfig, params: Dict[str, Any],
             **_gptq_shared({k: a[k] for k in ("wq", "wk", "wv")}, h_attn.h,
                            d, qcfg),
             **_gptq_shared({"wo": a["wo"]}, None, hd, qcfg),
-            **_gptq_shared({k: m[k] for k in ("w_gate", "w_up")}, h_mlp.h,
-                           d, qcfg),
+            # the gated MLP's two inputs, the GELU MLP's w_up alone
+            **_gptq_shared({k: m[k] for k in ("w_gate", "w_up") if k in m},
+                           h_mlp.h, d, qcfg),
             **_gptq_shared({"w_down": m["w_down"]}, None,
                            m["w_down"].shape[0], qcfg)})
     del hess

@@ -1,6 +1,8 @@
-"""Decoder assembly (dense and MoE, full-attention or sliding-window, the
-hybrid of RG-LRU and sliding-window layers, and the attention-free
-Mamba-1 stack): init / the plain full-sequence forward / decode state /
+"""Model assembly (dense and MoE decoders, full-attention or
+sliding-window, the hybrid of RG-LRU and sliding-window layers, the
+attention-free Mamba-1 stack, the decoder behind a vision prefix and the
+audio encoder, which has no decode): init / the plain full-sequence
+forward / decode state /
 whole-prompt prefill (into the paged pool, or the ring cache of a
 sliding layer, and the per-sequence recurrent state of an RG-LRU or
 Mamba layer) / decode step / megastep / prefill chunk / unified step,
@@ -49,8 +51,8 @@ def act_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _layer_kinds(cfg: ModelConfig) -> set:
-    return {cfg.layer_kind(i) for i in range(cfg.num_layers)}
+def _layer_kinds(cfg: ModelConfig) -> frozenset:
+    return frozenset(k for k, _, _ in layer_plan(cfg))
 
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
@@ -62,27 +64,47 @@ def supports_chunked_prefill(cfg: ModelConfig) -> bool:
     return _layer_kinds(cfg) == {"full"} and not cfg.is_encoder
 
 
-# the families the port serves: whether each has routed experts, and the
-# layer-kind sets it takes
-PORTED_FAMILIES = {"dense": (False, ({"full"}, {"sliding"})),
-                   "moe": (True, ({"full"}, {"sliding"})),
+# the families the port serves: whether each has routed experts, the
+# layer-kind sets it takes, and whether it is an encoder
+PORTED_FAMILIES = {"dense": (False, ({"full"}, {"sliding"}), False),
+                   "moe": (True, ({"full"}, {"sliding"}), False),
                    "hybrid": (False, ({"recurrent", "sliding"},
-                                      {"recurrent"})),
-                   "ssm": (False, ({"ssm"},))}
+                                      {"recurrent"}), False),
+                   "ssm": (False, ({"ssm"},), False),
+                   "vlm": (False, ({"full"},), False),
+                   "audio": (False, ({"full"},), True)}
 
 
 def _require_ported(cfg: ModelConfig) -> None:
     """Dense and MoE decoders whose layers are all full attention or all
     sliding-window attention, the hybrid of RG-LRU and sliding-window
-    layers and the Mamba-1 stack are served; other families raise."""
-    experts, kinds = PORTED_FAMILIES.get(cfg.family, (None, ()))
+    layers, the Mamba-1 stack, the full-attention decoder behind a vision
+    prefix and the full-attention audio encoder are ported; other
+    families raise."""
+    experts, kinds, encoder = PORTED_FAMILIES.get(cfg.family,
+                                                  (None, (), None))
     if experts != bool(cfg.num_experts) or _layer_kinds(cfg) not in kinds \
-            or cfg.is_encoder:
+            or cfg.is_encoder != encoder:
         raise NotImplementedError(
             f"{cfg.name}: only dense and MoE decoders of full-attention or "
-            "sliding-window layers, the RG-LRU hybrid and the Mamba-1 stack "
-            "are ported to repro_torch so far (ROADMAP A11: other model "
-            "families)")
+            "sliding-window layers, the RG-LRU hybrid, the Mamba-1 stack, "
+            "the vision-prefixed decoder and the audio encoder are ported "
+            "to repro_torch so far (ROADMAP A11: other model families)")
+
+
+def require_decoder(cfg: ModelConfig) -> None:
+    """The serving entry points take a ported decoder; an encoder has no
+    decode in the reference either (its serving-consistency test skips
+    encoders, and its chunked prefill excludes them), so it is refused by
+    name where a batch or a state enters: ``make_decode_state``,
+    ``prefill`` and ``LLM.load``.  The decode step and the prefill chunk
+    run only on a state that ``make_decode_state`` made."""
+    _require_ported(cfg)
+    if cfg.is_encoder:
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder: it has no decode state, prefill or "
+            "decode step (as in the reference); run transformer.forward on "
+            "its frames")
 
 
 @functools.lru_cache(maxsize=64)
@@ -175,6 +197,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         params["head"] = torch.randn((cfg.d_model, cfg.vocab_size),
                                      generator=gen, device=dev) \
             * cfg.d_model ** -0.5
+    if cfg.frontend == "audio_frames":
+        params["frontend_proj"] = torch.randn(
+            (cfg.d_model, cfg.d_model), generator=gen, device=dev) \
+            * cfg.d_model ** -0.5
     if dtype is not None:
         params = cast_params(params, dtype)
     plan = layer_plan(cfg)
@@ -246,8 +272,12 @@ def _layer(params: Params, i: int, cfg: Optional[ModelConfig] = None
 # decay parameter always, its and Mamba's conv taps in decode (cast only in
 # prefill), and Mamba's A_log (A = -exp(A_log) in f32), conv bias (added
 # in f32 in decode), dt_bias and D (cast at each use, as the reference
-# does: kept f32, they give its numbers in every dtype)
-_F32_LEAVES = ("a_param", "conv_w", "A_log", "conv_b", "dt_bias", "D")
+# does: kept f32, they give its numbers in every dtype); the audio
+# frontend's projection, cast to the frames' dtype at the product (f32
+# frames meet an f32 weight and the product is cast after, as in the
+# reference)
+_F32_LEAVES = ("a_param", "conv_w", "A_log", "conv_b", "dt_bias", "D",
+               "frontend_proj")
 
 
 def keeps_dtype(path: str) -> bool:
@@ -313,20 +343,32 @@ def ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
 
 def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
                   ) -> torch.Tensor:
-    """Token frontend (the audio and vision frontends wait for A11);
-    tokens may be a tensor or a numpy array."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.frontend!r} frontends are not "
-                                  "ported yet (ROADMAP A11)")
+    """The model's input rows [B, S, d] in the activation dtype, as the
+    reference's: the audio frontend projects ``batch["frames"]`` [B, S,
+    d] through ``frontend_proj`` (in the frames' dtype, cast after);
+    otherwise the tokens' embeddings, with the vision frontend's
+    ``batch["vision_embeds"]`` [B, P, d] (cast to the embedding's dtype)
+    put before them when the batch has them.  Tokens, frames and vision
+    embeddings may be tensors or numpy arrays."""
     emb = params["embed"]
-    tokens = torch.as_tensor(batch["tokens"]).to(emb.device).long()
-    return emb[tokens].to(act_dtype(cfg))
+    if cfg.frontend == "audio_frames":
+        x = linear(torch.as_tensor(batch["frames"]).to(emb.device),
+                   params["frontend_proj"])
+    else:
+        tokens = torch.as_tensor(batch["tokens"]).to(emb.device).long()
+        x = emb[tokens]
+        if cfg.frontend == "vision_patches" and "vision_embeds" in batch:
+            ve = torch.as_tensor(batch["vision_embeds"]).to(emb.device)
+            x = torch.cat([ve.to(x.dtype), x], 1)
+    return x.to(act_dtype(cfg))
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
             ) -> torch.Tensor:
-    """Full causal forward -> logits [B, S, V] in the activation dtype, a
-    Python loop over the layers (no remat: no training yet, A12)."""
+    """Full forward -> logits [B, S, V] in the activation dtype: causal
+    for a decoder (S counts a vision prefix), bidirectional for an
+    encoder; a Python loop over the layers (no remat: no training yet,
+    A12)."""
     _require_ported(cfg)
     x = _embed_inputs(cfg, params, batch)
     for i, (kind, _, _) in enumerate(layer_plan(cfg)):
@@ -351,8 +393,8 @@ def make_decode_state(cfg: ModelConfig, max_seqs: int, num_blocks: int,
     hybrid adds each recurrent layer's per-slot state: ``lru_h`` [nr, B,
     w] f32 and ``rec_conv`` [nr, B, w, 3] of ``dtype``.  A Mamba stack
     has no pool and no table, only its per-slot state: ``ssm_h`` [L, B,
-    din, N] f32 and ``ssm_conv`` [L, B, din, W-1] of ``dtype``."""
-    _require_ported(cfg)
+    din, N] f32 and ``ssm_conv`` [L, B, din, W-1] of ``dtype``.  An encoder has none: refused by name."""
+    require_decoder(cfg)
     kv_mode = normalize_kv_cache_dtype(kv_cache_dtype)
     na, nr = attn_layer_count(cfg)
     if kv_mode == "int8" and not na:
@@ -408,9 +450,11 @@ def prefill(cfg: ModelConfig, params: Params, state: Dict[str, torch.Tensor],
     """Whole-prompt prefill of a wave: fills the pools, returns last-token
     logits [B, V] f32.
 
-    batch: tokens [B, S] (right-padded), ctx_lens [B];
-    state["block_table"] holds the wave's rows and state["seq_lens"] is
-    set to ctx_lens.  Full-attention layers write the paged pool,
+    batch: tokens [B, S] (right-padded), ctx_lens [B], and for the vision
+    frontend optionally vision_embeds [B, P, d], which go before the
+    tokens and count as context: positions run over prefix and text, and
+    state["seq_lens"] is set to P + ctx_lens (ctx_lens alone without a
+    prefix); state["block_table"] holds the wave's rows.  Full-attention layers write the paged pool,
     sliding-window layers their ring (``attn_prefill_ring``), RG-LRU
     layers return the wave's rows of ``lru_h`` / ``rec_conv`` (the state
     at each row's ctx_len) as new tensors [nr, B, ...], Mamba layers
@@ -418,13 +462,15 @@ def prefill(cfg: ModelConfig, params: Params, state: Dict[str, torch.Tensor],
     pool and no ``block_table``).  The
     ``rt["prefill_chunk"]`` variant (chunks read back from the pool) is
     not ported (ROADMAP A3)."""
-    _require_ported(cfg)
+    require_decoder(cfg)
     if (rt or {}).get("prefill_chunk"):
         raise NotImplementedError(
             "rt['prefill_chunk'] (chunked whole-prompt prefill) is not "
             "ported to repro_torch yet (ROADMAP A3)")
     tokens, ctx_lens = batch["tokens"], batch["ctx_lens"]
-    x = params["embed"][tokens.long()].to(act_dtype(cfg))        # [B, S, d]
+    x = _embed_inputs(cfg, params, batch)                       # [B, S, d]
+    if x.shape[1] != tokens.shape[1]:     # a vision prefix counts as context
+        ctx_lens = ctx_lens + (x.shape[1] - tokens.shape[1])
     state = dict(state)
     state["seq_lens"] = ctx_lens
     cache = cache_from_state(state) if "k_pool" in state else None

@@ -138,6 +138,7 @@ class LLM:
                else get_config(config_name))
         if overrides and not reduced:
             cfg = cfg.replace(**overrides)
+        T.require_decoder(cfg)       # an encoder has no engine to serve it
         if quant == "rtn-int4":
             require_rtn_family(cfg)
         elif quant == "gptq-int4":

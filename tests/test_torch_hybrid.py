@@ -180,12 +180,13 @@ def test_rglru_decode_chain_matches_jax(rgemma):
 def test_mamba_half_is_refused_by_name():
     """The Mamba half of ``models/ssm.py`` is ported (falcon-mamba-7b,
     ``tests/test_torch_ssm.py``); a family still unported is refused by
-    name, at the registry and at the model."""
+    name at the registry, and at the model what stays unserved: the
+    decode state of the audio encoder, which has no decode."""
+    with pytest.raises(NotImplementedError, match="kimi-k2-1t-a32b"):
+        get_config("kimi-k2-1t-a32b")
     with pytest.raises(NotImplementedError, match="hubert-xlarge"):
-        get_config("hubert-xlarge")
-    with pytest.raises(NotImplementedError, match="A11"):
-        T.init_params(get_reduced(ARCH).replace(family="audio"),
-                      device="meta")
+        T.make_decode_state(get_reduced("hubert-xlarge"), 2, 8, 2,
+                            device="cpu")
 
 
 # ------------------------------------------------------------ model
