@@ -207,6 +207,31 @@ Phases, each of which fails loudly (any failure exits non-zero):
              ``gptq_matmul`` as its plans give, device ms, frames per
              second, peak memory and time split, held to the f32 forward
              of the same int4 weights.
+12. cmdr   — command-r-plus-104b (64 layers, d 12,288, 96 query heads
+             over 8 KV heads: G = 12, layernorm, a tied 256,000 x 12,288
+             embedding; rtn-int4 at group size 128, 62.9 GB served): the
+             decode and chunk kernels at G = 12 in every case of
+             PAGED_CASES / CHUNK_CASES, each live row also within
+             FLASH_REL_TOL of its RMS; ``gptq_matmul`` at group 128 at its
+             linears at decode and at a chunk (w_down K 33,792); the
+             full-width model cut to 2 layers card vs CPU with drawn
+             norms, over bf16 and int8 pools (decode step, chunk, unified
+             step) and through ``T.forward`` over 128 positions, logits
+             within CMDR_LOGIT_REL_TOL of their largest, greedy agreement,
+             a dropped-layernorm-bias control that must miss; then the
+             full-depth ``LLM.load(..., quant_group_size=128)`` (seconds,
+             peak) served on the engine's defaults (``cmdr-defaults``,
+             graphs on and off, profiled, 0 pageable copies, attention 64
+             x the runner's steps, ``gptq_matmul`` as its plans give) and
+             one full decode step timed beside the bytes of the served
+             tree over 3.35 TB/s.
+13. cli    — ``repro_torch.launch.serve.main`` in process: full-depth
+             qwen2-1.5b rtn-int4, 16 requests of 32 tokens, as Opt-GQA
+             and with ``--mha-baseline``: every request finished, the
+             paged decode, chunk and int4 kernels launched and no other
+             attention kernel, ``--trace-out`` valid, ``--metrics-out``
+             finite, the KV bytes a token 6.0 apart; then a short run
+             under ``--profile-dir`` whose trace holds kernel records.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -355,12 +380,15 @@ def _repeat_equal(name: str, label: str, call, out) -> None:
                              "deterministic)")
 
 
-def check_paged_attention(gen, int8: bool = False, heads=(H, KV)):
+def check_paged_attention(gen, int8: bool = False, heads=(H, KV),
+                          row_check: bool = False):
     """The decode kernel over the bf16 pool, or (``int8``) over the int8
     pool, in every case of PAGED_CASES at ``heads`` (query heads, KV
     heads): live rows within TOL of the plain version, seq_len-0 rows
-    exactly 0, two calls bitwise equal; each case timed beside its bound,
-    the first also beside the plain version."""
+    exactly 0, two calls bitwise equal; with ``row_check`` every live
+    (sequence, head) row also within FLASH_REL_TOL of its own RMS
+    (``row_rel_err``); each case timed beside its bound, the first also
+    beside the plain version."""
     import torch
     H, KV = heads
     from repro_torch.core.alibi import alibi_slopes
@@ -398,9 +426,12 @@ def check_paged_attention(gen, int8: bool = False, heads=(H, KV)):
         live = sl > 0
         err = (out[live].float() - want[live].float()).abs().max().item()
         zero = out[~live].float().abs().max().item() if (~live).any() else 0.
-        if not err <= TOL or zero != 0.0:
+        rel = row_rel_err(out[live], want[live]) if row_check else 0.0
+        if not (err <= TOL and rel <= FLASH_REL_TOL) or zero != 0.0:
             raise AssertionError(f"{name} {label}: max err {err} (tol {TOL})"
-                                 f", seq_len 0 rows max {zero} (want 0)")
+                                 f", row err over RMS {rel} (limit "
+                                 f"{FLASH_REL_TOL}), seq_len 0 rows max "
+                                 f"{zero} (want 0)")
         _repeat_equal(name, label, call, out)
         worst = max(worst, err)
         seen = [min(n, win) if win else n for n in lens]
@@ -412,10 +443,13 @@ def check_paged_attention(gen, int8: bool = False, heads=(H, KV)):
         row = {"case": label, "seq_lens": list(lens), "max_abs_err": err,
                "ms": time_ms(call),
                "bound": bound_ms(nbytes, 4 * H * D * toks)}
+        if row_check:
+            row["row_rel_err"] = rel
         rows.append(row)
         log(f"{name} {label}: kernel_ms={row['ms']:.4f} "
             f"bound_ms={row['bound'][0]:.5f} ({row['bound'][1]}) "
-            f"max_abs_err={err:.3e}")
+            f"max_abs_err={err:.3e}"
+            + (f" row_rel_err={rel:.3e}" if row_check else ""))
     main, sl = rows[0], torch.tensor(PAGED_SEQ_LENS, dtype=torch.int32,
                                      device=dev)
     return {"name": name, "route": "cuda",
@@ -447,12 +481,14 @@ CHUNK_CASES = ((0, W, {}), (256, W, {}), (300, 100, {}), (1000, 24, {}),
                (768, W, {}))
 
 
-def check_flash_attention_chunk(gen, int8: bool = False, heads=(H, KV)):
+def check_flash_attention_chunk(gen, int8: bool = False, heads=(H, KV),
+                                row_check: bool = False):
     """The chunk kernel over the bf16 pool, or (``int8``) its int8-pool
     branch, in every case of CHUNK_CASES at ``heads`` (query heads, KV
-    heads): the live rows within TOL of the plain version, two calls
-    bitwise equal, each case timed beside its bound (the last also beside
-    the plain version)."""
+    heads): the live rows within TOL of the plain version (with
+    ``row_check`` also each live (query, head) row within FLASH_REL_TOL
+    of its own RMS), two calls bitwise equal, each case timed beside its
+    bound (the last also beside the plain version)."""
     import torch
     H, KV = heads
     from repro_torch.core.alibi import alibi_slopes
@@ -497,9 +533,11 @@ def check_flash_attention_chunk(gen, int8: bool = False, heads=(H, KV)):
         out = call()
         torch.cuda.synchronize()
         err = (out[:, :n].float() - want[:, :n].float()).abs().max().item()
-        if not err <= TOL:
+        rel = row_rel_err(out[:, :n], want[:, :n]) if row_check else 0.0
+        if not (err <= TOL and rel <= FLASH_REL_TOL):
             raise AssertionError(f"{kernel.name} {label}: max err {err} "
-                                 f"(tol {TOL})")
+                                 f"(tol {TOL}), row err over RMS {rel} "
+                                 f"(limit {FLASH_REL_TOL})")
         _repeat_equal(kernel.name, label, call, out)
         worst = max(worst, err)
         # visible (query, key) pairs, and the prefix keys any query sees
@@ -512,10 +550,13 @@ def check_flash_attention_chunk(gen, int8: bool = False, heads=(H, KV)):
         nbytes = 2 * (2 * W * H * D + 2 * W * KV * D) + pool_bytes
         row = {"case": label, "max_abs_err": err, "ms": time_ms(call),
                "bound": bound_ms(nbytes, 4 * H * D * pairs)}
+        if row_check:
+            row["row_rel_err"] = rel
         rows.append(row)
         log(f"{kernel.name} {label}: kernel_ms={row['ms']:.4f} "
             f"bound_ms={row['bound'][0]:.5f} ({row['bound'][1]}) "
-            f"max_abs_err={err:.3e}")
+            f"max_abs_err={err:.3e}"
+            + (f" row_rel_err={rel:.3e}" if row_check else ""))
     main = rows[-1]
     return {"name": kernel.name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_chunk.cu",
@@ -881,13 +922,26 @@ MOE_LOGIT_TOL = 1e-3
 
 
 def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2,
-                kv: str = "bf16", config: str = "qwen2-1.5b") -> dict:
+                kv: str = "bf16", config: str = "qwen2-1.5b",
+                gs: int = GS, init_dev=None, wave: bool = True,
+                rel_tol=None) -> dict:
     """The same params, pools and inputs through the decode step, a chunk
     at q_offset 160, the unified step and a whole-prompt ``T.prefill``
     wave on ``dev`` and on ``ref_dev``; ``kv`` picks the pool format.
     ``config``'s full width cut to ``layers``: a dense config with int4
-    (RTN) weights and bf16 activations, held to LOGIT_TOL; an MoE config
-    with f32 weights and activations, held to MOE_LOGIT_TOL."""
+    (RTN, group size ``gs``) weights and bf16 activations, held to
+    LOGIT_TOL; an MoE config with f32 weights and activations, held to
+    MOE_LOGIT_TOL.  The weights are drawn on ``init_dev`` (``ref_dev``
+    by default; command-r's 2 full-width layers and 3.15e9-element
+    embedding are drawn on the card, much faster than the CPU's
+    one-thread generator).  The ``ref_dev`` side takes each int4 weight
+    as the plain version's own dequantized weight (``dequantized``): the
+    same products bit for bit, without dequantizing every weight again at
+    every call on the CPU.  Without
+    ``wave`` the whole-prompt wave is left out (a chunked serve never runs
+    one); with ``rel_tol`` the logits are held to ``rel_tol`` times their
+    largest magnitude.  A layernorm's weights and biases are drawn
+    (``random_norms``): the init's ones and zeros leave the bias out."""
     import numpy as np
     import torch
     from repro_torch.bridge import tree_to
@@ -901,7 +955,10 @@ def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2,
         cfg = cfg.replace(dtype="float32")
         params, tol = T.init_params(cfg, 1, dev), MOE_LOGIT_TOL
     else:
-        params = quantize_params_rtn(T.init_params(cfg, 1, ref_dev), cfg, GS)
+        params = quantize_params_rtn(
+            T.init_params(cfg, 1, init_dev or ref_dev), cfg, gs)
+        if cfg.norm == "layernorm":
+            params = random_norms(params)
         tol = LOGIT_TOL
     rng = np.random.default_rng(0)
     nb, mb, slots = 128, MB, B
@@ -947,8 +1004,11 @@ def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2,
     res = {}
     with torch.no_grad():
         for d in (ref_dev, dev):
-            p = T.split_layers(T.cast_params(tree_to(params, d),
+            tree = dequantized(params, T.act_dtype(cfg)) \
+                if d == ref_dev else params
+            p = T.split_layers(T.cast_params(tree_to(tree, d),
                                              T.act_dtype(cfg)))
+            del tree
 
             def fresh(table, lens):
                 st = T.make_decode_state(cfg, slots, nb, mb,
@@ -976,12 +1036,15 @@ def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2,
                                      i32(ctoks), i32(cbt), i32(q_off),
                                      i32(q_off + n))
             unified_pool = pool_values(st)
-            st = fresh(wbt, wlens)
-            wave, st = T.prefill(cfg, p, st, {"tokens": i32(wtoks),
-                                              "ctx_lens": i32(wlens)})
-            res[d] = (dec.float().cpu(), chunk.float().cpu(),
-                      wave.float().cpu(), nxt.cpu(), unified_pool,
-                      pool_values(st))
+            if wave:
+                st = fresh(wbt, wlens)
+                wlg, st = T.prefill(cfg, p, st, {"tokens": i32(wtoks),
+                                                 "ctx_lens": i32(wlens)})
+                wlg = wlg.float().cpu()
+            else:
+                wlg = torch.zeros((1, 1))
+            res[d] = (dec.float().cpu(), chunk.float().cpu(), wlg,
+                      nxt.cpu(), unified_pool, pool_values(st))
     (d0, c0, w0, n0, *p0), (d1, c1, w1, n1, *p1) = res[ref_dev], res[dev]
     # inactive decode rows (seq_len 0) are garbage by contract: the kernel
     # writes zeros there, the plain version an average — compare live rows
@@ -990,6 +1053,8 @@ def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2,
     err = max((a - b).abs().max().item()
               for a, b in ((d1, d0), (c1, c0), (w1, w0)))
     scale = max(t.abs().max().item() for t in (d0, c0, w0))
+    if rel_tol is not None:
+        tol = rel_tol * scale
     # pools: the bf16 tolerance on values, plus one quantization step in
     # int8 (a value that differs in bf16 may round to the next code)
     pool_err, pool_ok = 0.0, True
@@ -1012,8 +1077,60 @@ def phase_model(dev: str, ref_dev: str = "cpu", layers: int = 2,
             "kv_cache_dtype": kv,
             "logit_max_abs_err": err, "max_abs_logit": scale,
             "pool_max_abs_err": pool_err, "greedy_agreement": agree,
-            "prefill_wave_greedy_agreement": wave_agree,
-            "tolerance": tol}
+            "prefill_wave_greedy_agreement": wave_agree if wave else None,
+            "tolerance": tol, "relative_tolerance": rel_tol}
+
+
+def random_norms(params, seed: int = 7):
+    """``params`` with every norm's weight ``w`` drawn as 1 + 0.1 N(0, 1)
+    and a layernorm's bias ``b`` as 0.1 N(0, 1) (seeded, on the params'
+    device): the init's ones and zeros would leave the bias out of a
+    check."""
+    import torch
+    gens = {}
+
+    def walk(tree, in_norm=False, key=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, in_norm or k.endswith("norm"), k)
+                    for k, v in tree.items()}
+        if not in_norm:
+            return tree
+        dev = tree.device
+        gen = gens.setdefault(dev, torch.Generator(device=dev)
+                              .manual_seed(seed))
+        noise = 0.1 * torch.randn(tree.shape, generator=gen, device=dev)
+        return noise if key == "b" else 1.0 + noise
+    return walk(params)
+
+
+def dequantized(params, dtype):
+    """``params`` with every int4 dict replaced by the weight the plain
+    int4 product multiplies by (``core.quant.dequantize`` in ``dtype``,
+    computed where the dict lies): ``quant_matmul_ref`` is that
+    dequantization followed by ``x @ w``, which the dense ``linear`` path
+    computes on the same weight, so a forward over this tree gives the
+    plain int4 path's numbers bit for bit
+    (``tests/test_torch_command_r.py`` holds that on the CPU).  The
+    dequantization is integer unpacking, one f32 subtraction and one
+    product, then the cast: the card and the CPU give the same bits."""
+    import torch
+    from repro_torch.core.quant import PACK, dequantize
+
+    def one(w):
+        return dequantize(w, w["qweight"].shape[-2] * PACK, dtype)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            if "qweight" in tree:          # one layer's, or a layer stack's
+                if tree["qweight"].dim() == 2:
+                    return one(tree)
+                return torch.stack([one({k: v[i] for k, v in tree.items()})
+                                    for i in range(len(tree["qweight"]))])
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return tree
+    return walk(params)
 
 
 # --------------------------------------------------------------------------
@@ -2361,9 +2478,7 @@ def ring_decode_ms(llm, steps: int = 3) -> dict:
     must read.  Writes one token per slot into the pool, so it runs after
     the serves."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.kv_quant import cache_from_state
-    from repro_torch.models import transformer as T
     from repro_torch.models.attention import _ring_cache_attend
     cfg, runner = llm.cfg, llm.engine.runner
     slots, mb = runner.max_slots, runner.mb
@@ -2381,28 +2496,44 @@ def ring_decode_ms(llm, steps: int = 3) -> dict:
     cache = cache_from_state(st)
     ring = mb * cfg.paging.block_size
     nbytes = 2 * slots * ring * kv * d * 2
+    out = decode_step_times(cfg, runner.params, st, toks, steps)
     with torch.no_grad():
-        step = time_ms(lambda: T.decode_step(cfg, runner.params, st, toks),
-                       iters=5)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                T.decode_step(cfg, runner.params, st, toks)
-            torch.cuda.synchronize()
-        # the same step captured as one CUDA graph, as the runner's
-        # megastep replays it: its time between events without the host
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            T.decode_step(cfg, runner.params, st, toks)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            T.decode_step(cfg, runner.params, st, toks)
-        torch.cuda.current_stream().wait_stream(side)
-        graphed = time_ms(graph.replay, iters=5)
-        graph.reset()
         attn = time_ms(lambda: _ring_cache_attend(
             q, k, v, cache, st["block_table"], st["seq_lens"], 0,
             cfg.sliding_window))
+    return {**out, "ring_attention_layer_ms": attn,
+            "ring_attention_bound": bound_ms(nbytes, 4 * slots * h * d
+                                             * ring),
+            "ring_bytes_per_layer": nbytes, "slots": slots,
+            "ring_slots": ring}
+
+
+def decode_step_times(cfg, params, st, toks, steps: int = 3) -> dict:
+    """One ``T.decode_step`` on ``st``: its elapsed ms between events
+    (``time_ms``; a step's thousands of launches outrun the spin, so this
+    includes the host's launch gaps), the same replayed as one captured
+    CUDA graph (as the runner's megastep replays it), and its device busy
+    ms and kernel records (``torch.profiler``, summed over ``steps``
+    steps)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        step = time_ms(lambda: T.decode_step(cfg, params, st, toks), iters=5)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                T.decode_step(cfg, params, st, toks)
+            torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            T.decode_step(cfg, params, st, toks)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            T.decode_step(cfg, params, st, toks)
+        torch.cuda.current_stream().wait_stream(side)
+        graphed = time_ms(graph.replay, iters=5)
+        graph.reset()
     busy, launches = 0.0, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -2411,12 +2542,7 @@ def ring_decode_ms(llm, steps: int = 3) -> dict:
             launches += e.count
     return {"decode_step_ms": step, "decode_step_graphed_ms": graphed,
             "decode_step_device_ms": busy / steps,
-            "decode_step_device_ops": launches / steps,
-            "ring_attention_layer_ms": attn,
-            "ring_attention_bound": bound_ms(nbytes, 4 * slots * h * d
-                                             * ring),
-            "ring_bytes_per_layer": nbytes, "slots": slots,
-            "ring_slots": ring}
+            "decode_step_device_ops": launches / steps}
 
 
 def teacher_forced(llm, prompts, served, ring_blocks=DANUBE_RING_BLOCKS
@@ -2688,8 +2814,11 @@ def phase_hybrid_model(dev: str = "cuda", ref_dev: str = "cpu",
         res = {}
         with torch.no_grad():
             for d in (ref_dev, dev):
-                p = T.split_layers(T.cast_params(tree_to(params, d),
-                                                 T.act_dtype(cfg)))
+                # the CPU multiplies by the plain int4 product's own
+                # weights, dequantized once (``dequantized``)
+                p = T.split_layers(T.cast_params(tree_to(
+                    dequantized(params, T.act_dtype(cfg)) if d == ref_dev
+                    else params, d), T.act_dtype(cfg)))
                 st = T.make_decode_state(cfg, B, hm["nb"], hm["mb"],
                                          device=d)
                 st["block_table"] = torch.from_numpy(bt).to(d)
@@ -3133,8 +3262,11 @@ def phase_ssm_model(dev: str = "cuda", ref_dev: str = "cpu",
         res = {}
         with torch.no_grad():
             for d in (ref_dev, dev):
-                p = T.split_layers(T.cast_params(tree_to(params, d),
-                                                 T.act_dtype(cfg)))
+                # the CPU multiplies by the plain int4 product's own
+                # weights, dequantized once (``dequantized``)
+                p = T.split_layers(T.cast_params(tree_to(
+                    dequantized(params, T.act_dtype(cfg)) if d == ref_dev
+                    else params, d), T.act_dtype(cfg)))
                 st = T.make_decode_state(cfg, B, 8, 2, device=d)
                 logits, st = T.prefill(cfg, p, st, {
                     "tokens": torch.from_numpy(toks[:, :S]).to(d),
@@ -3499,7 +3631,7 @@ def _vision_embeds(cfg, rows: int, seed: int):
                                 dtype=np.float32) * 0.1)
 
 
-def _gptq_launches(cfg, M: int, layers: int) -> int:
+def _gptq_launches(cfg, M: int, layers: int, gs: int = GS) -> int:
     """``gptq_matmul``'s launches for ``layers`` layers of ``cfg``'s int4
     linears at M rows in bf16: each call launches the product and, where
     its plan splits K, the split-K sum."""
@@ -3512,7 +3644,7 @@ def _gptq_launches(cfg, M: int, layers: int) -> int:
     if cfg.act in ("silu", "swiglu"):
         shapes.append((d, f))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return layers * sum(plan(M, K, N, GS, sms).launches for K, N in shapes)
+    return layers * sum(plan(M, K, N, gs, sms).launches for K, N in shapes)
 
 
 def _rope_tables(cfg, dev: str, ref_dev: str, positions: int) -> dict:
@@ -3592,8 +3724,11 @@ def phase_vlm_model(dev: str = "cuda", ref_dev: str = "cpu",
         res = {}
         with torch.no_grad():
             for d in (ref_dev, dev):
-                p = T.split_layers(T.cast_params(tree_to(params, d),
-                                                 T.act_dtype(cfg)))
+                # the CPU multiplies by the plain int4 product's own
+                # weights, dequantized once (``dequantized``)
+                p = T.split_layers(T.cast_params(tree_to(
+                    dequantized(params, T.act_dtype(cfg)) if d == ref_dev
+                    else params, d), T.act_dtype(cfg)))
 
                 def wave(embeds):
                     st = T.make_decode_state(cfg, B, B * mb, mb, device=d)
@@ -4103,6 +4238,449 @@ def phase_audio(report: dict, gen, kernels) -> list:
     return checks
 
 
+# --------------------------------------------------------------------------
+# Phase 12: command-r-plus-104b at full width and depth (rtn-int4 at group
+# 128, layernorm, G = 12 on the paged kernels)
+# --------------------------------------------------------------------------
+
+CMDR = "command-r-plus-104b"
+CMDR_HEADS = (96, 8)             # its query heads over KV heads: G = 12
+# int4 group size: at 32 the served tree is 81.8 GB (scales and zeros
+# 25.2 GB of it) and fills the card; at 128 it is 62.9 GB
+CMDR_GS = 128
+CMDR_LINEARS = {"wq/wo": (12288, 12288), "wk/wv": (12288, 1024),
+                "gate/up": (12288, 33792), "down": (33792, 12288)}
+# every int4 linear at decode (8 rows) and at a chunk's 256
+CMDR_GPTQ_SHAPES = [(lname, K, N, CMDR_GS, (B, W))
+                    for lname, (K, N) in CMDR_LINEARS.items()]
+# the 2-layer full-width model, card vs CPU, also through T.forward over
+# [rows, positions] tokens: greedy agreement at every position
+CMDR_FORWARD = (2, 64)
+# its bf16 logits card vs CPU, over their largest magnitude.  LOGIT_TOL
+# (0.1 absolute) was set where the largest logit is ~4 (qwen2-1.5b's check
+# reads 0.043 at 3.81, llava's 0.047 at 4.34: 0.011 of it); command-r's
+# tied embedding at d 12,288 makes logits ~3x larger, and the same bf16
+# noise 3x larger in absolute terms
+CMDR_LOGIT_REL_TOL = 0.02
+# greedy agreement of those logits over CMDR_FORWARD's positions.  Over
+# 256,000 random-weight logits of ~2.5 spread the top two lie ~0.5 apart,
+# and the card's and the CPU's bf16 roundings (0.125 apart at most) flip
+# ~5% of positions (an H100 80GB HBM3 at 700 W read 0.945 of 128, where
+# llava's 32,000 logits flipped 1.8%): MODEL_AGREEMENT (0.95) would fail
+# about every other run on near-ties alone, so this check is held at
+# TEACHER_AGREEMENT, the bf16 paths' token limit against an oracle
+CMDR_AGREEMENT = TEACHER_AGREEMENT
+
+
+def cmdr_forward(dev: str = "cuda", ref_dev: str = "cpu", layers: int = 2,
+                 shape=CMDR_FORWARD) -> dict:
+    """command-r at full width cut to ``layers``, rtn-int4 at CMDR_GS in
+    bf16 with drawn norms (``random_norms``), the same params and tokens
+    through ``T.forward`` on ``dev`` and ``ref_dev``: the logits at every
+    position within CMDR_LOGIT_REL_TOL of their largest magnitude, and
+    their greedy tokens agreeing on at least CMDR_AGREEMENT (a share of
+    a few served rows would be all or nothing: one bf16 near-tie over
+    256,000 logits flips a row).  The CPU side multiplies by the plain
+    version's dequantized weights (``dequantized``).  The control: the
+    forward on ``dev`` with every layernorm bias dropped must miss the
+    limit (the check sees the bias)."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import tree_to
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantize import quantize_params_rtn
+    cfg = get_config(CMDR).replace(num_layers=layers)
+    params = random_norms(quantize_params_rtn(T.init_params(cfg, 1, dev),
+                                              cfg, CMDR_GS))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, shape).astype(np.int32))
+    act = T.act_dtype(cfg)
+
+    def no_bias(tree, key=""):
+        if isinstance(tree, dict):
+            return {k: no_bias(v, k) for k, v in tree.items()}
+        return torch.zeros_like(tree) if key == "b" else tree
+    out = {}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for name, d, tree in (("ref", ref_dev, dequantized(params, act)),
+                              ("card", dev, params),
+                              ("control", dev, no_bias(params))):
+            p = T.cast_params(tree_to(tree, d), act)
+            out[name] = T.forward(cfg, p, {"tokens": toks.to(d)}) \
+                .float().cpu()
+            del p, tree
+    want, got = out["ref"], out["card"]
+    scale = want.abs().max().item()
+    tol = CMDR_LOGIT_REL_TOL * scale
+    err = (got - want).abs().max().item()
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    control = (out["control"] - want).abs().max().item()
+    res = {"positions": int(np.prod(shape)), "logit_max_abs_err": err,
+           "max_abs_logit": scale, "greedy_agreement": agree,
+           "control_bias_dropped_max_abs_err": control,
+           "tolerance": tol, "relative_tolerance": CMDR_LOGIT_REL_TOL,
+           "seconds": time.perf_counter() - t0}
+    if not (err <= tol and agree >= CMDR_AGREEMENT
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"model {CMDR} forward, card vs CPU: {res} "
+                             f"(greedy >= {CMDR_AGREEMENT})")
+    if not control > tol:
+        raise AssertionError(f"model {CMDR} forward: the control with the "
+                             f"layernorm biases dropped reads {control}, "
+                             f"within the limit {tol}: the check is blind")
+    return res
+
+
+def served_bytes(params) -> int:
+    """Bytes of every leaf a decode step reads from the served tree: int4
+    codes, scales and zeros, norms, and the tied embedding (the
+    unembedding reads all of it; the rows the lookup reads are part of
+    it).  ``g_idx`` is not read on the card (the kernel takes contiguous
+    groups)."""
+    from repro_torch.models import transformer as T
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return sum(walk(v) for k, v in tree.items() if k != "g_idx")
+        if isinstance(tree, list):
+            return sum(walk(v) for v in tree)
+        return tree.numel() * tree.element_size()
+    return walk({k: v for k, v in params.items() if k not in T.STACKS}) \
+        + sum(walk(params[k]) for k in T.STACKS if k in params)
+
+
+def paged_decode_ms(llm) -> dict:
+    """One full-depth decode step of the served model over its paged pool
+    with every slot's table full (max_blocks_per_seq x 16 keys):
+    ``decode_step_times`` (elapsed, graphed, device busy), beside its
+    bound: every leaf of the served tree it reads (``served_bytes``) and
+    the pool's live K/V, over 3.35 TB/s, or its operations (two a weight
+    and row, and the attention's) over the bf16 peak.  Writes one token
+    per slot into the pool, so it runs after the serves."""
+    import torch
+    cfg, runner = llm.cfg, llm.engine.runner
+    slots, mb = runner.max_slots, runner.mb
+    keys = mb * cfg.paging.block_size
+    st = dict(runner.state)
+    st["seq_lens"] = torch.full((slots,), keys, dtype=torch.int32,
+                                device="cuda")
+    st["block_table"] = torch.arange(slots * mb, dtype=torch.int32,
+                                     device="cuda").reshape(slots, mb)
+    toks = torch.arange(slots, dtype=torch.int32, device="cuda")
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    weights = served_bytes(runner.params)
+    kv_bytes = 2 * cfg.num_layers * slots * keys * kv * d * 2
+    # two operations a weight and row (the embedding's in the
+    # unembedding), and the attention's four a query head, key and dim
+    flops = 2 * slots * cfg.num_params() \
+        + 4 * cfg.num_layers * slots * h * d * keys
+    out = decode_step_times(cfg, runner.params, st, toks)
+    out.update(slots=slots, keys=keys, served_bytes=weights,
+               kv_bytes=kv_bytes, params=cfg.num_params(),
+               bound=bound_ms(weights + kv_bytes, flops))
+    return out
+
+
+def check_gptq_serve_launches(serve: dict, cfg, gs: int, slots: int,
+                              width: int) -> int:
+    """``gptq_matmul``'s launches over a chunked serve, from the runner's
+    steps: each decode step multiplies ``slots`` rows and each chunk
+    ``width`` rows through every layer's int4 linears, as their plans
+    give (``_gptq_launches``).  Returns the count; raises unless the
+    wrapper counted it."""
+    steps = serve["runner_steps"]
+    if steps.get("wave"):
+        raise AssertionError(f"serve {serve['label']}: whole-prompt waves "
+                             f"{steps} on a chunked engine")
+    want = steps["decode"] * _gptq_launches(cfg, slots, cfg.num_layers, gs) \
+        + steps["chunk"] * _gptq_launches(cfg, width, cfg.num_layers, gs)
+    if serve["launches"]["gptq_matmul"] != want:
+        raise AssertionError(f"serve {serve['label']}: gptq_matmul launched "
+                             f"{serve['launches']['gptq_matmul']} times, its "
+                             f"plans give {want} for the steps {steps}")
+    return want
+
+
+def cmdr_kernels(gen) -> list:
+    """Phase 12's kernel checks: the decode and chunk kernels at
+    command-r's G = 12 (96 query heads over 8 KV heads; 12 of the 16 mma
+    rows live) in every case of PAGED_CASES / CHUNK_CASES, each live row
+    also held to its own RMS; ``gptq_matmul`` at group size 128 at its
+    linears at decode and at a chunk (w_down: K 33,792, 264 groups)."""
+    import torch
+    checks = []
+    for check, label in ((check_paged_attention, "paged_attention[G=12]"),
+                         (check_flash_attention_chunk,
+                          "flash_attention_chunk[G=12]")):
+        k = check(gen, heads=CMDR_HEADS, row_check=True)
+        k["label"], k["serves"] = label, ("cmdr-defaults",)
+        checks.append(k)
+    g = check_gptq_matmul(
+        gen, shapes=CMDR_GPTQ_SHAPES, main_shape=("gate/up", 8),
+        shape="x[8,12288] @ int4[12288,33792] gs 128 (w_gate / w_up, "
+              "decode)")
+    g["label"], g["serves"] = "gptq_matmul[cmdr]", ("cmdr-defaults",)
+    checks.append(g)
+    for k in checks:
+        lib = "null" if k["library_ms"] is None else f"{k['library_ms']:.4f}"
+        log(f"[kernel] {k['label']}: kernel_ms={k['ms']:.4f} "
+            f"plain_ms={k['plain_ms']:.4f} library_ms={lib} "
+            f"bound_ms={k['bound'][0]:.5f} ({k['bound'][1]}) "
+            f"max_abs_err={k['max_abs_err']:.3e} [{k['shape']}]")
+    torch.cuda.empty_cache()
+    return checks
+
+
+def cmdr_model() -> dict:
+    """Phase 12's 2-layer full-width model card vs CPU: ``phase_model`` at
+    group 128 over bf16 and int8 pools (the decode step, a chunk and the
+    unified step, drawn norms, logits within CMDR_LOGIT_REL_TOL of their
+    largest; no whole-prompt wave: the chunked serve runs none), then
+    ``cmdr_forward`` (greedy agreement over its positions)."""
+    import torch
+    out = {}
+    for kv in ("bf16", "int8"):
+        t0 = time.perf_counter()
+        out[kv] = res = phase_model("cuda", kv=kv, config=CMDR, gs=CMDR_GS,
+                                    init_dev="cuda", wave=False,
+                                    rel_tol=CMDR_LOGIT_REL_TOL)
+        res["seconds"] = time.perf_counter() - t0
+        log(f"[model] 2-layer full-width {CMDR} rtn-int4 gs {CMDR_GS}, {kv} "
+            f"pool, card vs CPU: {json.dumps(res)}")
+        torch.cuda.empty_cache()
+    out["forward"] = res = cmdr_forward()
+    log(f"[model] 2-layer full-width {CMDR} T.forward card vs CPU: "
+        f"{json.dumps(res)}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def cmdr_serve(kernels) -> dict:
+    """Phase 12's full-depth part: command-r-plus-104b ``rtn-int4`` at
+    group 128 (62.9 GB served) loaded (seconds, peak), served on the
+    engine's defaults (``cmdr-defaults``: chunked, async, graphs on and
+    off, profiled, 0 pageable copies, attention launches 64 x the
+    runner's steps and ``gptq_matmul``'s as its plans give), and one full
+    decode step timed beside its bound (``paged_decode_ms``)."""
+    import torch
+    from repro_torch.serving import LLM
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM.load(CMDR, quant="rtn-int4", quant_group_size=CMDR_GS, seed=0)
+    torch.cuda.synchronize()
+    load_s, load_peak = time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+    eng = llm.engine
+    served = served_bytes(eng.runner.params)
+    log(f"[serve] {CMDR} rtn-int4 gs {CMDR_GS} loaded in {load_s:.2f} s "
+        f"(init and RTN a layer at a time {llm.load_s['init']:.2f} s), peak "
+        f"{load_peak} B, served tree {served} B, allocated "
+        f"{torch.cuda.memory_allocated()} B; engine chunked={eng.chunked} "
+        f"async_step={eng.async_step}")
+    if not (eng.chunked and eng.async_step):
+        raise AssertionError(f"{CMDR}: its defaults must be chunked and "
+                             "async, as any full-attention decoder's")
+    serve = phase_serve("cuda", config=CMDR, kernels=kernels,
+                        label="cmdr-defaults", options={},
+                        must=BF16_CHUNKED_KERNELS[0],
+                        never=BF16_CHUNKED_KERNELS[1],
+                        profile=True, llm=llm, graphs_off=True)
+    serve["load_s"], serve["load_max_memory_allocated"] = load_s, load_peak
+    serve["served_bytes"] = served
+    log_serve("cmdr-defaults", serve, f"rtn-int4 gs {CMDR_GS}")
+    for run in (serve, serve["off"]):
+        if run["profile"]["pageable_copies"]:
+            raise AssertionError(f"serve {run['label']}: pageable memcpys "
+                                 "under the profiler (want 0)")
+        run["gptq_launches_planned"] = check_gptq_serve_launches(
+            run, llm.cfg, CMDR_GS, eng.runner.max_slots,
+            eng.runner.chunk_tokens)
+    log_time("cmdr serve")
+    serve["decode_step"] = ds = paged_decode_ms(llm)
+    log(f"[cmdr] one full-depth decode step, {ds['slots']} slots of "
+        f"{ds['keys']} keys: {json.dumps(ds)}")
+    llm.close()
+    del llm, eng
+    torch.cuda.empty_cache()
+    return serve
+
+
+def phase_cmdr(report: dict, gen, kernels) -> list:
+    """Phase 12 on the card: ``cmdr_kernels``, ``cmdr_model`` and
+    ``cmdr_serve``.  Returns the kernel checks."""
+    r = report["cmdr"] = {}
+    t_phase = time.perf_counter()
+    r["kernels"] = checks = cmdr_kernels(gen)
+    log_time("cmdr kernels")
+    r["model"] = cmdr_model()
+    log_time("cmdr model")
+    r["serve"] = {"cmdr-defaults": cmdr_serve(kernels)}
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"[cmdr] phase 12 took {r['seconds']:.1f} s")
+    return checks
+
+
+# --------------------------------------------------------------------------
+# Phase 13: the serve CLI (``python -m repro_torch.launch.serve``) in
+# process, Opt-GQA and its MHA baseline
+# --------------------------------------------------------------------------
+
+CLI_ARGS = ("--arch", "qwen2-1.5b", "--no-reduced", "--quant", "rtn-int4",
+            "--requests", "16", "--max-tokens", "32")
+# the profiled run: torch.profiler records every kernel of the run (half a
+# million for CLI_ARGS' 16 requests, which it slowed from ~2 s to ~25 s on
+# an H100), so the timed runs go without it and a short run checks the
+# capture
+CLI_PROFILED = ("--requests", "4", "--max-tokens", "8")
+# the MHA baseline's KV bytes a token over Opt-GQA's: 12 KV heads over 2
+CLI_KV_RATIO = 6.0
+CLI_KERNELS = ({"paged_attention", "flash_attention_chunk", "gptq_matmul"},
+               {"paged_attention_quant", "flash_attention_chunk_int8",
+                "flash_attention"} | SCAN_KERNELS)
+# a gzipped profiler trace larger than this is checked, then not kept
+CLI_PROFILE_KEEP = 8 << 20
+
+
+def _finite(tree) -> bool:
+    import math
+    if isinstance(tree, dict):
+        return all(_finite(v) for v in tree.values())
+    if isinstance(tree, list):
+        return all(_finite(v) for v in tree)
+    return not isinstance(tree, float) or math.isfinite(tree)
+
+
+def run_cli(argv, kernels, out_dir: Path, dev: str = "cuda",
+            profile: bool = False) -> dict:
+    """``repro_torch.launch.serve.main(argv)`` in process with
+    ``--metrics-out`` and ``--trace-out`` (and with ``profile``
+    ``--profile-dir``) under ``out_dir``; its printed lines read back
+    (``read_output``), the kernels' launches counted from zero, and its
+    files checked: every request finished with ``length``, the paged
+    decode, chunk and int4 kernels launched and no other attention kernel,
+    the span trace valid (``validate_chrome_trace``), the metrics snapshot
+    finite, the profiler's Chrome trace holding kernel records (then
+    gzipped, and kept if under CLI_PROFILE_KEEP).  ``dev="cpu"``
+    rehearses it (``--device cpu`` and a reduced config in ``argv``): the
+    plain versions count no launch and the profiler records no kernel
+    there, so those two checks are the card's.  Returns the record."""
+    import contextlib
+    import gzip
+    import io
+    import shutil
+    import torch
+    from repro_torch.launch import serve as cli
+    from repro_torch.obs.trace import validate_chrome_trace
+    out_dir.mkdir(parents=True, exist_ok=True)
+    files = {"metrics": out_dir / "metrics.json",
+             "trace": out_dir / "trace.json", "profile": out_dir / "profile"}
+    argv = [*argv, "--device", dev, "--metrics-out", str(files["metrics"]),
+            "--trace-out", str(files["trace"])]
+    if profile:
+        argv += ["--profile-dir", str(files["profile"])]
+    card = dev != "cpu"
+    for k in kernels:
+        k.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    if card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    got = cli.read_output(buf.getvalue())
+    reqs, mode = got["requests"], got["mode"]
+    label = mode["mode"] + (" profiled" if profile else "")
+    n = cli._parser().parse_args(argv).requests
+    bad = [q["rid"] for q in reqs if q["finish_reason"] != "length"]
+    if len(reqs) != n or bad:
+        raise AssertionError(f"cli {label}: {len(reqs)} request lines, not "
+                             f"finished with length: {bad}")
+    missing = [k for k in CLI_KERNELS[0] if launches.get(k, 0) <= 0]
+    stray = [k for k in CLI_KERNELS[1] if launches.get(k, 0) > 0]
+    if card and (missing or stray):
+        raise AssertionError(f"cli {label}: kernels {missing} never "
+                             f"launched, {stray} launched: {launches}")
+    trace = json.loads(files["trace"].read_text())
+    problems = validate_chrome_trace(trace)
+    if problems:
+        raise AssertionError(f"cli {label}: --trace-out invalid: "
+                             f"{problems[:5]}")
+    metrics = json.loads(files["metrics"].read_text())
+    if not _finite(metrics):
+        raise AssertionError(f"cli {label}: the metrics snapshot holds a "
+                             "non-finite number")
+    out = {"mode": mode["mode"], "wall_s": wall, "launches": launches,
+           "requests": len(reqs), "report": mode,
+           "attribution": got["attribution"],
+           "trace_events": len(trace.get("traceEvents", [])),
+           "tokens": [q["tokens"] for q in reqs]}
+    if profile:
+        prof = files["profile"] / "trace.json"
+        events = json.loads(prof.read_text()).get("traceEvents", [])
+        kernel_events = sum(e.get("cat") == "kernel" for e in events)
+        if card and not kernel_events:
+            raise AssertionError(f"cli {label}: --profile-dir's trace holds "
+                                 "no kernel record")
+        gz = Path(str(prof) + ".gz")
+        with prof.open("rb") as src, gzip.open(str(gz), "wb") as dst:
+            shutil.copyfileobj(src, dst)
+        out.update(profile_kernel_records=kernel_events,
+                   profile_trace_bytes=prof.stat().st_size)
+        prof.unlink()
+        if gz.stat().st_size > CLI_PROFILE_KEEP:
+            gz.unlink()                  # checked, too large to keep
+        out["profile_trace_kept"] = gz.exists()
+    return out
+
+
+def phase_cli(report: dict, kernels, dev: str = "cuda",
+              args=CLI_ARGS) -> None:
+    """Phase 13 on the card: the serve CLI in process, full-depth
+    qwen2-1.5b rtn-int4, 16 requests of 32 new tokens (CLI_ARGS), once
+    as Opt-GQA and once with ``--mha-baseline`` (12 KV heads, prefix reuse
+    off), each checked by ``run_cli``, their KV bytes a token (the
+    ``mode`` lines) in the ratio CLI_KV_RATIO; then a short Opt-GQA run
+    with ``--profile-dir`` (CLI_PROFILED).  Both timed runs' tok/s and
+    ITL are printed, a finding and no claim.  On the CPU (``dev="cpu"``,
+    ``args`` with ``--reduced``) it rehearses the phase."""
+    import torch
+    r = report["cli"] = {}
+    t_phase = time.perf_counter()
+    base = ROOT / "chiprun_out" / "cli"
+    for label, extra, profile in (
+            ("opt-gqa", (), False), ("mha", ("--mha-baseline",), False),
+            ("opt-gqa-profiled", CLI_PROFILED, True)):
+        r[label] = run = run_cli([*args, *extra], kernels, base / label, dev,
+                                 profile)
+        rep = run["report"]
+        log(f"[cli] {label}: {run['requests']} requests in "
+            f"{run['wall_s']:.2f} s (load included): "
+            f"generate_tok_s={rep['generate_tok_s']} "
+            f"itl_p50_ms={rep['itl_p50_ms']} itl_p99_ms={rep['itl_p99_ms']} "
+            f"ttft_p50_ms={rep['ttft_p50_ms']} "
+            f"kv_bytes_per_token={rep['kv_bytes_per_token']} "
+            f"launches={run['launches']} "
+            f"attribution {json.dumps(run['attribution'])}"
+            + (f" profile_kernel_records={run['profile_kernel_records']} "
+               f"profile_trace_bytes={run['profile_trace_bytes']}"
+               if profile else ""))
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+    ratio = r["mha"]["report"]["kv_bytes_per_token"] \
+        / r["opt-gqa"]["report"]["kv_bytes_per_token"]
+    r["kv_bytes_ratio"] = ratio
+    if ratio != CLI_KV_RATIO:
+        raise AssertionError(f"cli: kv_bytes_per_token MHA / Opt-GQA = "
+                             f"{ratio}, want {CLI_KV_RATIO}")
+    log(f"[cli] kv_bytes_per_token MHA / Opt-GQA = {ratio}")
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"[cli] phase 13 took {r['seconds']:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4213,6 +4791,10 @@ def main() -> int:
     log_time("vlm phase")
     audio_checks = phase_audio(report, gen, ops.KERNELS)
     log_time("audio phase")
+    cmdr_checks = phase_cmdr(report, gen, ops.KERNELS)
+    log_time("cmdr phase")
+    phase_cli(report, ops.KERNELS)
+    log_time("cli phase")
 
     record = []
     # each check's launches come from the serves of its own phase
@@ -4233,7 +4815,9 @@ def main() -> int:
                             + [(k, report["vlm"]["serve"])
                                for k in vlm_checks]
                             + [(k, report["audio"]["serve"])
-                               for k in audio_checks]):
+                               for k in audio_checks]
+                            + [(k, report["cmdr"]["serve"])
+                               for k in cmdr_checks]):
         # a check of one serve's shapes counts that serve's launches only
         by_serve = {lb: sv["launches"][k["name"]]
                     for lb, sv in phase_serves.items()
@@ -4253,7 +4837,7 @@ def main() -> int:
             "shape": k["shape"]})
     report["kernels"] = (kernels + moe_checks + sliding_checks
                          + hybrid_checks + ssm_checks + vlm_checks
-                         + audio_checks)
+                         + audio_checks + cmdr_checks)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -17,7 +17,9 @@ Params = Dict[str, torch.Tensor]
 def dense_init(gen: torch.Generator, shape, in_axis_size: Optional[int] = None,
                device="cpu") -> torch.Tensor:
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
-    return torch.randn(shape, generator=gen, device=device) * fan_in ** -0.5
+    # scaled in place: the same numbers without a second full-size buffer
+    return torch.randn(shape, generator=gen, device=device).mul_(
+        fan_in ** -0.5)
 
 
 # ---------------------------------------------------------------- norms
@@ -123,7 +125,7 @@ def linear(x: torch.Tensor, w, out_tail: Optional[tuple] = None
 # ---------------------------------------------------------------- embedding
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                device="cpu") -> torch.Tensor:
-    return torch.randn((vocab, d), generator=gen, device=device) * 0.02
+    return torch.randn((vocab, d), generator=gen, device=device).mul_(0.02)
 
 
 def unembed(x: torch.Tensor, embed: torch.Tensor,

@@ -19,7 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, QuantConfig
 from repro_torch.core.gptq import (HessianAccumulator, QuantizedTensor,
                                    gptq_quantize)
-from repro_torch.core.quant import make_quant_params, pack_codes
+from repro_torch.core.quant import PACK, make_quant_params, pack_codes
 from repro_torch.models import transformer as T
 
 # the linears of the families the port serves (the reference's list
@@ -51,23 +51,39 @@ def require_gptq_family(cfg: ModelConfig) -> None:
             f"{cfg.family!r} ({cfg.name}); use quant='rtn-int4'")
 
 
+# elements of one column slice of ``_rtn_pack``'s codes: its f32 quotients
+# and int64 words stay near 256 MB each, not the full-size copies of a
+# 12,288 x 33,792 matrix (1.66 GB in f32, 3.3 GB widened to int64)
+PACK_SLICE = 1 << 25
+
+
 def _rtn_pack(w2: torch.Tensor, group_size: int) -> Dict[str, torch.Tensor]:
     """RTN int4 pack of [..., K, N] weights (leading dims are layer
-    stacks); every leaf of the result keeps the leading dims."""
+    stacks); every leaf of the result keeps the leading dims.  The codes
+    are rounded and packed a column slice at a time (elementwise, so the
+    same codes as the whole matrix at once)."""
     *lead, K, N = w2.shape
     gs = group_size if (K % group_size == 0 and K >= group_size) else K
     G = K // gs
-    wg = w2.reshape(*lead, G, gs, N).float()
-    wmax = wg.amax(dim=-2).clamp(min=0)
-    wmin = wg.amin(dim=-2).clamp(max=0)
+    wg = w2.reshape(*lead, G, gs, N)
+    wmax = wg.amax(dim=-2).float().clamp(min=0)
+    wmin = wg.amin(dim=-2).float().clamp(max=0)
     rng = wmax - wmin
     scale = torch.where(rng > 0, rng / 15.0, torch.ones_like(rng))
     zero = torch.round(-wmin / scale)
-    q = torch.clamp(torch.round(wg / scale.unsqueeze(-2)
-                                + zero.unsqueeze(-2)), 0, 15)
+    qweight = torch.empty((*lead, K // PACK, N), dtype=torch.int32,
+                          device=w2.device)
+    cols = max(1, PACK_SLICE // max(1, K))
+    for c in range(0, N, cols):
+        sl = slice(c, c + cols)
+        q = torch.clamp(torch.round(wg[..., sl].float()
+                                    / scale[..., None, sl]
+                                    + zero[..., None, sl]), 0, 15)
+        qweight[..., sl] = pack_codes(q.reshape(*lead, K, q.shape[-1]))
+        del q
     g_idx = (torch.arange(K, dtype=torch.int32, device=w2.device) // gs)
-    return {"qweight": pack_codes(q.reshape(*lead, K, N)), "scales": scale,
-            "zeros": zero, "g_idx": g_idx.expand(*lead, K).contiguous()}
+    return {"qweight": qweight, "scales": scale, "zeros": zero,
+            "g_idx": g_idx.expand(*lead, K).contiguous()}
 
 
 def _din_for(name: str, w: torch.Tensor, cfg: ModelConfig) -> int:

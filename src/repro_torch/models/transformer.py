@@ -180,8 +180,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     preallocated layer stacks before the next, so a load peaks near the
     stored size plus one f32 layer (qwen2-moe in bf16: 28.6 GB, not the
     57 GB of an all-f32 tree).  ``layer_fn``, if given, transforms each
-    drawn (and cast) layer before it is stored, as ``LLM.load`` quantizes
-    each layer to int4 as it is drawn.  ``device="meta"`` gives the shapes
+    drawn f32 layer before the cast and before it is stored, as
+    ``LLM.load`` quantizes each layer to int4 as it is drawn: the codes
+    come from the f32 weights, and ``cast_params`` passes int4 dicts
+    through, so what is cast is what the runner would cast later
+    (command-r-plus-104b then keeps its tied embedding in bf16 from the
+    start, 6.29 GB, not 12.58 in f32).  ``device="meta"`` gives the shapes
     only.  A hybrid draws its layers in model order from the one seeded
     generator into the per-kind stacks (the reference folds
     ``hash(stack name)`` into each stack's key, which Python salts per
@@ -209,10 +213,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         sizes[stack] = sizes.get(stack, 0) + 1
     for kind, stack, j in plan:
         layer = init_layer(gen, cfg, dev, kind)
-        if dtype is not None:
-            layer = cast_params(layer, dtype)
         if layer_fn is not None:
             layer = layer_fn(layer)
+        if dtype is not None:
+            layer = cast_params(layer, dtype)
         if stack not in params:
             params[stack] = _map(lambda t: torch.empty(
                 (sizes[stack], *t.shape), dtype=t.dtype, device=dev),

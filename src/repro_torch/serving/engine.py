@@ -1090,6 +1090,7 @@ class ServingEngine:
             "gen_tokens": m["gen_tokens"],
             "prompt_tokens": m["prompt_tokens"],
             "prefill_chunks": m["prefill_chunks"],
+            "prefill_compiles": self.runner.prefill_compiles(),
             "decode_steps": m["decode_steps"],
             "decode_dispatches": m["decode_dispatches"],
             "device_dispatches": m["device_dispatches"],

@@ -143,11 +143,15 @@ class LLM:
             require_rtn_family(cfg)
         elif quant == "gptq-int4":
             require_gptq_family(cfg)
-        # unquantized weights are served cast to the activation dtype: store
-        # them so from the start (a bf16 qwen2-moe peaks near its 28.6 GB)
-        dtype = T.act_dtype(cfg) if quant is None else None
         t0 = time.perf_counter()
         rtn_as_drawn = quant == "rtn-int4" and checkpoint is None
+        # what is served cast to the activation dtype is stored so from the
+        # start: unquantized weights (a bf16 qwen2-moe peaks near its 28.6
+        # GB) and, in a seeded rtn-int4 load, whatever each layer's
+        # quantization leaves dense, and the embedding (command-r's tied
+        # one: 6.29 GB in bf16, 12.58 in f32); GPTQ calibrates and a
+        # restored tree is quantized on f32 weights
+        dtype = T.act_dtype(cfg) if quant is None or rtn_as_drawn else None
         if checkpoint is not None:
             params = restore_params(checkpoint,
                                     T.init_params(cfg, device="meta"), dev,

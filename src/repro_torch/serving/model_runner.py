@@ -193,6 +193,8 @@ class ModelRunner:
         # dispatch; on the card they share one capture stream and pool
         self.capture_graphs = bool(capture_graphs)
         self.graphs: Dict[str, StepGraph] = {}
+        # captures per kind of graphs released by ``close``
+        self._closed_captures: Dict[str, int] = {}
         self._capture_stream = None
         self._pool = None
 
@@ -407,7 +409,9 @@ class ModelRunner:
         captures anew."""
         if self._capture_stream is not None:
             torch.cuda.current_stream(self.device).synchronize()
-        for g in self.graphs.values():
+        for kind, g in self.graphs.items():
+            self._closed_captures[kind] = \
+                self._closed_captures.get(kind, 0) + g.captures
             g.reset()
         self.graphs.clear()
         if self._capture_stream is not None:
@@ -651,6 +655,22 @@ class ModelRunner:
         """Device bytes held by the paged KV pools."""
         return sum(self.state[k].numel() * self.state[k].element_size()
                    for k in _POOL_KEYS if k in self.state)
+
+    def prefill_compiles(self) -> float:
+        """Captures of the step graphs that run prefill work (the unified
+        step, its chained variant, the standalone chunk), the most of any
+        one kind, released graphs included: the counterpart of the
+        reference's compile count of that executable, 1 for a healthy
+        fixed-shape run.  NaN where no graph runs prefill: graphs off, or
+        whole-prompt waves (eager here; one executable per shape in the
+        reference)."""
+        if not self.capture_graphs or self.chunk_tokens is None:
+            return float("nan")
+        kinds = ("unified", "chained", "chunk")
+        return float(max(
+            [self._closed_captures.get(k, 0)
+             + (self.graphs[k].captures if k in self.graphs else 0)
+             for k in kinds]))
 
     def kv_bytes_per_token(self) -> float:
         """KV bytes per cached token position, across all layers (scales

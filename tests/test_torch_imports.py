@@ -102,7 +102,7 @@ def test_unported_paths_refuse():
     from repro_torch.models import transformer as T
     from repro_torch.serving import LLM, FaultInjector, ServingEngine
     with pytest.raises(NotImplementedError, match="A11"):
-        get_config("command-r-plus-104b")
+        get_config("kimi-k2-1t-a32b")
     # the RG-LRU hybrid is served, ring-only, by synchronous waves
     rcfg = get_reduced("recurrentgemma-2b", num_layers=3)
     assert get_config("recurrentgemma-2b").family == "hybrid"
