@@ -232,6 +232,31 @@ Phases, each of which fails loudly (any failure exits non-zero):
              attention kernel, ``--trace-out`` valid, ``--metrics-out``
              finite, the KV bytes a token 6.0 apart; then a short run
              under ``--profile-dir`` whose trace holds kernel records.
+14. train  — the trainer on qwen2-1.5b at full width (f32 master weights,
+             bf16 activations): (a) B5 under autograd
+             (``FlashAttentionFn``: the kernel forward, the plain
+             version's backward) at the trainer's [8, 512] and at a
+             window, ALiBi, an offset and head dims 80, 120 and 256: one
+             counted launch a forward, the output within TOL and each row
+             within FLASH_REL_TOL of the plain version, dq / dk / dv
+             bitwise the plain autograd, two calls bitwise equal, the
+             forward and the backward timed beside their bounds (and at
+             [8, 512] beside the plain version's and SDPA's); (b) the
+             model cut to 2 layers, loss and every leaf's gradient card vs
+             CPU within TRAIN_LOSS_REL and TRAIN_GRAD_RMS of the leaf's
+             RMS, with attention's output detached as a control that must
+             miss; (c) full depth through ``launch.train.main``: 8 steps
+             of [8, 512] SyntheticLM batches and one save, exactly 56 B5
+             launches a step and no other kernel of the port, finite
+             losses, step ms, tokens/s, peak memory, the save's seconds
+             and bytes (the directory removed after), then two steps on
+             one batch under ``torch.profiler`` (device idle share, time
+             by part; the loss descends) and AdamW's update timed beside
+             its bound; (d) the model cut to 2 layers through the
+             ``Supervisor``: a failure injected before step 3, restored
+             from step 2, held to the uninterrupted run's losses; (e)
+             every serving-only kernel raises under autograd instead of
+             returning an output without a gradient.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -4681,6 +4706,623 @@ def phase_cli(report: dict, kernels, dev: str = "cuda",
     log(f"[cli] phase 13 took {r['seconds']:.1f} s")
 
 
+# --------------------------------------------------------------------------
+# Phase 14: the trainer (qwen2-1.5b at full width and depth: loss_fn, the
+# rematerialised backward through B5's autograd rule, AdamW, SyntheticLM,
+# the checkpoint writer, the Supervisor and launch/train.py)
+# --------------------------------------------------------------------------
+
+TRAIN = "qwen2-1.5b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 512  # SyntheticLM batches [8, 512]
+TRAIN_STEPS = 8
+# B5 launches a step: each of the 28 layers' forward, and again when the
+# backward recomputes the layer (torch.utils.checkpoint)
+TRAIN_B5_PER_STEP = 56
+TRAIN_MODEL = {"layers": 2, "batch": (2, 64)}
+# 2-layer full width, bf16 activations, card vs CPU: the loss within
+# TRAIN_LOSS_REL of the CPU's, each leaf's gradient within TRAIN_GRAD_RMS
+# of its RMS (RMS of the difference over RMS of the CPU's gradient; bf16
+# rounds each product's output to 8 bits of mantissa, 0.4%, at other
+# places on the two devices)
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_RMS = 0.05
+# the restart: full width cut to 2 layers, a save every 2 steps, a
+# failure injected before step 3 (restored from step 2)
+RESTART = ("--layers", "2", "--steps", "4", "--save-every", "2")
+RESTART_FAIL_AT = 3
+RESTART_LOSS_REL = 1e-3
+# the profiled steps' optimizer: the CLI's (lr 3e-4 after a 100-step
+# warmup; at lr 1e-3 from the first step the repeated batch's third loss
+# overshot the first on an H100 80GB HBM3 at 700 W: 12.41, 9.85, 14.08)
+TRAIN_PROFILE_OPT = {"total_steps": TRAIN_STEPS}
+
+
+def _live_pairs(q, k, kw) -> int:
+    """The (query, key) pairs a static-attention call computes."""
+    import torch
+    b, sq = q.shape[:2]
+    q_pos = kw.get("q_offset", 0) + torch.arange(sq, device=q.device)
+    dist = q_pos[:, None] - torch.arange(k.shape[1], device=q.device)[None]
+    live = torch.ones_like(dist, dtype=torch.bool)
+    if kw.get("causal", True):
+        live &= dist >= 0
+    if kw.get("sliding_window", 0):
+        live &= dist < kw["sliding_window"]
+    return b * int(live.sum())
+
+
+def _flash_bounds(q, k, kw) -> tuple:
+    """(forward bound, backward bound) of one static-attention call: the
+    forward reads q, k, v and writes o (bf16) and does the two products
+    of each live pair; the backward reads q, k, v, dO, writes dq, dk, dv
+    and does five (S recomputed, dV, dP, dQ, dK)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    pairs = _live_pairs(q, k, kw)
+    fwd = bound_ms(2 * (2 * b * sq * h * d + 2 * b * sk * kvh * d),
+                   4 * h * d * pairs)
+    bwd = bound_ms(2 * (3 * b * sq * h * d + 4 * b * sk * kvh * d),
+                   10 * h * d * pairs)
+    return fwd, bwd
+
+
+def _sdpa_train_ms(q, k, v, do) -> tuple:
+    """SDPA (causal, ``enable_gqa``) forward and backward on the same
+    inputs, the library yardstick; (None, None) where this torch refuses
+    it."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    try:
+        fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        bwd = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot,
+                                                  retain_graph=True))
+    except (TypeError, RuntimeError) as e:
+        log(f"[train] SDPA yardstick refused: {e}")
+        return None, None
+    return fwd, bwd
+
+
+def check_flash_autograd(gen) -> dict:
+    """Phase 14 (a): B5 under autograd (``ops.flash_attention`` on inputs
+    that require grad goes through ``FlashAttentionFn``): at the trainer's
+    shape [8, 512] (12 / 2 heads of 128, causal) and at a window, ALiBi,
+    an offset and head dims 80 (not causal, ALiBi), 120 (window) and 256:
+    one counted launch a forward, the output within TOL of the plain
+    version and each row within FLASH_REL_TOL of its RMS, dq / dk / dv
+    bitwise the plain version's autograd on the same inputs, two calls
+    bitwise equal; the forward and the backward (the plain recompute)
+    timed beside their bounds, and at the trainer's shape beside the plain
+    version's and SDPA's."""
+    import torch
+    from repro_torch.core.alibi import alibi_slopes
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    cases = [(f"train [{TRAIN_BATCH},{TRAIN_SEQ}] causal",
+              _qkv(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ), {}),
+             ("window 128", _qkv(gen, 2, 512, 512), {"sliding_window": 128}),
+             ("ALiBi", _qkv(gen, 2, 512, 512),
+              {"alibi_slopes": alibi_slopes(H, "cuda")}),
+             ("q_offset 128, Sq 256 < Sk 384", _qkv(gen, 2, 256, 384),
+              {"q_offset": 128}),
+             ("D 80, 16 / 16 heads, not causal, ALiBi",
+              _qkv(gen, 2, 256, 256, 16, 16, 80),
+              {"causal": False, "alibi_slopes": alibi_slopes(16, "cuda")}),
+             ("D 120, 32 / 8 heads, window 192",
+              _qkv(gen, 1, 512, 512, 32, 8, 120), {"sliding_window": 192}),
+             ("D 256, 10 / 1 heads, causal",
+              _qkv(gen, 1, 512, 512, 10, 1, 256), {})]
+    rows, worst = [], 0.0
+    for label, (q, k, v), kw in cases:
+        ins = [t.requires_grad_(True) for t in (q, k, v)]
+        do = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+        n0 = flash_attention.launches
+        out = ops.flash_attention(*ins, **kw)
+        if flash_attention.launches != n0 + 1 \
+                or type(out.grad_fn).__name__ != "FlashAttentionFnBackward":
+            raise AssertionError(f"flash autograd {label}: not one launch "
+                                 f"through FlashAttentionFn ({out.grad_fn})")
+        want = ref.flash_attention_ref(*ins, **kw)
+        err = (out.float() - want.float()).abs().max().item()
+        rel = row_rel_err(out.detach(), want.detach())
+        grads = torch.autograd.grad(out, ins, do)
+        plain = torch.autograd.grad(want, ins, do)
+        if not (err <= TOL and rel <= FLASH_REL_TOL) or not all(
+                torch.equal(a, b) for a, b in zip(grads, plain)):
+            raise AssertionError(
+                f"flash autograd {label}: forward err {err} (tol {TOL}), "
+                f"row-relative {rel} (tol {FLASH_REL_TOL}), grads equal to "
+                "the plain autograd: "
+                f"{[torch.equal(a, b) for a, b in zip(grads, plain)]}")
+        out2 = ops.flash_attention(*ins, **kw)
+        if not torch.equal(out2, out) or not all(
+                torch.equal(a, b) for a, b in
+                zip(torch.autograd.grad(out2, ins, do), grads)):
+            raise AssertionError(f"flash autograd {label}: two calls differ")
+        del out2, plain
+        worst = max(worst, err)
+        del out, want, grads
+        fwd_b, bwd_b = _flash_bounds(q, k, kw)
+        # the backward is timed on a graph kept for the repeats
+        held = ops.flash_attention(*ins, **kw)
+        row = {"case": label, "q": list(q.shape), "kv": list(k.shape),
+               "max_abs_err": err, "max_row_rel_err": rel,
+               "dq_dk_dv_equal_plain": True,
+               "fwd_ms": time_ms(lambda: ops.flash_attention(*ins, **kw)),
+               "bwd_ms": time_ms(lambda: torch.autograd.grad(
+                   held, ins, do, retain_graph=True), iters=3),
+               "fwd_bound": fwd_b, "bwd_bound": bwd_b}
+        if not rows:                  # the trainer's shape: the yardsticks
+            with torch.no_grad():
+                row["plain_fwd_ms"] = time_ms(
+                    lambda: ref.flash_attention_ref(q, k, v, **kw), iters=3)
+            held = ref.flash_attention_ref(*ins, **kw)
+            row["plain_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                held, ins, do, retain_graph=True), iters=3)
+            row["sdpa_fwd_ms"], row["sdpa_bwd_ms"] = _sdpa_train_ms(
+                q, k, v, do)
+        del held
+        rows.append(row)
+        log(f"[train] flash autograd {label}: q{row['q']} kv{row['kv']} "
+            f"fwd_ms={row['fwd_ms']:.4f} (bound {fwd_b[0]:.5f} {fwd_b[1]}) "
+            f"bwd_ms={row['bwd_ms']:.4f} (bound {bwd_b[0]:.5f} {bwd_b[1]}) "
+            f"max_abs_err={err:.3e} max_row_rel_err={rel:.3e}; dq/dk/dv "
+            "equal the plain autograd")
+    main = rows[0]
+    return {"name": "flash_attention", "label": "flash_attention[train]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:386",
+            "max_abs_err": worst, "ms": main["fwd_ms"],
+            "plain_ms": main["plain_fwd_ms"], "bound": main["fwd_bound"],
+            "library_ms": main["sdpa_fwd_ms"],
+            "backward_ms": main["bwd_ms"],
+            "backward_plain_ms": main["plain_bwd_ms"],
+            "backward_bound_ms": main["bwd_bound"][0],
+            "backward_bound_by": main["bwd_bound"][1],
+            "backward_library_ms": main["sdpa_bwd_ms"],
+            "shape": f"q[{TRAIN_BATCH},{TRAIN_SEQ},{H},{D}] k/v[{TRAIN_BATCH},"
+                     f"{TRAIN_SEQ},{KV},{D}] causal under autograd (forward "
+                     "the kernel, backward the plain version's); checked "
+                     "also at " + "; ".join(c[0] for c in cases[1:]),
+            "serves": ("train-full-depth",), "per_case": rows}
+
+
+def _train_grads(cfg, params, batch, dev: str, detach_attention=False):
+    """``T.loss_fn`` and every leaf's gradient of ``params`` (numpy-seeded
+    CPU tensors, copied to ``dev`` in the trainer's per-layer layout); with
+    ``detach_attention`` the attention output is detached (the control:
+    wq / wk / wv and their biases get no gradient)."""
+    import torch
+    from repro_torch.bridge import tree_to
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import tree_leaves
+    p = T.unstack_layers(tree_to(params, dev))
+    leaves = tree_leaves(p)
+    for t in leaves:
+        t.requires_grad_(True)
+    real = ops.flash_attention
+    if detach_attention:
+        ops.flash_attention = lambda *a, **kw: real(*a, **kw).detach()
+    try:
+        loss = T.loss_fn(cfg, p, {k: torch.from_numpy(v).to(dev)
+                                  for k, v in batch.items()})
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        ops.flash_attention = real
+    return float(loss.detach()), [torch.zeros_like(t) if d is None
+                                  else d.detach()
+                         for t, d in zip(leaves, g)]
+
+
+def phase_train_model(dev: str = "cuda", ref_dev: str = "cpu",
+                      layers: int = TRAIN_MODEL["layers"],
+                      shape=TRAIN_MODEL["batch"], reduced: bool = False
+                      ) -> dict:
+    """Phase 14 (b): full-width qwen2-1.5b cut to ``layers`` layers, bf16
+    activations over f32 weights drawn from seed 0, one numpy-seeded batch
+    of ``shape``: the loss and every leaf's gradient on the card against
+    the CPU (the plain versions), within TRAIN_LOSS_REL and TRAIN_GRAD_RMS;
+    the card's run launches B5 twice a layer (forward, recompute); the
+    control (attention's output detached on the card) must miss the
+    gradient limit (its loss is the same: the forward is unchanged)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer as T
+    cfg = (get_reduced(TRAIN) if reduced else get_config(TRAIN)).replace(
+        num_layers=layers)
+    params = T.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(5)
+    b, s = shape
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s + 1))
+             .astype(np.int32)}
+    names = _leaf_paths(T.unstack_layers(params))
+    t0 = time.perf_counter()
+    want_loss, want = _train_grads(cfg, params, batch, ref_dev)
+    cpu_s = time.perf_counter() - t0
+    out = {"layers": layers, "batch": [b, s], "cpu_s": cpu_s,
+           "cpu_loss": want_loss}
+    for label, detach in (("card", False), ("control", True)):
+        n0 = flash_attention.launches
+        loss, got = _train_grads(cfg, params, batch, dev, detach)
+        rel = [((g.float().cpu() - w.float()).pow(2).mean().sqrt()
+                / w.float().pow(2).mean().sqrt().clamp(min=1e-30)).item()
+               for g, w in zip(got, want)]
+        worst = int(np.argmax(rel))
+        out[label] = r = {"loss": loss,
+                          "loss_rel_err": abs(loss - want_loss) / want_loss,
+                          "grad_rms_rel_worst": rel[worst],
+                          "grad_rms_rel_median": float(np.median(rel)),
+                          "worst_leaf": names[worst],
+                          "b5_launches": flash_attention.launches - n0}
+        del got
+        ok = (r["loss_rel_err"] <= TRAIN_LOSS_REL
+              and r["grad_rms_rel_worst"] <= TRAIN_GRAD_RMS)
+        if dev != "cpu" and label == "card" and \
+                r["b5_launches"] != 2 * layers:
+            raise AssertionError(f"train model: {r['b5_launches']} B5 "
+                                 f"launches, want {2 * layers}")
+        if ok != (label == "card"):
+            raise AssertionError(
+                f"train model {label}: loss rel err {r['loss_rel_err']:.3e} "
+                f"(limit {TRAIN_LOSS_REL}), worst leaf gradient "
+                f"{r['grad_rms_rel_worst']:.3e} of its RMS (limit "
+                f"{TRAIN_GRAD_RMS})" + (": the control passed" if ok
+                                        else ""))
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_paths(tree, prefix: str = "") -> list:
+    """Dotted paths of a tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in _leaf_paths(v, f"{prefix}.{k}" if prefix else k)]
+    if isinstance(tree, list):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, f"{prefix}.{i}")]
+    return [prefix]
+
+
+class _LogRecords:
+    """The records of the named loggers at DEBUG while in use."""
+
+    def __init__(self, *names):
+        import logging
+        self.names, self.records = names, []
+        self.handler = logging.Handler(logging.DEBUG)
+        self.handler.emit = self.records.append
+
+    def __enter__(self):
+        import logging
+        self.levels = []
+        for n in self.names:
+            lg = logging.getLogger(n)
+            self.levels.append(lg.level)
+            lg.setLevel(logging.DEBUG)
+            lg.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+        for n, level in zip(self.names, self.levels):
+            lg = logging.getLogger(n)
+            lg.removeHandler(self.handler)
+            lg.setLevel(level)
+
+    def args(self, prefix: str) -> list:
+        return [r.args for r in self.records if r.msg.startswith(prefix)]
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def run_train(argv, kernels, dev: str = "cuda") -> dict:
+    """``repro_torch.launch.train.main(argv)`` in process with the kernels'
+    counters zeroed before it and read after, the peak device memory,
+    each step's seconds and each save's bytes and seconds from its DEBUG
+    records."""
+    import torch
+    from repro_torch.launch import train
+    for k in kernels:
+        k.launches = 0
+    if dev != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _LogRecords("repro_torch.train", "repro_torch.checkpoint") as rec:
+        losses = train.main([*argv, "--device", dev])
+    wall = time.perf_counter() - t0
+    return {"losses": losses, "wall_s": wall,
+            "launches": {k.name: k.launches for k in kernels},
+            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if dev != "cpu" else None),
+            "step_s": [a[2] for a in rec.args("step %d loss")],
+            "saves": [{"step": a[0], "bytes": a[1], "seconds": a[2]}
+                      for a in rec.args("saved step")]}
+
+
+def train_depth(kernels, dev: str = "cuda", reduced: bool = False) -> dict:
+    """Phase 14 (c): full-depth qwen2-1.5b through ``launch.train.main``,
+    TRAIN_STEPS steps of [8, 512] and one save at the end: finite losses,
+    exactly TRAIN_B5_PER_STEP B5 launches a step and no other kernel of
+    the port; step seconds (the first apart: it builds cuBLAS' plans),
+    tokens/s, peak memory, the save's bytes and seconds and the bytes on
+    disk.  The checkpoint directory is removed after."""
+    import math
+    import shutil
+    directory = ROOT / "build" / "train_smoke"
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        run = run_train(["--arch", TRAIN, "--batch", str(TRAIN_BATCH),
+                         "--seq", str(TRAIN_SEQ), "--steps", str(TRAIN_STEPS),
+                         "--save-every", str(TRAIN_STEPS), "--ckpt-dir",
+                         str(directory)] + (["--reduced"] if reduced else []),
+                        kernels, dev)
+        run["disk_bytes"] = _dir_bytes(directory)
+        free = shutil.disk_usage(directory).free
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    want = TRAIN_B5_PER_STEP * TRAIN_STEPS
+    got = run["launches"]
+    other = {k: n for k, n in got.items() if k != "flash_attention" and n}
+    if len(run["losses"]) != TRAIN_STEPS or not all(
+            math.isfinite(x) for x in run["losses"]):
+        raise AssertionError(f"train depth: losses {run['losses']}")
+    if dev != "cpu" and (got["flash_attention"] != want or other):
+        raise AssertionError(f"train depth: launches {got}, want "
+                             f"flash_attention {want} and no other")
+    if len(run["saves"]) != 1:
+        raise AssertionError(f"train depth: saves {run['saves']}")
+    steady = run["step_s"][1:]
+    run.update(first_step_s=run["step_s"][0],
+               step_ms=1e3 * sum(steady) / len(steady),
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ * len(steady)
+               / sum(steady), disk_free_after_bytes=free)
+    return run
+
+
+def train_profile(kernels, dev: str = "cuda", reduced: bool = False) -> dict:
+    """Phase 14 (c), the profile: full-depth qwen2-1.5b built through the
+    port's API (``T.init_params``, ``T.unstack_layers``,
+    ``make_train_step``, a ``SyntheticLM`` batch), every leaf of params and
+    moments on the card; one warm-up step, then two steps on the same
+    batch under ``torch.profiler``: device busy time and idle share, the
+    device time of B5, the dense products and the rest, launches; the
+    loss must descend over the three steps.  Then AdamW's update alone,
+    timed beside its bound (7 f32 words a parameter moved)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as A
+    from repro_torch.runtime.train_loop import make_train_step
+    cfg = get_reduced(TRAIN) if reduced else get_config(TRAIN)
+    opt = A.AdamWConfig(**TRAIN_PROFILE_OPT)
+    if dev != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    params = T.unstack_layers(T.init_params(cfg, 0, device=dev))
+    state = A.init_opt_state(params, opt)
+    leaves = A.tree_leaves(params) + A.tree_leaves(state)
+    if any(t.device.type != torch.device(dev).type for t in leaves):
+        raise AssertionError("train profile: a leaf is not on the device")
+    n_params = sum(t.numel() for t in A.tree_leaves(params))
+    step = make_train_step(cfg, opt)
+    batch = SyntheticLM(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train")).next_batch(dev)
+    params, state, m = step(params, state, batch)
+    losses = [float(m["loss"])]
+    for k in kernels:
+        k.launches = 0
+    if dev == "cpu":
+        for _ in range(2):
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+        return {"losses": losses}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train profile: the repeated batch's loss "
+                             f"did not descend: {losses}")
+    if launches["flash_attention"] != 2 * TRAIN_B5_PER_STEP:
+        raise AssertionError(f"train profile: launches {launches}")
+    split = dict.fromkeys(("flash_attention", "gemm", "other"), 0.0)
+    ops, by = 0, {}
+    for name, on_device, ms in _events(prof):
+        if not on_device:
+            continue
+        ops += 1
+        key = ("flash_attention" if ours_name(name) == "flash_attention"
+               else "gemm" if any(f in name.lower() for f in
+                                  ("gemm", "cutlass", "xmma", "nvjet"))
+               else "other")
+        split[key] += ms
+        t, n = by.get(name[:60], (0.0, 0))
+        by[name[:60]] = (t + ms, n + 1)
+    busy = sum(split.values())
+    grads = state.mu                # any tree of the params' shapes
+    adamw_ms = time_ms(lambda: A.apply_updates(params, grads, state, opt),
+                       iters=3)
+    return {"losses": losses, "wall_ms": wall * 1e3, "step_ms": wall * 5e2,
+            "device_busy_ms": busy, "device_idle_share": 1 - busy
+            / (wall * 1e3), "device_ms": split, "device_ops_per_step":
+            ops / 2, "launches": launches, "params": n_params,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "adamw_ms": adamw_ms,
+            "adamw_bound": bound_ms(7 * 4 * n_params, 0),
+            "step_bound": bound_ms(0, _train_flops(cfg)),
+            "top": [{"kernel": k, "ms": t, "calls": n} for k, (t, n) in
+                    sorted(by.items(), key=lambda kv: -kv[1][0])[:10]]}
+
+
+def _train_flops(cfg) -> float:
+    """One train step's dense flops: 6 x parameters x tokens for the
+    forward and backward, plus the recomputed forward of every layer
+    (2 x its parameters x tokens), plus attention's products (forward,
+    recompute and backward: 4 + 4 + 10 flops per head dim per live pair,
+    causal)."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    hd = cfg.resolved_head_dim
+    layer = (d * cfg.num_heads * hd * 2 + 2 * d * cfg.num_kv_heads * hd
+             + 3 * d * f)
+    n = cfg.vocab_size * d + L * layer
+    pairs = TRAIN_BATCH * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = L * 18 * cfg.num_heads * hd * pairs
+    return 6 * n * tokens + 2 * L * layer * tokens + attn
+
+
+def train_restart(kernels, dev: str = "cuda", reduced: bool = False) -> dict:
+    """Phase 14 (d): full width cut to 2 layers through
+    ``launch.train.main``: an uninterrupted run of 4 steps saving every 2,
+    and the same run with a failure injected before step 3, which the
+    Supervisor restores from step 2 (steps 2 and 3 run again): its losses
+    must be the uninterrupted run's, step for step, within
+    RESTART_LOSS_REL (and whether they are bitwise is recorded).  The
+    directories are removed after."""
+    import shutil
+    base = ROOT / "build" / "train_restart"
+    shutil.rmtree(base, ignore_errors=True)
+    argv = ["--arch", TRAIN, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), *RESTART] + (["--reduced"] if reduced else [])
+    try:
+        plain = run_train([*argv, "--ckpt-dir", str(base / "plain")],
+                          kernels, dev)
+        failed = run_train([*argv, "--ckpt-dir", str(base / "failed"),
+                            "--fail-at-step", str(RESTART_FAIL_AT)],
+                           kernels, dev)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    f = RESTART_FAIL_AT
+    want = plain["losses"][:f] + plain["losses"][f - 1:]
+    got = failed["losses"]
+    if len(got) != len(want) or any(
+            abs(a - b) > RESTART_LOSS_REL * abs(b) for a, b in zip(got, want)):
+        raise AssertionError(f"train restart: losses {got}, the "
+                             f"uninterrupted run's {plain['losses']}")
+    return {"plain": plain["losses"], "failed": got,
+            "bitwise": got == want,
+            "max_rel": max(abs(a - b) / abs(b) for a, b in zip(got, want)),
+            "saves": len(plain["saves"]) + len(failed["saves"]),
+            "save_s": [s["seconds"] for s in plain["saves"]],
+            "save_bytes": [s["bytes"] for s in plain["saves"]],
+            "wall_s": [plain["wall_s"], failed["wall_s"]]}
+
+
+def check_no_hidden_grad(kernels) -> dict:
+    """Phase 14 (e): every serving-only kernel entry (B1, B4, B2 with both
+    pool formats, B3, both time scans) raises ``RuntimeError`` naming its
+    kernel when autograd would record its call, before it launches."""
+    import torch
+    from repro_torch.kernels import ops
+    c = dict(device="cuda")
+    grad = lambda *shape: torch.zeros(shape, requires_grad=True, **c)
+    z = lambda *shape, dt=torch.bfloat16: torch.zeros(shape, dtype=dt, **c)
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32, **c)
+    i8 = lambda *shape: torch.zeros(shape, dtype=torch.int8, **c)
+    f32 = lambda *shape: z(*shape, dt=torch.float32)
+    q1 = grad(1, 16, H, D)
+    entries = {
+        "paged_attention": lambda: ops.paged_attention(
+            grad(2, H, D), z(4, BS, KV, D), z(4, BS, KV, D), i32(2, 2),
+            i32(2)),
+        "paged_attention_quant": lambda: ops.paged_attention_quant(
+            grad(2, H, D), i8(4, BS, KV, D), f32(4, KV), i8(4, BS, KV, D),
+            f32(4, KV), i32(2, 2), i32(2)),
+        "flash_attention_chunk": lambda: ops.chunk_prefill_attention(
+            q1, z(1, 4, BS, KV, D), z(1, 4, BS, KV, D), None, None, 0,
+            i32(1, 2), i32(), i32(), z(1, 16, KV, D), z(1, 16, KV, D)),
+        "flash_attention_chunk (int8)": lambda: ops.chunk_prefill_attention(
+            q1, i8(1, 4, BS, KV, D), i8(1, 4, BS, KV, D), f32(1, 4, KV),
+            f32(1, 4, KV), 0, i32(1, 2), i32(), i32(), z(1, 16, KV, D),
+            z(1, 16, KV, D)),
+        "gptq_matmul": lambda: ops.quant_matmul(
+            grad(8, 256), {"qweight": i32(32, 256), "scales": f32(8, 256),
+                           "zeros": f32(8, 256)}),
+        "selective_scan": lambda: ops.selective_scan(
+            grad(1, 4, 64), f32(1, 4, 64), f32(1, 4, 16), f32(1, 4, 16),
+            f32(64, 16), f32(1, 64, 16)),
+        "linear_scan": lambda: ops.linear_scan(
+            grad(1, 4, 64), f32(1, 4, 64), f32(1, 64))}
+    for k in kernels:
+        k.launches = 0
+    out = {}
+    for label, call in entries.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if label.split(" ")[0] not in str(e):
+                raise
+            out[label] = str(e).split(";")[0]
+            continue
+        raise AssertionError(f"{label}: called with grad enabled on an "
+                             "input that requires grad, it did not raise")
+    launched = {k.name: k.launches for k in kernels if k.launches}
+    if launched:
+        raise AssertionError(f"no-hidden-grad guard: launched {launched}")
+    return out
+
+
+def phase_train(report: dict, gen, kernels) -> list:
+    """Phase 14 on the card: (a) B5 under autograd (``check_flash_autograd``),
+    (b) the 2-layer full-width trainer card vs CPU with its control
+    (``phase_train_model``), (c) full-depth qwen2-1.5b through
+    ``launch.train.main`` (``train_depth``) and two profiled steps
+    (``train_profile``), (d) the restart through the Supervisor
+    (``train_restart``), (e) the serving kernels' refusals under autograd
+    (``check_no_hidden_grad``).  Returns the kernel checks."""
+    import torch
+    r = report["train"] = {}
+    t_phase = time.perf_counter()
+    checks = [check_flash_autograd(gen)]
+    log_time("train (a)")
+    r["model"] = res = phase_train_model()
+    log(f"[train] {TRAIN_MODEL['layers']}-layer full-width {TRAIN} bf16 "
+        f"card vs CPU (loss, every leaf's gradient): {json.dumps(res)}")
+    log_time("train (b)")
+    r["depth"] = dp = train_depth(kernels)
+    log(f"[train] full-depth {TRAIN} via launch.train.main, {TRAIN_STEPS} "
+        f"steps of [{TRAIN_BATCH},{TRAIN_SEQ}]: losses {dp['losses']}, "
+        f"step_ms={dp['step_ms']:.1f} (first {dp['first_step_s']:.2f} s), "
+        f"tokens_per_s={dp['tokens_per_s']:.0f}, peak_gb="
+        f"{dp['peak_gb']:.2f}, save {json.dumps(dp['saves'])}, on disk "
+        f"{dp['disk_bytes']} bytes, launches {dp['launches']}")
+    r["serve"] = {"train-full-depth": {"launches": dp["launches"]}}
+    torch.cuda.empty_cache()
+    log_time("train (c) main")
+    r["profile"] = pf = train_profile(kernels)
+    log(f"[train] two profiled steps on one batch: "
+        f"{json.dumps({k: v for k, v in pf.items() if k != 'top'})}; top "
+        f"{json.dumps(pf['top'][:6])}")
+    torch.cuda.empty_cache()
+    log_time("train (c) profile")
+    r["restart"] = rs = train_restart(kernels)
+    log(f"[train] restart (2 layers, failure before step "
+        f"{RESTART_FAIL_AT}): {json.dumps(rs)}")
+    r["guard"] = gd = check_no_hidden_grad(kernels)
+    log(f"[train] serving kernels refuse autograd: {json.dumps(gd)}")
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] phase 14 took {r['seconds']:.1f} s")
+    return checks
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4795,6 +5437,8 @@ def main() -> int:
     log_time("cmdr phase")
     phase_cli(report, ops.KERNELS)
     log_time("cli phase")
+    train_checks = phase_train(report, gen, ops.KERNELS)
+    log_time("train phase")
 
     record = []
     # each check's launches come from the serves of its own phase
@@ -4817,7 +5461,9 @@ def main() -> int:
                             + [(k, report["audio"]["serve"])
                                for k in audio_checks]
                             + [(k, report["cmdr"]["serve"])
-                               for k in cmdr_checks]):
+                               for k in cmdr_checks]
+                            + [(k, report["train"]["serve"])
+                               for k in train_checks]):
         # a check of one serve's shapes counts that serve's launches only
         by_serve = {lb: sv["launches"][k["name"]]
                     for lb, sv in phase_serves.items()
@@ -4834,10 +5480,12 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound"][0],
             "bound_by": k["bound"][1], "library_ms": k["library_ms"],
-            "shape": k["shape"]})
+            "shape": k["shape"],
+            **{key: v for key, v in k.items()
+               if key.startswith("backward_")}})
     report["kernels"] = (kernels + moe_checks + sliding_checks
                          + hybrid_checks + ssm_checks + vlm_checks
-                         + audio_checks + cmdr_checks)
+                         + audio_checks + cmdr_checks + train_checks)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

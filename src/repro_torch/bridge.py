@@ -3,7 +3,10 @@
 ``params_from_numpy`` turns the JAX package's parameter pytree, given as
 numpy arrays (``jax.tree.map(np.asarray, params)``), into the port's
 tensors with the same layouts — dense leaves, int4 dicts and the layer
-stacks alike — so one test can feed both packages the same weights.
+stacks alike — so one test can feed both packages the same weights;
+``opt_state_from_numpy`` does the same for its AdamW state, and
+``params_to_numpy`` / ``opt_state_to_numpy`` go back, in the reference's
+stacked layout.
 """
 from __future__ import annotations
 
@@ -46,3 +49,40 @@ def tree_to(tree: Any, device) -> Any:
     if isinstance(tree, list):
         return [tree_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def opt_state_from_numpy(st: Any, device="cuda"):
+    """The reference's ``OptState`` as numpy arrays (``jax.tree.map(
+    np.asarray, opt_state)``; any (step, mu, nu) triple) -> the port's
+    ``OptState`` on ``device``, its trees in the stacked layout."""
+    from repro_torch.optim.adamw import OptState
+    dev = resolve_device(device)
+    step, mu, nu = st
+    return OptState(_tensor(step).to(dev), _from_numpy(mu, dev),
+                    _from_numpy(nu, dev))
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The port's tree -> numpy arrays in the reference's layout: a layer
+    stack held as a list of per-layer dicts is stacked, and bf16 leaves
+    come back as float32 (exact: numpy has no bfloat16)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        rows = [params_to_numpy(t) for t in tree]
+        return _stack_np(rows)
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def _stack_np(rows):
+    if isinstance(rows[0], dict):
+        return {k: _stack_np([r[k] for r in rows]) for k in rows[0]}
+    return np.stack(rows)
+
+
+def opt_state_to_numpy(st) -> tuple:
+    """The port's ``OptState`` -> (step, mu, nu) as numpy, in the
+    reference's layout (``params_to_numpy``)."""
+    return (st.step.cpu().numpy().copy(), params_to_numpy(st.mu),
+            params_to_numpy(st.nu))

@@ -1,1 +1,2 @@
-"""Reading the JAX package's checkpoints (numpy and torch only)."""
+"""Checkpoints in the JAX package's format (numpy and torch only): the
+reader (``reader.py``) and the trainer's writer (``checkpointer.py``)."""

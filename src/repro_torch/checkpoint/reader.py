@@ -7,7 +7,11 @@ Layout (the reference's): ``<dir>/step_<N:08d>/manifest.json`` plus one
 outside ``[A-Za-z0-9_.-]`` replaced by ``_``.  A JAX bfloat16 leaf is
 saved by numpy as 2-byte void words (``|V2``: numpy has no bfloat16
 without ``ml_dtypes``); those words are viewed as ``torch.bfloat16``.
-The writer waits for training (ROADMAP A12).
+Trees are nested dicts and NamedTuples (the optimizer state: ``opt.step``,
+``opt.mu.<path>``), as the reference's paths; a list in a tree is a layer
+stack held as per-layer dicts (the trainer's layout), which is one
+stacked leaf in the file, row i its layer i.  The writer is
+``checkpoint/checkpointer.py``.
 """
 from __future__ import annotations
 
@@ -28,21 +32,42 @@ _SAFE = re.compile(r"[^A-Za-z0-9_.-]")
 _SLICE_BYTES = 1 << 28
 
 
+class Rows(list):
+    """The per-layer leaves of one stacked checkpoint leaf, in layer
+    order (what ``_flatten`` gives for a list of per-layer dicts)."""
+
+
+def _items(tree: Any):
+    return tree._asdict().items() if hasattr(tree, "_fields") \
+        else tree.items()
+
+
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
-    """Nested dicts -> {dotted path: leaf} (the reference's paths)."""
-    if isinstance(tree, dict):
+    """Nested dicts and NamedTuples -> {dotted path: leaf} (the
+    reference's paths); a list of per-layer dicts -> {path: Rows}, the
+    path of the stacked leaf."""
+    if isinstance(tree, dict) or hasattr(tree, "_fields"):
         out = {}
-        for k, v in tree.items():
+        for k, v in _items(tree):
             out.update(_flatten(v, f"{prefix}.{k}" if prefix else str(k)))
         return out
+    if isinstance(tree, list):
+        rows = [_flatten(t, prefix) for t in tree]
+        return {p: Rows(r[p] for r in rows) for p in rows[0]}
     return {prefix: tree}
 
 
-def _unflatten_like(tree: Any, flat: Dict[str, Any], prefix: str = ""):
-    if isinstance(tree, dict):
-        return {k: _unflatten_like(v, flat, f"{prefix}.{k}" if prefix
-                                   else str(k)) for k, v in tree.items()}
-    return flat[prefix]
+def _unflatten_like(tree: Any, flat: Dict[str, Any], prefix: str = "",
+                    row: Optional[int] = None):
+    if isinstance(tree, dict) or hasattr(tree, "_fields"):
+        vals = {k: _unflatten_like(v, flat, f"{prefix}.{k}" if prefix
+                                   else str(k), row)
+                for k, v in _items(tree)}
+        return vals if isinstance(tree, dict) else type(tree)(**vals)
+    if isinstance(tree, list):
+        return [_unflatten_like(t, flat, prefix, i)
+                for i, t in enumerate(tree)]
+    return flat[prefix] if row is None else flat[prefix][row]
 
 
 def _leaf_file(tree_name: str, path: str) -> str:
@@ -83,11 +108,26 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _read(arr: np.ndarray, dtype: torch.dtype, dev) -> torch.Tensor:
+    """``arr`` (memory-mapped) as a tensor on ``dev``, copied in slices of
+    whole leading rows of at most ``_SLICE_BYTES``."""
+    t = torch.empty(arr.shape, dtype=dtype, device=dev)
+    if arr.ndim:
+        rows = max(1, _SLICE_BYTES * arr.shape[0] // max(arr.nbytes, 1))
+        for i in range(0, arr.shape[0], rows):
+            t[i:i + rows].copy_(_to_tensor(arr[i:i + rows]))
+    else:
+        t.copy_(_to_tensor(arr))
+    return t
+
+
 def restore(directory: str, step: int, templates: Dict[str, Any],
             device="cuda", dtype: Optional[torch.dtype] = None
             ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Read step ``step``'s trees named by ``templates`` (trees of
-    tensors, on the ``meta`` device for shapes only) onto ``device``.
+    tensors, on the ``meta`` device for shapes only) onto ``device``; a
+    list of per-layer dicts in a template reads each layer's row of the
+    stacked leaf into a tensor of its own.
 
     Every leaf of a template must be in the checkpoint with the
     template's shape (a missing leaf raises ``FileNotFoundError``, a
@@ -112,25 +152,22 @@ def restore(directory: str, step: int, templates: Dict[str, Any],
                     f"checkpoint step {step} under {directory!r} has no "
                     f"leaf {tname}.{path} ({fn})")
             arr = np.load(fn, mmap_mode="r")
-            if tuple(arr.shape) != tuple(want.shape):
+            shape = ((len(want), *want[0].shape) if isinstance(want, Rows)
+                     else tuple(want.shape))
+            if tuple(arr.shape) != shape:
                 raise ValueError(
                     f"checkpoint leaf {tname}.{path} has shape "
-                    f"{tuple(arr.shape)}; the config wants "
-                    f"{tuple(want.shape)}")
+                    f"{tuple(arr.shape)}; the config wants {shape}")
             to = (torch.bfloat16 if _is_bf16_words(arr.dtype)
                   else torch.from_numpy(np.empty(0, arr.dtype)).dtype)
             if dtype is not None and to.is_floating_point \
                     and not keeps_dtype(path):
                 to = dtype
-            t = torch.empty(arr.shape, dtype=to, device=dev)
-            if arr.ndim:
-                rows = max(1, _SLICE_BYTES * arr.shape[0]
-                           // max(arr.nbytes, 1))
-                for i in range(0, arr.shape[0], rows):
-                    t[i:i + rows].copy_(_to_tensor(arr[i:i + rows]))
+            if isinstance(want, Rows):
+                loaded[path] = [_read(arr[i], to, dev)
+                                for i in range(len(want))]
             else:
-                t.copy_(_to_tensor(arr))
-            loaded[path] = t
+                loaded[path] = _read(arr, to, dev)
         out[tname] = _unflatten_like(tree, loaded)
     return out, manifest["extra"]
 

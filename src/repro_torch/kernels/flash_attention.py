@@ -6,7 +6,12 @@
   and int8 pools; one instance each, so a run's launch counts tell which
   branch ran;
 * ``flash_attention`` (``csrc/flash_attention.cu``) replaces its static
-  ``flash_attention`` (whole-prompt prefill).
+  ``flash_attention`` (whole-prompt prefill, GPTQ calibration and the
+  trainer's forward).  ``FlashAttentionFn`` is its autograd rule: the
+  forward launches the kernel; the backward differentiates the plain
+  version (``ref.flash_attention_ref``) recomputed on the saved q, k, v,
+  because the JAX package's Pallas kernel has no backward either (no
+  ``custom_vjp``): its trainer differentiates the XLA reference.
 
 The bf16 bodies of both run on the tensor cores and are built for the
 head dims that ``MMA_HEAD_DIMS`` lists for each kernel (the static kernel
@@ -205,6 +210,37 @@ class FlashAttention:
         self.launches += 1
         self.launch_kinds[(D, bool(causal), alibi_slopes is not None)] += 1
         return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The static kernel under autograd.  ``forward`` launches
+    ``flash_attention`` (one launch, counted by the wrapper) and saves
+    q, k, v; ``backward`` recomputes the plain version on them under
+    ``enable_grad`` and returns its ``torch.autograd.grad``: dq, dk, dv
+    are exactly the plain version's gradients at the same inputs (no
+    backward kernel yet: ROADMAP B)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, alibi_slopes, causal, sliding_window,
+                q_offset):
+        ctx.save_for_backward(q, k, v, alibi_slopes)
+        ctx.kw = dict(causal=causal, sliding_window=sliding_window,
+                      q_offset=q_offset)
+        return flash_attention(q, k, v, alibi_slopes, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        from repro_torch.kernels.ref import flash_attention_ref
+        q, k, v, slopes = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip((q, k, v), needs)]
+            out = flash_attention_ref(*ins, alibi_slopes=slopes, **ctx.kw)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, n in zip(ins, needs) if n], d_out))
+        return (*(next(grads) if n else None for n in needs),
+                None, None, None, None)
 
 
 flash_attention_chunk = FlashAttentionChunk()

@@ -4,6 +4,13 @@ A tensor on the CPU goes to the plain version in ``ref.py``; a CUDA tensor
 launches the hand-written Hopper kernel, whose wrapper raises on anything
 it does not take.  There is no fallback from a CUDA tensor to the plain
 version and no flag that selects one.
+
+Gradients: on the CPU autograd differentiates the plain versions.  On the
+card the static ``flash_attention`` goes through its autograd rule
+(``FlashAttentionFn``) when autograd records the call; every other kernel
+serves only and has no backward, so it raises when grad is enabled and an
+input requires grad, instead of returning an output without a
+``grad_fn`` that would drop the gradients silently.
 """
 from __future__ import annotations
 
@@ -13,7 +20,8 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention as _flash
-from repro_torch.kernels.flash_attention import (flash_attention_chunk,
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention_chunk,
                                                  flash_attention_chunk_int8)
 from repro_torch.kernels.gptq_matmul import gptq_matmul
 from repro_torch.kernels.paged_attention import paged_attention as _paged
@@ -35,10 +43,27 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+def _records_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _serving_only(name: str, *tensors) -> None:
+    """Raise before a serving-only kernel whose output autograd would
+    record: it has no backward, and its output has no ``grad_fn``."""
+    if _records_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel serves only and has no backward; an "
+            "input requires grad with grad enabled, so its gradient would "
+            "be dropped (run it under torch.no_grad(), or train a family "
+            "whose forward runs only flash_attention)")
+
+
 def paged_attention(q, k_pool, v_pool, block_table, seq_lens,
                     alibi_slopes=None, *, sliding_window=0):
     """Decode attention: q [B, H, D] over one layer's pool [NB, BS, KV, D]."""
     if _on_cuda(q):
+        _serving_only("paged_attention", q, k_pool, v_pool, alibi_slopes)
         return _paged(q, k_pool, v_pool, block_table, seq_lens,
                       alibi_slopes, sliding_window=sliding_window)
     return _ref.paged_attention_ref(q, k_pool, v_pool, block_table,
@@ -52,6 +77,8 @@ def paged_attention_quant(q, k_values, k_scales, v_values, v_scales,
     """Decode attention over one layer's int8 pool: values [NB, BS, KV,
     D] int8, scales [NB, KV] f32, dequantized in the kernel."""
     if _on_cuda(q):
+        _serving_only("paged_attention_quant", q, k_scales, v_scales,
+                      alibi_slopes)
         return _paged_quant(q, k_values, k_scales, v_values, v_scales,
                             block_table, seq_lens, alibi_slopes,
                             sliding_window=sliding_window)
@@ -63,8 +90,13 @@ def paged_attention_quant(q, k_values, k_scales, v_values, v_scales,
 def flash_attention(q, k, v, alibi_slopes=None, *, causal=True,
                     sliding_window=0, q_offset: int = 0):
     """Static prefill attention: q [B, Sq, H, D] at positions q_offset + i
-    over k/v [B, Sk, KV, D]."""
+    over k/v [B, Sk, KV, D].  On the card, a call that autograd records
+    goes through ``FlashAttentionFn`` (the kernel forward, the plain
+    version's backward)."""
     if _on_cuda(q):
+        if _records_grad(q, k, v):
+            return FlashAttentionFn.apply(q, k, v, alibi_slopes, causal,
+                                          sliding_window, q_offset)
         return _flash(q, k, v, alibi_slopes, causal=causal,
                       sliding_window=sliding_window, q_offset=q_offset)
     return _ref.flash_attention_ref(q, k, v, causal=causal,
@@ -84,6 +116,8 @@ def chunk_prefill_attention(q, k_pool, v_pool, k_scales, v_scales, layer,
     [1, W, KV, D].
     """
     if _on_cuda(q):
+        _serving_only("flash_attention_chunk", q, k_pool, v_pool, k_scales,
+                      v_scales, k_raw, v_raw, alibi_slopes)
         if k_scales is not None:
             return flash_attention_chunk_int8(
                 q, k_pool[layer], v_pool[layer], block_table, q_offset,
@@ -106,6 +140,7 @@ def quant_matmul(x: torch.Tensor, params: Dict[str, torch.Tensor]
     kernel)."""
     if not _on_cuda(x):
         return _ref.quant_matmul_ref(x, params)
+    _serving_only("gptq_matmul", x, *params.values())
     lead = x.shape[:-1]
     y = gptq_matmul(x.reshape(-1, x.shape[-1]).contiguous(),
                     params["qweight"], params["scales"], params["zeros"],
@@ -120,6 +155,7 @@ def selective_scan(dt, u, B, C, A, h0):
     [Bt, S, N], A [din, N], h0 [Bt, din, N], all f32 -> (y [Bt, S, din],
     h_last [Bt, din, N])."""
     if _on_cuda(dt):
+        _serving_only("selective_scan", dt, u, B, C, A, h0)
         return _selective_scan(dt, u, B, C, A, h0)
     return _ref.selective_scan_ref(dt, u, B, C, A, h0)
 
@@ -128,5 +164,6 @@ def linear_scan(a, g, h0):
     """The RG-LRU recurrence h_t = a_t h_{t-1} + g_t: a, g [Bt, S, w], h0
     [Bt, w], all f32 -> (hs [Bt, S, w], h_last [Bt, w])."""
     if _on_cuda(a):
+        _serving_only("linear_scan", a, g, h0)
         return _linear_scan(a, g, h0)
     return _ref.linear_scan_ref(a, g, h0)

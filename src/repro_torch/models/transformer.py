@@ -2,7 +2,8 @@
 sliding-window, the hybrid of RG-LRU and sliding-window layers, the
 attention-free Mamba-1 stack, the decoder behind a vision prefix and the
 audio encoder, which has no decode): init / the plain full-sequence
-forward / decode state /
+forward (each layer rematerialised when autograd records it) and the
+training loss / decode state /
 whole-prompt prefill (into the paged pool, or the ring cache of a
 sliding layer, and the per-sequence recurrent state of an RG-LRU or
 Mamba layer) / decode step / megastep / prefill chunk / unified step,
@@ -15,7 +16,8 @@ axis) for a homogeneous stack, per-kind stacks ``rec_layers`` and
 ``attn_layers`` for the hybrid (``layer_plan`` maps layer i to its stack
 and index).  The serving runner may pre-split the stacks into lists of
 per-layer dicts once (``split_layers``), which every function here
-accepts too.  The paged pools are updated in place; the recurrent state
+accepts too; the trainer holds them as lists of independent per-layer
+leaves (``unstack_layers``).  The paged pools are updated in place; the recurrent state
 (``lru_h``, ``rec_conv``; a Mamba stack's ``ssm_h``, ``ssm_conv``) comes
 back from each step as new tensors.
 """
@@ -25,6 +27,7 @@ import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -90,6 +93,27 @@ def _require_ported(cfg: ModelConfig) -> None:
             "sliding-window layers, the RG-LRU hybrid, the Mamba-1 stack, "
             "the vision-prefixed decoder and the audio encoder are ported "
             "to repro_torch so far (ROADMAP A11: other model families)")
+
+
+def require_trainable(cfg: ModelConfig) -> None:
+    """The trainer takes the ported families whose forward runs only the
+    static attention kernel (which has an autograd rule) and torch ops:
+    the dense decoders (full attention or a sliding window), the decoder
+    behind a vision prefix and the audio encoder.  The MoE
+    FFN's routed experts run ``torch._grouped_mm`` and the hybrid's and
+    Mamba's recurrences the hand-written time-scan kernel, which has no
+    backward: those are refused by name."""
+    _require_ported(cfg)
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: training the MoE family needs a backward through "
+            "the routed experts' torch._grouped_mm routing, which is not "
+            "ported yet (ROADMAP A12)")
+    if cfg.family in ("hybrid", "ssm"):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family needs a "
+            "backward of the hand-written time-scan kernel "
+            "(csrc/time_scan.cu), which is not written yet (ROADMAP A12)")
 
 
 def require_decoder(cfg: ModelConfig) -> None:
@@ -249,6 +273,23 @@ def split_layers(params: Params) -> Params:
     return out
 
 
+def unstack_layers(tree: Params) -> Params:
+    """The same tree (params, or AdamW moments shaped like them) with each
+    layer stack as a list of per-layer dicts of new, independent tensors:
+    the trainer's layout.  A gradient of a row of a stacked leaf would be
+    a zero tensor of the whole stack's size per layer; a per-layer leaf
+    has its own.  The caller's stacks stay alive until it drops them."""
+    out = dict(tree)
+    for name in STACKS:
+        layers = out.get(name)
+        if layers is None or isinstance(layers, list):
+            continue
+        n = _leaves(layers)[0].shape[0]
+        out[name] = [_map(lambda t, i=i: t[i].clone(), layers)
+                     for i in range(n)]
+    return out
+
+
 def _leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -367,18 +408,63 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
     return x.to(act_dtype(cfg))
 
 
+def _needs_grad(x: torch.Tensor, lp: Params) -> bool:
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in _leaves(lp)))
+
+
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
             ) -> torch.Tensor:
     """Full forward -> logits [B, S, V] in the activation dtype: causal
     for a decoder (S counts a vision prefix), bidirectional for an
-    encoder; a Python loop over the layers (no remat: no training yet,
-    A12)."""
+    encoder; a Python loop over the layers.  When autograd records the
+    layer (grad enabled and a param or the input requires grad), the
+    layer runs under ``torch.utils.checkpoint`` and is recomputed in the
+    backward, as the reference's trainer runs each layer under
+    ``jax.checkpoint`` with ``nothing_saveable``: only each layer's input
+    is kept.  Under ``no_grad`` / ``inference_mode`` the path is the plain
+    loop."""
     _require_ported(cfg)
     x = _embed_inputs(cfg, params, batch)
     for i, (kind, _, _) in enumerate(layer_plan(cfg)):
-        x = apply_layer(cfg, _layer(params, i, cfg), x, kind)
+        lp = _layer(params, i, cfg)
+        if _needs_grad(x, lp):
+            # no random draw in a layer: no RNG state to stash
+            x = checkpoint(functools.partial(apply_layer, cfg), lp, x, kind,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = apply_layer(cfg, lp, x, kind)
     x = apply_norm(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return unembed(x, params["embed"], params.get("head"))
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
+            ) -> torch.Tensor:
+    """Next-token (or, for an encoder, frame-label) cross entropy, the mean
+    over valid tokens, as the reference's ``loss_fn``: a decoder reads
+    ``tokens[:, :-1]`` and is scored on ``tokens[:, 1:]`` (a vision prefix
+    sliced off the logits); an encoder reads ``frames`` and is scored on
+    ``labels``; logits in f32, ``logsumexp - gold``, weighted by
+    ``loss_mask`` when the batch has one.  Returns a 0-d f32 tensor."""
+    if cfg.is_encoder:
+        logits = forward(cfg, params, batch)
+        labels = batch["labels"]
+    else:
+        tokens = batch["tokens"]
+        logits = forward(cfg, params, {**batch, "tokens": tokens[:, :-1]})
+        labels = tokens[:, 1:]
+        if cfg.frontend == "vision_patches" and "vision_embeds" in batch:
+            logits = logits[:, batch["vision_embeds"].shape[1]:]
+    logits = logits.float()
+    labels = torch.as_tensor(labels).to(logits.device).long()
+    lse = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, labels[..., None])[..., 0]
+    nll = lse - gold
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask).to(nll.device, nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()
 
 
 # --------------------------------------------------------------------------

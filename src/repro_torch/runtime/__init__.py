@@ -1,2 +1,3 @@
-"""Runtime supervision of the port: the straggler watchdog (the rest of
-the JAX package's ``runtime`` waits for training, ROADMAP A12/A13)."""
+"""Runtime supervision of the port: the straggler watchdog and the
+trainer's checkpoint-restart ``Supervisor`` (``fault.py``), and the train
+step (``train_loop.py``); meshes and re-meshing wait for ROADMAP A13."""

@@ -155,3 +155,63 @@ def test_unported_paths_refuse():
                         enable_chunked_prefill=False, num_blocks=8,
                         max_blocks_per_seq=2)
     assert eng.kv_cache_dtype == "int8" and not eng.chunked
+
+
+def test_trainer_refuses_what_it_cannot_train(tmp_path):
+    """The trainer's entry points: the new modules are in the import scan;
+    the families whose forward has no backward on the card (MoE, the
+    hybrid, Mamba) and a production mesh (A13) are refused by name; and
+    without a card the defaults raise instead of training on the CPU."""
+    new = {"optim/adamw.py", "runtime/train_loop.py", "data/pipeline.py",
+           "checkpoint/checkpointer.py", "launch/train.py"}
+    scanned = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+               for p in FILES if "repro_torch" in p.parts}
+    assert new <= scanned
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import train_loop
+    for arch, what in (("qwen2-moe-a2.7b", "_grouped_mm"),
+                       ("recurrentgemma-2b", "time_scan"),
+                       ("falcon-mamba-7b", "time_scan")):
+        with pytest.raises(NotImplementedError, match=what):
+            train_loop.make_train_step(get_reduced(arch), AdamWConfig())
+        with pytest.raises(NotImplementedError, match=what):
+            train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                        "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="A11"):
+        train.main(["--arch", "kimi-k2-1t-a32b", "--reduced", "--device",
+                    "cpu", "--ckpt-dir", str(tmp_path)])
+    cfg = get_reduced("qwen2-1.5b")
+    for mesh in ("single", "multi"):
+        with pytest.raises(NotImplementedError, match="A13"):
+            train.main(["--arch", "qwen2-1.5b", "--reduced", "--mesh", mesh,
+                        "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    for refused in (lambda: train_loop.make_train_step(cfg, AdamWConfig(),
+                                                       ctx=object()),
+                    lambda: train_loop.jit_train_step(cfg, AdamWConfig(),
+                                                      object()),
+                    lambda: train_loop.make_compressed_grad_fn(cfg,
+                                                               object()),
+                    lambda: train_loop.init_error_buffer(object(), {})):
+        with pytest.raises(NotImplementedError, match="A13"):
+            refused()
+    if torch.cuda.is_available():
+        return
+    from repro_torch.bridge import opt_state_from_numpy
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "qwen2-1.5b", "--reduced", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path)])
+    data = SyntheticLM(cfg, ShapeConfig("t", 8, 2, "train"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        data.next_batch()
+    assert data.next_batch(device="cpu")["tokens"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="cuda"):
+        opt_state_from_numpy((np.int32(0), {}, {}))
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save(1, {"t": {"w": torch.ones(2)}})
+    with pytest.raises(RuntimeError, match="cuda"):
+        ck.restore(1, {"t": {"w": torch.ones(2)}})
