@@ -39,12 +39,12 @@ FLASH_CU = "kernels/csrc/flash_attention.cu"
 # (name, text of flash_attention.cu's tensor-core kernel, its replacement)
 KERNEL_FAULTS = (
     ("band skips its first key tile",
-     "max(0, q_lo - window + 1) / MMA_BK * MMA_BK : 0",
-     "max(0, q_lo - window + 1) / MMA_BK * MMA_BK + "
-     "(q_lo - window + 1 > 0 ? MMA_BK : 0) : 0"),
+     "max(0, q_lo - window + 1) / T::BK * T::BK : 0",
+     "max(0, q_lo - window + 1) / T::BK * T::BK + "
+     "(q_lo - window + 1 > 0 ? T::BK : 0) : 0"),
     ("band edge tiles unmasked",
-     "(window > 0 && k0 < q_hi - window + 1)",
-     "(window > 0 && k0 < q_hi - window + 1 - MMA_BK)"),
+     "(window > 0 && k0 < w_hi - window + 1)",
+     "(window > 0 && k0 < w_hi - window + 1 - T::BK)"),
 )
 
 

@@ -3,16 +3,21 @@
 
     git archive <commit> | tar -x -C build/other    # any ignored directory
     python3 chip_pair.py build/other
+    python3 chip_pair.py --b5 build/other           # the static kernel only
 
 Each side runs in a process of its own, in the order other, this, this,
 other: the kernel checks of ``chip_smoke.py`` (paged decode and chunk
 prefill over both pools, static attention, int4 matmul: every case and
-shape, with their library yardsticks) and its bf16-chunked and
-bf16-whole-prompt serves, each profiled.  Both sides are built from
-their own sources but measured by THIS checkout's ``chip_smoke`` functions,
-so a difference is the code's, not the method's.  Prints one line per side
-and serve; each side's details go to
-``chiprun_out/chip_pair_<turn>_<side>.json``.  Needs one card.
+shape, with their library yardsticks; the static attention also at head
+dims 120, 256 and 80 and at llava's vision wave) and its bf16-chunked and
+bf16-whole-prompt serves, each profiled; with ``--b5``, the static
+attention's checks alone.  Both sides are built from their own sources but
+measured by THIS checkout's ``chip_smoke`` functions, so a difference is
+the code's, not the method's.  Prints one line per side and serve, then
+each static-attention case's time on both sides (the mean of a side's two
+turns) and their ratio; each side's details go to
+``chiprun_out/chip_pair_<turn>_<side>.json``, the static attention's
+table to ``chiprun_out/chip_pair_b5.json``.  Needs one card.
 """
 from __future__ import annotations
 
@@ -24,7 +29,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 
-def side(src: str) -> dict:
+SERVES = ("bf16-chunked", "bf16-whole-prompt")
+
+
+def side(src: str, b5_only: bool = False) -> dict:
     """This process's measurements of the port under ``src``."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs                   # puts ROOT/src on the path
@@ -35,14 +43,21 @@ def side(src: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"src": src, "card": torch.cuda.get_device_name(0)}
-    for check in (cs.check_paged_attention, cs.check_paged_attention_quant,
-                  cs.check_flash_attention_chunk,
-                  cs.check_flash_attention_chunk_int8,
-                  cs.check_flash_attention, cs.check_gptq_matmul):
+    b5 = (cs.check_flash_attention, cs.check_flash_attention_d120,
+          cs.check_flash_attention_d256, cs.check_flash_attention_d80,
+          cs.check_flash_attention_vision)
+    others = (cs.check_paged_attention, cs.check_paged_attention_quant,
+              cs.check_flash_attention_chunk,
+              cs.check_flash_attention_chunk_int8, cs.check_gptq_matmul)
+    for check in b5 + (() if b5_only else others):
         r = check(gen)
-        out[r["name"]] = r.get("per_case") or r["per_shape"]
-        out[r["name"] + ":main"] = {"ms": r["ms"], "plain_ms": r["plain_ms"],
-                                    "library_ms": r["library_ms"]}
+        key = r.get("label", r["name"])
+        out[key] = r.get("per_case") or r["per_shape"]
+        out[key + ":main"] = {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                              "library_ms": r["library_ms"]}
+        torch.cuda.empty_cache()
+    if b5_only:
+        return out
     # the two synchronous serves (cs.SYNC), like for like with trees
     # whose engine had no async step
     for label, options, must, never in (cs.SERVES[0], cs.SERVES[2]):
@@ -54,15 +69,38 @@ def side(src: str) -> dict:
     return out
 
 
+def b5_table(runs) -> list:
+    """Each static-attention case's time on both sides: (check, case,
+    other ms, this ms, other / this), a side's ms the mean of its turns."""
+    ms = {}
+    for tag, r in runs:
+        for key, rows in r.items():
+            if key.startswith("flash_attention") and ":" not in key \
+                    and not key.startswith("flash_attention_chunk"):
+                for row in rows:
+                    ms.setdefault((key, row["case"]), {}).setdefault(
+                        tag, []).append(row["ms"])
+    table = []
+    for (key, case), t in ms.items():
+        other = sum(t["other"]) / len(t["other"])
+        this = sum(t["this"]) / len(t["this"])
+        table.append((key, case, other, this, other / this))
+    return table
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--side"]:
-        Path(sys.argv[3]).write_text(json.dumps(side(sys.argv[2])))
+        Path(sys.argv[3]).write_text(json.dumps(
+            side(sys.argv[2], b5_only=sys.argv[4:5] == ["--b5"])))
         return 0
     import torch
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
+    args = sys.argv[1:]
+    b5_only = args[:1] == ["--b5"]
+    args = args[1:] if b5_only else args
+    if len(args) != 1 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
-    sides = {"other": str(Path(sys.argv[1]).resolve() / "src"),
+    sides = {"other": str(Path(args[0]).resolve() / "src"),
              "this": str(ROOT / "src")}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -70,13 +108,20 @@ def main() -> int:
     for i, tag in enumerate(("other", "this", "this", "other")):
         res = out / f"chip_pair_{i}_{tag}.json"
         subprocess.run([sys.executable, __file__, "--side", sides[tag],
-                        str(res)], check=True, timeout=900)
+                        str(res)] + (["--b5"] if b5_only else []),
+                       check=True, timeout=900)
         runs.append((tag, json.loads(res.read_text())))
+    table = b5_table(runs)
+    (out / "chip_pair_b5.json").write_text(json.dumps(
+        {"card": runs[0][1]["card"], "cases": table}, indent=1))
+    for key, case, other, this, ratio in table:
+        print(f"[pair] {key} {case}: other_ms={other:.4f} this_ms="
+              f"{this:.4f} other/this={ratio:.3f}", flush=True)
     for tag, r in runs:
         mains = {k.split(":")[0]: round(v["ms"], 4) for k, v in r.items()
                  if k.endswith(":main")}
         print(f"[pair] {tag} kernels ms: {json.dumps(mains)}", flush=True)
-        for label in ("bf16-chunked", "bf16-whole-prompt"):
+        for label in () if b5_only else SERVES:
             sv, p = r[label], r[label]["profile"]
             print(f"[pair] {tag} {label}: wall_s={sv['wall_s']:.3f} "
                   f"gen_tok_s={sv['gen_tok_s']:.1f} "

@@ -10,7 +10,10 @@ Phases, each of which fails loudly (any failure exits non-zero):
              count the tensor-core instructions (HMMA / HGMMA) that
              ``cuobjdump --dump-sass`` shows in every instantiation of the
              bf16 paged decode, chunk prefill, static attention and int4
-             matmul kernels (none is a failure);
+             matmul kernels (none is a failure; the static attention's
+             five must each show HGMMA, wgmma), and ptxas's registers and
+             spills of the static attention's five (a spill is a
+             failure);
 2. kernels — run each kernel at the serving shapes of full-width
              qwen2-1.5b in bf16 (int8 pools where the kernel reads them)
              against its plain torch version on the card, print its time
@@ -137,7 +140,7 @@ Phases, each of which fails loudly (any failure exits non-zero):
 8. hybrid  — recurrentgemma-2b (18 RG-LRU layers with per-slot recurrent
              state, 8 sliding-window layers over private rings; 10 query
              heads over 1 KV head, head dim 256): the static kernel's
-             D = 256 instantiation (HMMA in its SASS, ptxas's registers
+             D = 256 instantiation (HGMMA in its SASS, ptxas's registers
              and spills) on the serve's wave [8, 2048] causal inside the
              2048 window, a band case Sk 2560 > window, a ragged 333 and
              a window at a q_offset, against the plain version one
@@ -196,7 +199,7 @@ Phases, each of which fails loudly (any failure exits non-zero):
 11. audio  — hubert-xlarge (an encoder: layernorm, non-causal ALiBi, 16
              query heads over 16 KV heads at head dim 80, 504 frame
              labels; no decode): the static kernel's D = 80 instantiation
-             (HMMA in its SASS, ptxas's registers and spills) on frames
+             (HGMMA in its SASS, ptxas's registers and spills) on frames
              [8, 1500] not causal with ALiBi, causal, and not causal
              without ALiBi, timed beside SDPA with the same additive
              bias; ``gptq_matmul`` at its linears at 12,000 rows; the
@@ -280,8 +283,9 @@ TOL = 2e-2                       # bf16 kernel tolerance (tests/test_kernels.py)
 LOGIT_TOL = 0.1                  # bf16 end-to-end logits, card vs CPU
 # static attention: each query row's error over its own RMS (row_rel_err).
 # chip_faults.py on an H100 80GB HBM3 at 700 W: the sound kernel reads
-# 0.026-0.036 in every case; a band that skips its first key tile or
-# leaves its edge tiles unmasked reads 1.65-5.8 in every windowed case
+# 0.026-0.036 in every case (the wgmma body 0.026-0.035); a band that
+# skips its first key tile or leaves its edge tiles unmasked reads
+# 1.65-5.8 (2.2-29.9) in every windowed case
 FLASH_REL_TOL = 0.1
 SPIN_CYCLES = 2_000_000          # ~1 ms of device clock before each timing
 
@@ -340,13 +344,22 @@ TENSOR_CORE_KERNELS = {"flash_attention": "flash_attention_mma_kernel",
                        "gptq_matmul": "gptq_mma_kernel",
                        "paged_attention": "paged_attention_mma_kernel",
                        "flash_attention_chunk": "chunk_attention_mma_kernel"}
+# ... and those whose every instantiation must run on wgmma (HGMMA), not
+# merely on mma.sync (HMMA)
+WGMMA_KERNELS = {"flash_attention": "flash_attention_mma_kernel"}
+# the static kernel's bf16 instantiations, as cuobjdump and ptxas name
+# them: (head dim, narrow block) -> name
+FLASH_MMA_KERNELS = {
+    (d, small): f"flash_attention_mma_kernelILi{d}ELb{small}E"
+    for d in (64, 80, 120, 128, 256) for small in (0, 1)}
 
 
 def tensor_core_sass(build) -> dict:
-    """Count the tensor-core instructions (HMMA, HGMMA) that ``cuobjdump
-    --dump-sass`` shows in every instantiation of each kernel of
-    TENSOR_CORE_KERNELS in the built libraries; fails if a kernel is
-    missing or one of its instantiations has none."""
+    """Count the tensor-core instructions that ``cuobjdump --dump-sass``
+    shows in every instantiation of each kernel of TENSOR_CORE_KERNELS in
+    the built libraries: {name: {"HMMA": n, "HGMMA": n}}.  Fails if a
+    kernel is missing, one of its instantiations has neither, or one of
+    WGMMA_KERNELS has no HGMMA."""
     cuobjdump = str(Path(build.nvcc()).with_name("cuobjdump"))
     counts = {}
     for lib, fn in TENSOR_CORE_KERNELS.items():
@@ -360,13 +373,37 @@ def tensor_core_sass(build) -> dict:
             if "Function :" in line:
                 name = line.split("Function :", 1)[1].strip()
                 if fn in name:
-                    counts[name] = 0
-            elif name in counts and ("HMMA" in line or "HGMMA" in line):
-                counts[name] += 1
+                    counts[name] = {"HMMA": 0, "HGMMA": 0}
+            elif name in counts:
+                for op in ("HGMMA", "HMMA"):
+                    if op in line:
+                        counts[name][op] += 1
         mine = {n: c for n, c in counts.items() if fn in n}
-        if not mine or not all(mine.values()):
+        if not mine or not all(sum(c.values()) for c in mine.values()):
             raise AssertionError(f"{fn}: no HMMA/HGMMA in {path}: {mine}")
+        if lib in WGMMA_KERNELS and not all(c["HGMMA"]
+                                            for c in mine.values()):
+            raise AssertionError(f"{fn}: an instantiation without HGMMA "
+                                 f"(wgmma) in {path}: {mine}")
     return counts
+
+
+def flash_ptxas(build) -> dict:
+    """ptxas's registers and spills of each bf16 instantiation of the
+    static kernel (five head dims, wide and narrow block; from
+    ``build_all(verbose=True)``'s log); fails if one spills.  {} when the
+    libraries came from an earlier build (no log)."""
+    log = build.LOGS.get("flash_attention", "")
+    if not log:
+        return {}
+    usage = {f"D={d}{' narrow' if small else ''}": ptxas_usage(log, fn)
+             for (d, small), fn in FLASH_MMA_KERNELS.items()}
+    spilled = {d: u for d, u in usage.items()
+               if not u or u["spill_store_bytes"] or u["spill_load_bytes"]}
+    if spilled:
+        raise AssertionError(f"flash_attention_mma_kernel spills (or has "
+                             f"no ptxas report): {spilled}")
+    return usage
 
 
 # --------------------------------------------------------------------------
@@ -2784,11 +2821,11 @@ def ptxas_usage(log: str, fn: str) -> dict:
 
 def check_flash_attention_d256(gen):
     """The static kernel at recurrentgemma-2b's heads (10 over 1, head dim
-    256, Q's fragments read from shared memory at each k-step): the
-    serve's wave [8, 2048] causal inside the 2048 window, a band case
-    where Sk 2560 > window 2048, a ragged 333 (not a multiple of the 64
-    query and key tiles) and a window at a q_offset; each against the
-    plain version one (sequence, KV head) group at a time."""
+    256, tiles of 64 keys): the serve's wave [8, 2048] causal inside the
+    2048 window, a band case where Sk 2560 > window 2048, a ragged 333
+    (not a multiple of the 128 query and 64 key tiles) and a window at a
+    q_offset; each against the plain version one (sequence, KV head)
+    group at a time."""
     h, kv, d = RGEMMA_HEADS
     b, S = RGEMMA_WAVE
     win = RGEMMA_WINDOW
@@ -2948,7 +2985,7 @@ def device_split(run, iters: int = 2) -> dict:
 
 def phase_hybrid(report: dict, gen, kernels) -> list:
     """Phase 8 on the card: the static kernel at head dim 256 (its
-    registers and spills from ptxas, its tensor-core SASS), ``gptq_matmul``
+    registers and spills from ptxas, its wgmma SASS), ``gptq_matmul``
     at recurrentgemma's linears (decode and the wave's rows), the 6-layer
     full-width model card vs CPU (f32 and bf16 int4), then full-depth
     recurrentgemma-2b with ``rtn-int4`` weights served on the engine's
@@ -2960,14 +2997,14 @@ def phase_hybrid(report: dict, gen, kernels) -> list:
     from repro_torch.kernels import build
     r = report["hybrid"] = {}
     t_phase = time.perf_counter()
-    sass = {n: c for n, c in report["tensor_core_sass"].items()
+    sass = {n: c["HGMMA"] for n, c in report["tensor_core_sass"].items()
             if D256_KERNEL in n}
     if not sass or not all(sass.values()):
-        raise AssertionError(f"{D256_KERNEL}: no HMMA in its SASS: {sass}")
+        raise AssertionError(f"{D256_KERNEL}: no HGMMA in its SASS: {sass}")
     usage = ptxas_usage(build.LOGS.get("flash_attention", ""), D256_KERNEL)
-    r["d256_sass_hmma"], r["d256_ptxas"] = sum(sass.values()), usage
+    r["d256_sass_hgmma"], r["d256_ptxas"] = sum(sass.values()), usage
     log(f"[hybrid] flash_attention_mma_kernel<256>: "
-        f"{r['d256_sass_hmma']} HMMA in its SASS; ptxas "
+        f"{r['d256_sass_hgmma']} HGMMA in its SASS; ptxas "
         + (json.dumps(usage) if usage else "not measured (cached build)"))
     checks = [check_flash_attention_d256(gen)]
     g = check_gptq_matmul(
@@ -3551,6 +3588,19 @@ VLM_TOL = {"float32": MOE_LOGIT_TOL, "bfloat16": LOGIT_TOL}
 MODEL_AGREEMENT = 0.95
 
 
+def check_flash_attention_vision(gen):
+    """The static kernel at llava's vision wave: four sequences of 2,880
+    patches plus the longest text (3,080 tokens), 32 query heads over 8,
+    head dim 128, causal; against the plain version one (sequence, KV
+    head) at a time."""
+    h, kv = LLAVA_HEADS
+    b, S = len(VISION_TEXT), 2880 + max(VISION_TEXT)
+    return _flash_wave_record(
+        [(f"vision wave [{b},{S}] causal, G = 4",
+          _qkv(gen, b, S, S, h, kv, D), {})],
+        "flash_attention[vision]", "causal")
+
+
 def check_paged_vision(gen) -> dict:
     """The bf16 decode kernel at the vision decode's shape: llava's 32
     query heads over 8 KV heads, four sequences of 2,880 patches plus
@@ -3958,12 +4008,7 @@ def phase_vlm(report: dict, gen, kernels) -> list:
         k["label"], k["serves"] = label, ("llava-defaults",)
         checks.append(k)
     checks.append(check_paged_vision(gen))
-    h, kv = LLAVA_HEADS
-    b, S = len(VISION_TEXT), 2880 + max(VISION_TEXT)
-    checks.append(_flash_wave_record(
-        [(f"vision wave [{b},{S}] causal, G = 4",
-          _qkv(gen, b, S, S, h, kv, D), {})],
-        "flash_attention[vision]", "causal"))
+    checks.append(check_flash_attention_vision(gen))
     g = check_gptq_matmul(
         gen, shapes=LLAVA_GPTQ_SHAPES, main_shape=("gate/up", 8),
         shape="x[8,4096] @ int4[4096,14336] gs 32 (w_up, decode)",
@@ -4059,7 +4104,8 @@ HUBERT_DEPTH_AGREEMENT = 0.9
 
 def check_flash_attention_d80(gen):
     """The static kernel at hubert-xlarge's heads (16 over 16, head dim
-    80, five k-steps of 16, unpadded) on its frames [8, 1500]: not causal
+    80, Q K^T in five k-steps of 16, P V at N = 80) on its frames
+    [8, 1500]: not causal
     with ALiBi by |q_pos - k_pos| (the encoder's case), causal, and not
     causal without ALiBi; each against the plain version one (sequence,
     KV head) at a time, timed beside SDPA with the same additive bias."""
@@ -4215,7 +4261,7 @@ def hubert_depth(kernels, dev: str = "cuda", reduced: bool = False) -> dict:
 
 
 def phase_audio(report: dict, gen, kernels) -> list:
-    """Phase 11 on the card: the static kernel's D = 80 instantiation (HMMA
+    """Phase 11 on the card: the static kernel's D = 80 instantiation (HGMMA
     in its SASS, ptxas's registers and spills) at hubert's frames, not
     causal with ALiBi, causal, and not causal without ALiBi;
     ``gptq_matmul`` at its linears at the frames' 12,000 rows; the
@@ -4226,13 +4272,13 @@ def phase_audio(report: dict, gen, kernels) -> list:
     from repro_torch.kernels import build
     r = report["audio"] = {}
     t_phase = time.perf_counter()
-    sass = {n: c for n, c in report["tensor_core_sass"].items()
+    sass = {n: c["HGMMA"] for n, c in report["tensor_core_sass"].items()
             if D80_KERNEL in n}
     if not sass or not all(sass.values()):
-        raise AssertionError(f"{D80_KERNEL}: no HMMA in its SASS: {sass}")
+        raise AssertionError(f"{D80_KERNEL}: no HGMMA in its SASS: {sass}")
     usage = ptxas_usage(build.LOGS.get("flash_attention", ""), D80_KERNEL)
-    r["d80_sass_hmma"], r["d80_ptxas"] = sum(sass.values()), usage
-    log(f"[audio] flash_attention_mma_kernel<80>: {r['d80_sass_hmma']} HMMA "
+    r["d80_sass_hgmma"], r["d80_ptxas"] = sum(sass.values()), usage
+    log(f"[audio] flash_attention_mma_kernel<80>: {r['d80_sass_hgmma']} HGMMA "
         "in its SASS; ptxas "
         + (json.dumps(usage) if usage else "not measured (cached build)"))
     checks = [check_flash_attention_d80(gen)]
@@ -5350,6 +5396,10 @@ def main() -> int:
     report["tensor_core_sass"] = sass = tensor_core_sass(build)
     log(f"[build] cuobjdump --dump-sass, HMMA/HGMMA per kernel: "
         f"{json.dumps(sass)}")
+    report["flash_ptxas"] = usage = flash_ptxas(build)
+    log("[build] ptxas, flash_attention_mma_kernel<D, narrow> (registers "
+        "at entry; the consumers take 240, narrow 232, by setmaxnreg): "
+        + (json.dumps(usage) if usage else "not measured (cached build)"))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernels = []

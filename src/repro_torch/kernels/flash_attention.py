@@ -14,10 +14,11 @@
   ``custom_vjp``): its trainer differentiates the XLA reference.
 
 The bf16 bodies of both run on the tensor cores and are built for the
-head dims that ``MMA_HEAD_DIMS`` lists for each kernel (the static kernel
-also for 80, five k-steps of 16 unpadded, for 120, staged padded to 128,
-and for 256, its Q fragments read from shared memory at each k-step);
-their f32 bodies (CUDA cores) take any multiple of 8.
+head dims that ``MMA_HEAD_DIMS`` lists for each kernel: the chunk kernel
+on mma.sync, the static kernel on wgmma with TMA loads and warp
+specialisation (``csrc/hopper.cuh``), also at head dims 80, 120 (staged
+in boxes of 64 values, TMA filling the pad with zeros) and 256; their f32
+bodies (CUDA cores) take any multiple of 8.
 
 CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to the plain
 versions in ``kernels/ref.py``.
