@@ -3,7 +3,7 @@
 
     python3 chip_faults.py
 
-Reads what two of ``chip_smoke``'s checks measure, first on the sound
+Reads what three of ``chip_smoke``'s checks measure, first on the sound
 port, then with a fault planted, and holds each reading to the check's
 own limit:
 
@@ -13,6 +13,11 @@ own limit:
   the port's sources under a temporary directory, built there and
   checked in a process of its own: the band skips its first key tile
   (``k_begin`` one tile late), or its edge tiles go unmasked;
+- the int4 matmul's shapes (phase 2, ``check_gptq_matmul``): every
+  output within ``TOL`` of the plain version.  Each fault is planted in
+  a copy of ``gptq_matmul.cu`` the same way: a group boundary inside a k
+  tile keeps the previous group's scale and zero, or the two codes of
+  each bf16 pair of an A fragment swap places;
 - the full-depth h2o-danube-3-4b serve (``serve_ring``): every served
   token against teacher forcing, the share equal
   (``TEACHER_AGREEMENT``) and the teacher's largest logit gap to a
@@ -36,6 +41,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FLASH_CU = "kernels/csrc/flash_attention.cu"
+GPTQ_CU = "kernels/csrc/gptq_matmul.cu"
 # (name, text of flash_attention.cu's tensor-core kernel, its replacement)
 KERNEL_FAULTS = (
     ("band skips its first key tile",
@@ -45,6 +51,15 @@ KERNEL_FAULTS = (
     ("band edge tiles unmasked",
      "(window > 0 && k0 < w_hi - window + 1)",
      "(window > 0 && k0 < w_hi - window + 1 - T::BK)"),
+)
+# (name, text of gptq_matmul.cu's wgmma body, its replacement)
+GPTQ_FAULTS = (
+    ("group boundary keeps the previous scale",
+     "load_sz(ss, zs, cur - g_lo);",
+     "load_sz(ss, zs, cur - g_lo - 1);"),
+    ("nibble pair swapped",
+     "lo = (b & 0x000F000Fu) | MAGIC;\n  hi = ((b >> 4) & 0x000F000Fu) | MAGIC;",
+     "hi = (b & 0x000F000Fu) | MAGIC;\n  lo = ((b >> 4) & 0x000F000Fu) | MAGIC;"),
 )
 
 
@@ -72,26 +87,53 @@ def flash_readings(src=None) -> dict:
     return out
 
 
+def gptq_readings(src=None) -> dict:
+    """The int4 matmul's check at qwen2-1.5b's shapes for the port under
+    ``src`` (this checkout's when None), at its own limit: {"fails": the
+    check's message if it failed, else None, "rows": (linear, M, max err
+    over max |ref|) of the rows it passed}."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs                   # puts ROOT/src on the path
+    if src is not None:
+        sys.path.insert(0, src)               # the planted copy wins
+    import torch
+    from repro_torch.kernels import build
+    build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, fails = [], None
+    log = cs.log
+    cs.log = lambda msg: (rows.append(msg), log(msg))
+    try:
+        cs.check_gptq_matmul(gen)
+    except AssertionError as e:
+        fails = str(e)
+    finally:
+        cs.log = log
+    return {"fails": fails, "rows": rows}
+
+
 def flash_fails(readings: dict, tol: float, rel_tol: float) -> list:
     return [f"{check}: {case}" for check, rows in readings.items()
             for case, err, rel in rows if not (err <= tol and rel <= rel_tol)]
 
 
-def planted_kernel(name: str, old: str, new: str) -> dict:
+def planted_kernel(name: str, old: str, new: str, source: str = FLASH_CU,
+                   readings: str = "--flash-readings") -> dict:
     """Build a copy of the port with ``old`` replaced by ``new`` in the
-    static kernel's source and read its checks in a process of its own."""
+    kernel ``source`` and read its checks (``readings``) in a process of
+    its own."""
     with tempfile.TemporaryDirectory() as tmp:
         pkg = Path(tmp) / "src" / "repro_torch"
         shutil.copytree(ROOT / "src" / "repro_torch", pkg,
                         ignore=shutil.ignore_patterns("__pycache__"))
-        cu = pkg / FLASH_CU
+        cu = pkg / source
         text = cu.read_text()
         if text.count(old) != 1:
             raise RuntimeError(f"fault {name!r}: its text occurs "
-                               f"{text.count(old)} times in {FLASH_CU}")
+                               f"{text.count(old)} times in {source}")
         cu.write_text(text.replace(old, new))
         proc = subprocess.run(
-            [sys.executable, __file__, "--flash-readings", str(pkg.parent)],
+            [sys.executable, __file__, readings, str(pkg.parent)],
             capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             raise RuntimeError(f"fault {name!r}: {proc.stderr[-3000:]}")
@@ -169,6 +211,9 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--flash-readings":
         print(json.dumps(flash_readings(sys.argv[2])), flush=True)
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--gptq-readings":
+        print(json.dumps(gptq_readings(sys.argv[2])), flush=True)
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_faults: torch.cuda.is_available() is False; this script "
@@ -195,6 +240,17 @@ def main() -> int:
         cs.log(f"[flash] {name}: {len(fails)} cases fail")
         if (name == "sound") != (not fails):
             bad.append(f"{name}: {fails if fails else 'nothing fails'}")
+    gptq = report["gptq_matmul"] = {"sound": gptq_readings()}
+    for name, old, new in GPTQ_FAULTS:
+        gptq[name] = planted_kernel(name, old, new, GPTQ_CU,
+                                    "--gptq-readings")
+    for name, r in gptq.items():
+        cs.log(f"[gptq] {name}: "
+               + ("passes TOL" if r["fails"] is None
+                  else f"fails: {r['fails']}"))
+        if (name == "sound") != (r["fails"] is None):
+            bad.append(f"gptq_matmul {name}: "
+                       + (r["fails"] or "nothing fails"))
     ring = report["serve"] = serve_readings()
     for name, tf in ring.items():
         ok = cs.teacher_ok(tf)

@@ -4,6 +4,7 @@
     git archive <commit> | tar -x -C build/other    # any ignored directory
     python3 chip_pair.py build/other
     python3 chip_pair.py --b5 build/other           # the static kernel only
+    python3 chip_pair.py --b3 build/other           # the int4 matmul only
 
 Each side runs in a process of its own, in the order other, this, this,
 other: the kernel checks of ``chip_smoke.py`` (paged decode and chunk
@@ -11,13 +12,19 @@ prefill over both pools, static attention, int4 matmul: every case and
 shape, with their library yardsticks; the static attention also at head
 dims 120, 256 and 80 and at llava's vision wave) and its bf16-chunked and
 bf16-whole-prompt serves, each profiled; with ``--b5``, the static
-attention's checks alone.  Both sides are built from their own sources but
-measured by THIS checkout's ``chip_smoke`` functions, so a difference is
-the code's, not the method's.  Prints one line per side and serve, then
-each static-attention case's time on both sides (the mean of a side's two
-turns) and their ratio; each side's details go to
-``chiprun_out/chip_pair_<turn>_<side>.json``, the static attention's
-table to ``chiprun_out/chip_pair_b5.json``.  Needs one card.
+attention's checks alone; with ``--b3``, the int4 matmul's checks at the
+shapes of every model ``chip_smoke.py`` serves (qwen2-1.5b with the ragged
+check shape, h2o-danube-3-4b, recurrentgemma-2b, falcon-mamba-7b,
+llava-next-mistral-7b, hubert-xlarge, command-r-plus-104b). Both sides are
+built from their own sources but measured by THIS checkout's
+``chip_smoke`` functions, so a difference is the code's, not the method's.
+Prints one line per side and serve, then each static-attention case's time
+on both sides (the mean of a side's two turns) and their ratio (with
+``--b3`` each int4 product's, beside this side's bound, library call and
+dense bf16 matmul); each side's details go to
+``chiprun_out/chip_pair_<turn>_<side>.json``, the static attention's table
+to ``chiprun_out/chip_pair_b5.json``, the int4 matmul's to
+``chiprun_out/chip_pair_b3.json``. Needs one card.
 """
 from __future__ import annotations
 
@@ -32,8 +39,33 @@ ROOT = Path(__file__).resolve().parent
 SERVES = ("bf16-chunked", "bf16-whole-prompt")
 
 
-def side(src: str, b5_only: bool = False) -> dict:
-    """This process's measurements of the port under ``src``."""
+def b3_checks(cs) -> tuple:
+    """The int4 matmul's checks at every model's shapes, as chip_smoke's
+    phases call them."""
+    def check(label, shapes, main, library_max_m=8192):
+        def run(gen):
+            r = cs.check_gptq_matmul(gen, shapes=shapes, main_shape=main,
+                                     library_max_m=library_max_m)
+            r["label"] = label
+            return r
+        return run
+    return (check("gptq_matmul", cs.GPTQ_SHAPES, ("gate/up", 8), None),
+            check("gptq_matmul[danube]", cs.DANUBE_GPTQ_SHAPES,
+                  ("gate/up", 8)),
+            check("gptq_matmul[rgemma]", cs.RGEMMA_GPTQ_SHAPES, ("up", 8)),
+            check("gptq_matmul[mamba]", cs.MAMBA_GPTQ_SHAPES,
+                  ("in_proj", 8)),
+            check("gptq_matmul[llava]", cs.LLAVA_GPTQ_SHAPES,
+                  ("gate/up", 8)),
+            check("gptq_matmul[hubert]", cs.HUBERT_GPTQ_SHAPES,
+                  ("up", 12000), 16384),
+            check("gptq_matmul[cmdr]", cs.CMDR_GPTQ_SHAPES, ("gate/up", 8),
+                  None))
+
+
+def side(src: str, only: str = "") -> dict:
+    """This process's measurements of the port under ``src`` (``only``
+    "--b5" or "--b3": that kernel's checks alone)."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs                   # puts ROOT/src on the path
     sys.path.insert(0, src)                   # the side's package wins
@@ -49,14 +81,15 @@ def side(src: str, b5_only: bool = False) -> dict:
     others = (cs.check_paged_attention, cs.check_paged_attention_quant,
               cs.check_flash_attention_chunk,
               cs.check_flash_attention_chunk_int8, cs.check_gptq_matmul)
-    for check in b5 + (() if b5_only else others):
+    checks = {"--b5": b5, "--b3": b3_checks(cs)}.get(only, b5 + others)
+    for check in checks:
         r = check(gen)
         key = r.get("label", r["name"])
         out[key] = r.get("per_case") or r["per_shape"]
         out[key + ":main"] = {"ms": r["ms"], "plain_ms": r["plain_ms"],
                               "library_ms": r["library_ms"]}
         torch.cuda.empty_cache()
-    if b5_only:
+    if only:
         return out
     # the two synchronous serves (cs.SYNC), like for like with trees
     # whose engine had no async step
@@ -88,15 +121,39 @@ def b5_table(runs) -> list:
     return table
 
 
+def b3_table(runs) -> list:
+    """Each int4 product's time on both sides: (check, linear, M, other
+    ms, this ms, other / this, this side's bound ms, library ms, dense
+    bf16 matmul ms), a side's ms the mean of its turns."""
+    ms, this_row = {}, {}
+    for tag, r in runs:
+        for key, rows in r.items():
+            if key.startswith("gptq_matmul") and ":" not in key:
+                for row in rows:
+                    k = (key, row["linear"], row["M"])
+                    ms.setdefault(k, {}).setdefault(tag, []).append(row["ms"])
+                    if tag == "this":
+                        this_row[k] = row
+    table = []
+    for k, t in ms.items():
+        other = sum(t["other"]) / len(t["other"])
+        this = sum(t["this"]) / len(t["this"])
+        row = this_row[k]
+        table.append((*k, other, this, other / this, row["bound"][0],
+                      row["library_ms"], row["dense_bf16_matmul_ms"]))
+    return table
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--side"]:
         Path(sys.argv[3]).write_text(json.dumps(
-            side(sys.argv[2], b5_only=sys.argv[4:5] == ["--b5"])))
+            side(sys.argv[2], only=(sys.argv[4:5] or [""])[0])))
         return 0
     import torch
     args = sys.argv[1:]
-    b5_only = args[:1] == ["--b5"]
-    args = args[1:] if b5_only else args
+    only = args[0] if args[:1] in (["--b5"], ["--b3"]) else ""
+    b5_only = only != ""
+    args = args[1:] if only else args
     if len(args) != 1 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
@@ -108,9 +165,26 @@ def main() -> int:
     for i, tag in enumerate(("other", "this", "this", "other")):
         res = out / f"chip_pair_{i}_{tag}.json"
         subprocess.run([sys.executable, __file__, "--side", sides[tag],
-                        str(res)] + (["--b5"] if b5_only else []),
+                        str(res)] + ([only] if only else []),
                        check=True, timeout=900)
         runs.append((tag, json.loads(res.read_text())))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else runs[0][1]["card"]
+    print(f"[pair] card: {card}", flush=True)
+    if only == "--b3":
+        table = b3_table(runs)
+        (out / "chip_pair_b3.json").write_text(json.dumps(
+            {"card": card, "rows": table}, indent=1))
+        for key, lin, M, other, this, ratio, bound, lib, dense in table:
+            print(f"[pair] {key} {lin} M={M}: other_ms={other:.4f} "
+                  f"this_ms={this:.4f} other/this={ratio:.3f} "
+                  f"bound_ms={bound:.4f} library_ms="
+                  + ("null" if lib is None else f"{lib:.4f}")
+                  + f" dense_bf16_ms={dense:.4f}", flush=True)
+        return 0
     table = b5_table(runs)
     (out / "chip_pair_b5.json").write_text(json.dumps(
         {"card": runs[0][1]["card"], "cases": table}, indent=1))

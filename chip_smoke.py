@@ -341,17 +341,21 @@ def time_ms(fn, iters: int = 10) -> float:
 
 # The bf16 kernels that must run on the tensor cores: library -> function.
 TENSOR_CORE_KERNELS = {"flash_attention": "flash_attention_mma_kernel",
-                       "gptq_matmul": "gptq_mma_kernel",
+                       "gptq_matmul": "gptq_wgmma_kernel",
                        "paged_attention": "paged_attention_mma_kernel",
                        "flash_attention_chunk": "chunk_attention_mma_kernel"}
 # ... and those whose every instantiation must run on wgmma (HGMMA), not
 # merely on mma.sync (HMMA)
-WGMMA_KERNELS = {"flash_attention": "flash_attention_mma_kernel"}
+WGMMA_KERNELS = {"flash_attention": "flash_attention_mma_kernel",
+                 "gptq_matmul": "gptq_wgmma_kernel"}
 # the static kernel's bf16 instantiations, as cuobjdump and ptxas name
 # them: (head dim, narrow block) -> name
 FLASH_MMA_KERNELS = {
     (d, small): f"flash_attention_mma_kernelILi{d}ELb{small}E"
     for d in (64, 80, 120, 128, 256) for small in (0, 1)}
+# the int4 matmul's wgmma instantiations: token tile -> name
+GPTQ_WGMMA_KERNELS = {nt: f"gptq_wgmma_kernelILi{nt}E"
+                      for nt in (8, 16, 32, 64, 128, 256)}
 
 
 def tensor_core_sass(build) -> dict:
@@ -388,22 +392,47 @@ def tensor_core_sass(build) -> dict:
     return counts
 
 
-def flash_ptxas(build) -> dict:
-    """ptxas's registers and spills of each bf16 instantiation of the
-    static kernel (five head dims, wide and narrow block; from
-    ``build_all(verbose=True)``'s log); fails if one spills.  {} when the
-    libraries came from an earlier build (no log)."""
-    log = build.LOGS.get("flash_attention", "")
+def _ptxas_clean(build, lib: str, names: dict, label: str) -> dict:
+    """ptxas's registers and spills of each instantiation in ``names``
+    ({key: mangled-name fragment}) of ``lib``'s kernels (from
+    ``build_all(verbose=True)``'s log); fails if one spills or ptxas
+    serialised a wgmma of ``lib`` (C7510-C7520: "wgmma.mma_async
+    instructions are serialized").  {} when the libraries came from an
+    earlier build (no log)."""
+    log = build.LOGS.get(lib, "")
     if not log:
         return {}
-    usage = {f"D={d}{' narrow' if small else ''}": ptxas_usage(log, fn)
-             for (d, small), fn in FLASH_MMA_KERNELS.items()}
-    spilled = {d: u for d, u in usage.items()
+    usage = {key: ptxas_usage(log, fn) for key, fn in names.items()}
+    spilled = {k: u for k, u in usage.items()
                if not u or u["spill_store_bytes"] or u["spill_load_bytes"]}
     if spilled:
-        raise AssertionError(f"flash_attention_mma_kernel spills (or has "
-                             f"no ptxas report): {spilled}")
+        raise AssertionError(f"{label} spills (or has no ptxas report): "
+                             f"{spilled}")
+    serial = [line for line in log.splitlines()
+              if "wgmma.mma_async instructions are serialized" in line
+              and any(fn in line for fn in names.values())]
+    if serial:
+        raise AssertionError(f"{label}: ptxas serialised wgmma: {serial}")
     return usage
+
+
+def flash_ptxas(build) -> dict:
+    """The static kernel's bf16 instantiations (five head dims, wide and
+    narrow block) through ``_ptxas_clean``."""
+    return _ptxas_clean(
+        build, "flash_attention",
+        {f"D={d}{' narrow' if small else ''}": fn
+         for (d, small), fn in FLASH_MMA_KERNELS.items()},
+        "flash_attention_mma_kernel")
+
+
+def gptq_ptxas(build) -> dict:
+    """The int4 matmul's wgmma instantiations (six token tiles) through
+    ``_ptxas_clean``."""
+    return _ptxas_clean(build, "gptq_matmul",
+                        {f"NT={nt}": fn
+                         for nt, fn in GPTQ_WGMMA_KERNELS.items()},
+                        "gptq_wgmma_kernel")
 
 
 # --------------------------------------------------------------------------
@@ -836,6 +865,21 @@ def _library_check(row, call, want, lim) -> str:
     return f"max err {diff.max().item():.3e}"
 
 
+def _host_us(fn, calls: int = 50) -> float:
+    """The host's microseconds a call of ``fn`` takes to return (argument
+    checks, planning, tensor-map encoding and the launch; the device
+    runs behind)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def check_gptq_matmul(gen, shapes=None, main_shape=("gate/up", 8),
                       shape="x[8,1536] @ int4[1536,8960] gs 32 (gate/up, "
                             "decode)", library_max_m=None):
@@ -857,8 +901,9 @@ def check_gptq_matmul(gen, shapes=None, main_shape=("gate/up", 8),
         qw = torch.randint(-2 ** 31, 2 ** 31 - 1, (K // 8, N), generator=gen,
                            device=dev, dtype=torch.int64).int()
         sc = (torch.rand((K // gs, N), generator=gen, device=dev) * 0.01)
-        zr = torch.randint(0, 16, (K // gs, N), generator=gen,
-                           device=dev).float()
+        # f32 zeros anywhere in [0, 15], not only whole codes: the kernel
+        # rounds (8 - zero) x scale to bf16 for any of them
+        zr = torch.rand((K // gs, N), generator=gen, device=dev) * 15
         w16 = ref.gptq_matmul_ref(torch.eye(K, device=dev,
                                             dtype=torch.bfloat16), qw, sc, zr)
         packed, why = None, "torch has no _weight_int4pack_mm"
@@ -887,6 +932,11 @@ def check_gptq_matmul(gen, shapes=None, main_shape=("gate/up", 8),
             nbytes = M * K * 2 + K * N // 2 + 2 * (K // gs) * N * 4 + M * N * 2
             flops = 2 * M * K * N
             row = {"linear": lname, "M": M, "K": K, "N": N, "gs": gs,
+                   # (the older trees chip_pair.py times have no
+                   # plan_for)
+                   "plan": (gptq_matmul.plan_for(x, N, gs)._asdict()
+                            if hasattr(gptq_matmul, "plan_for") else None),
+                   "host_us": _host_us(lambda: gptq_matmul(x, qw, sc, zr)),
                    "ms": time_ms(lambda: gptq_matmul(x, qw, sc, zr)),
                    "plain_ms": time_ms(lambda: ref.gptq_matmul_ref(
                        x, qw, sc, zr), iters=3),
@@ -899,14 +949,19 @@ def check_gptq_matmul(gen, shapes=None, main_shape=("gate/up", 8),
             elif packed is not None:
                 row["library_note"] = _library_check(
                     row, lambda: lib_fn(x, packed, gs, sz), want, lim)
+            row["bound_share"] = row["bound"][0] / row["ms"]
             rows.append(row)
             lib = row["library_ms"]
+            pl = row["plan"] or {"route": "?", "tile": "?", "splits": "?"}
             log(f"gptq_matmul {lname:8s} M={M:4d} K={K} N={N} gs={gs}: "
                 f"kernel_ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                 f"library_ms=" + ("null" if lib is None else f"{lib:.4f}")
                 + f" bound_ms={row['bound'][0]:.4f} ({row['bound'][1]}) "
+                f"share_of_bound={row['bound_share']:.3f} "
                 f"dense_bf16_matmul_ms={row['dense_bf16_matmul_ms']:.4f} "
-                f"rel_err={row['rel_err']:.2e} [{row['library_note']}]")
+                f"rel_err={row['rel_err']:.2e} host_us={row['host_us']:.1f} "
+                f"plan={pl['route']}/{pl['tile']}x{pl['splits']} "
+                f"[{row['library_note']}]")
             if (lname, M) == main_shape:
                 main = row
             del x, y, want, again, diff, lim
@@ -1488,7 +1543,8 @@ def serve_once(llm, prompts, max_tokens, kernels, label, options, must,
 # int8 pool ("signed char") names the quantized entry.
 OURS = {"paged_attention_": "paged_attention",
         "chunk_attention_": "flash_attention_chunk",
-        "flash_attention_": "flash_attention", "gptq_m": "gptq_matmul",
+        "flash_attention_": "flash_attention", "gptq_": "gptq_matmul",
+        # the split-K sum kernel of older trees (chip_pair.py serves them)
         "splitk_reduce_kernel": "gptq_matmul",
         "selective_scan_kernel": "selective_scan",
         "linear_scan_kernel": "linear_scan"}
@@ -3708,8 +3764,8 @@ def _vision_embeds(cfg, rows: int, seed: int):
 
 def _gptq_launches(cfg, M: int, layers: int, gs: int = GS) -> int:
     """``gptq_matmul``'s launches for ``layers`` layers of ``cfg``'s int4
-    linears at M rows in bf16: each call launches the product and, where
-    its plan splits K, the split-K sum."""
+    linears at M rows in bf16, as their plans give (one a call: the last
+    split of a tile sums the partials in the same launch)."""
     import torch
     from repro_torch.kernels.gptq_matmul import plan
     d, hd = cfg.d_model, cfg.num_heads * cfg.resolved_head_dim
@@ -5399,6 +5455,10 @@ def main() -> int:
     report["flash_ptxas"] = usage = flash_ptxas(build)
     log("[build] ptxas, flash_attention_mma_kernel<D, narrow> (registers "
         "at entry; the consumers take 240, narrow 232, by setmaxnreg): "
+        + (json.dumps(usage) if usage else "not measured (cached build)"))
+    report["gptq_ptxas"] = usage = gptq_ptxas(build)
+    log("[build] ptxas, gptq_wgmma_kernel<NT> (registers at entry; at NT "
+        "256 the consumers take 240 by setmaxnreg): "
         + (json.dumps(usage) if usage else "not measured (cached build)"))
 
     gen = torch.Generator(device="cuda").manual_seed(0)

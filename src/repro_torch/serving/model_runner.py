@@ -55,7 +55,7 @@ from repro_torch.core.kv_quant import (cache_from_state, cache_to_state,
                                        normalize_kv_cache_dtype)
 from repro_torch.core.paged_cache import copy_blocks
 from repro_torch.core.sampling import sample_from_logits, sampling_plan
-from repro_torch.kernels import paged_attention
+from repro_torch.kernels import gptq_matmul, paged_attention
 from repro_torch.models import transformer as T
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.serving import step_graph
@@ -405,8 +405,8 @@ class ModelRunner:
 
     def close(self) -> None:
         """Release the step graphs, their static outputs and pool, and the
-        decode kernel's scratch on the capture stream.  A later dispatch
-        captures anew."""
+        decode kernel's scratch and the int4 matmul's split-K counters on
+        the capture stream.  A later dispatch captures anew."""
         if self._capture_stream is not None:
             torch.cuda.current_stream(self.device).synchronize()
         for kind, g in self.graphs.items():
@@ -416,6 +416,7 @@ class ModelRunner:
         self.graphs.clear()
         if self._capture_stream is not None:
             paged_attention.drop_scratch(self._capture_stream.cuda_stream)
+            gptq_matmul.drop_counters(self._capture_stream.cuda_stream)
         self._capture_stream = self._pool = None
 
     # ------------------------------------------------------------ tables

@@ -13,6 +13,7 @@ near-tie flips a sampled token.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.registry import get_reduced as j_get_reduced
 from repro.models import transformer as JT
@@ -27,6 +28,19 @@ from repro_torch.serving import (FaultInjector, FaultSpec, SamplingParams,
                                  ServingEngine)
 from repro_torch.serving.detok import DetokWorker
 from repro_torch.serving.scheduler import RequestState
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file on one torch intra-op thread.  With torch's default
+    of a thread per core in each of several test processes sharing the
+    same cores, every small op waits at a barrier for threads the other
+    processes hold, and the file runs several times slower (ROADMAP C13,
+    C15)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 CFG_KW = dict(num_layers=2, num_heads=4, num_kv_heads=2, dtype="float32")
 ENGINE_KW = dict(max_slots=4, num_blocks=128, max_blocks_per_seq=16,

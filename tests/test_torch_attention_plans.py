@@ -42,6 +42,19 @@ from repro_torch.kernels.flash_attention import MMA_HEAD_DIMS, check_head_dim
 from repro_torch.kernels.paged_attention import (MAX_SPLITS, SPLIT_TOKENS,
                                                  check_heads, plan)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file on one torch intra-op thread.  With torch's default
+    of a thread per core in each of several test processes sharing the
+    same cores, every small op waits at a barrier for threads the other
+    processes hold, and the file runs several times slower (ROADMAP C13,
+    C15)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 TK, BK = 16, 64      # paged_attention.cu: keys per warp tile / staged tile
 CHUNK_BK = 64        # flash_attention_chunk.cu: keys per staged tile
 TOL = 2e-2

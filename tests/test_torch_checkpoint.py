@@ -25,6 +25,19 @@ from repro_torch.configs.registry import get_reduced
 from repro_torch.models import transformer as T
 from repro_torch.serving import LLM, SamplingParams
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file on one torch intra-op thread.  With torch's default
+    of a thread per core in each of several test processes sharing the
+    same cores, every small op waits at a barrier for threads the other
+    processes hold, and the file runs several times slower (ROADMAP C13,
+    C15)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 OVR = {"dtype": "float32"}
 ENGINE_KW = dict(max_slots=3, num_blocks=48, max_blocks_per_seq=8,
                  max_num_batched_tokens=24, enable_async_step=False)

@@ -154,8 +154,8 @@ def test_index_widths_and_the_group_128_plan():
     ([64, 1536, 33792] int32, 3.32e9) pass 2**31 elements, but what a
     kernel receives is one layer's view: every int4 leaf of a layer, the
     per-call products' M, K, N and the whole paged pool stay below 2**31
-    (the wrappers pass them as C ints).  ``plan`` stages 2 scale rows a k
-    tile at group 128 (3 at 32)."""
+    (the wrappers pass them as C ints).  ``plan`` stages 1 scale row a k
+    tile at group 128 (2 at 32)."""
     from repro_torch.kernels.gptq_matmul import plan
     cfg = get_config(ARCH)
     meta = T.init_params(cfg, device="meta")
@@ -170,8 +170,8 @@ def test_index_widths_and_the_group_128_plan():
     for M in (8, 256):
         for K, N in ((12288, 33792), (33792, 12288)):
             assert max(M, K, N, M * K, M * N) < 2 ** 31
-            assert plan(M, K, N, 128, 132).sr == 2
-            assert plan(M, K, N, 32, 132).sr == 3
+            assert plan(M, K, N, 128, 132).sr == 1
+            assert plan(M, K, N, 32, 132).sr == 2
 
 
 def test_rtn_codes_at_group_128_match_jax(cmdr):

@@ -40,6 +40,19 @@ from repro.kernels.flash_attention import flash_attention as j_flash
 from repro_torch.core.alibi import alibi_slopes
 from repro_torch.kernels.flash_attention import MMA_HEAD_DIMS
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file on one torch intra-op thread.  With torch's default
+    of a thread per core in each of several test processes sharing the
+    same cores, every small op waits at a barrier for threads the other
+    processes hold, and the file runs several times slower (ROADMAP C13,
+    C15)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
        / "kernels" / "csrc" / "flash_attention.cu")
 WG_ROWS = 64              # query rows a consumer warpgroup

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.base import QuantConfig as JQuantConfig
 from repro.configs.registry import get_reduced as j_get_reduced
@@ -35,6 +36,19 @@ from repro_torch.models import transformer as T
 from repro_torch.models.quantize import (calibration_hessians,
                                          gptq_quantize_model)
 from repro_torch.serving import LLM, SamplingParams
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file on one torch intra-op thread.  With torch's default
+    of a thread per core in each of several test processes sharing the
+    same cores, every small op waits at a barrier for threads the other
+    processes hold, and the file runs several times slower (ROADMAP C13,
+    C15)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 CFG_KW = dict(num_heads=12, num_kv_heads=2, dtype="float32")
 ENGINE_KW = dict(max_slots=3, num_blocks=48, max_blocks_per_seq=8,

@@ -19,6 +19,19 @@ from repro_torch.configs.base import QuantConfig
 from repro_torch.core import gptq as g
 from repro_torch.core.quant import make_quant_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file on one torch intra-op thread.  With torch's default
+    of a thread per core in each of several test processes sharing the
+    same cores, every small op waits at a barrier for threads the other
+    processes hold, and the file runs several times slower (ROADMAP C13,
+    C15)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 REL = 1e-12
 
 

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch``, and none of
-``chip_smoke.py``, ``chip_pair.py`` and ``chip_faults.py``, imports JAX or
-any part of the JAX package, and the entry points that default to the
-card (the bridge from the JAX package's weights included) refuse to run
-on a host without CUDA instead of falling back to the CPU."""
+``chip_smoke.py``, ``chip_pair.py``, ``chip_faults.py`` and
+``chip_b3_plans.py``, imports JAX or any part of the JAX package, and the
+entry points that default to the card (the bridge from the JAX package's
+weights included) refuse to run on a host without CUDA instead of falling
+back to the CPU."""
 import ast
 import inspect
 from pathlib import Path
@@ -11,10 +12,23 @@ import numpy as np
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file on one torch intra-op thread.  With torch's default
+    of a thread per core in each of several test processes sharing the
+    same cores, every small op waits at a barrier for threads the other
+    processes hold, and the file runs several times slower (ROADMAP C13,
+    C15)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "chip_pair.py",
-       ROOT / "chip_faults.py"]
+       ROOT / "chip_faults.py", ROOT / "chip_b3_plans.py"]
 
 
 def _imported(path: Path):

@@ -17,6 +17,19 @@ import torch
 from repro.core import kv_quant as jkq
 from repro_torch.core import kv_quant as kq
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file on one torch intra-op thread.  With torch's default
+    of a thread per core in each of several test processes sharing the
+    same cores, every small op waits at a barrier for threads the other
+    processes hold, and the file runs several times slower (ROADMAP C13,
+    C15)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 L, NB, BS, KV, D = 2, 12, 4, 2, 8
 
 

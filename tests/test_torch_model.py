@@ -30,6 +30,19 @@ from repro_torch.core.kv_quant import cache_from_state
 from repro_torch.models import transformer as T
 from repro_torch.models.quantize import quantize_params_rtn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file on one torch intra-op thread.  With torch's default
+    of a thread per core in each of several test processes sharing the
+    same cores, every small op waits at a barrier for threads the other
+    processes hold, and the file runs several times slower (ROADMAP C13,
+    C15)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 CFG_KW = dict(num_heads=12, num_kv_heads=2, dtype="float32")
 NB, MB, B, W = 32, 8, 3, 16
 LOGIT_TOL = 1e-4

@@ -23,6 +23,19 @@ from repro_torch.configs.registry import get_config, get_reduced
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file on one torch intra-op thread.  With torch's default
+    of a thread per core in each of several test processes sharing the
+    same cores, every small op waits at a barrier for threads the other
+    processes hold, and the file runs several times slower (ROADMAP C13,
+    C15)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 ARCH = "qwen2-moe-a2.7b"
 TOL = 1e-5
 

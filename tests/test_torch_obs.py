@@ -9,6 +9,7 @@ import urllib.request
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.registry import get_reduced as j_get_reduced
 from repro.models import transformer as JT
@@ -20,6 +21,19 @@ from repro_torch.obs import (Histogram, MetricsDict, MetricsRegistry,
 from repro_torch.obs.http import start_obs_server
 from repro_torch.runtime.fault import StragglerDetector
 from repro_torch.serving import SamplingParams, ServingEngine
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file on one torch intra-op thread.  With torch's default
+    of a thread per core in each of several test processes sharing the
+    same cores, every small op waits at a barrier for threads the other
+    processes hold, and the file runs several times slower (ROADMAP C13,
+    C15)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -37,6 +37,19 @@ from repro_torch.serving.model_runner import ModelRunner, _Staging
 from repro_torch.serving.step_graph import StepGraph
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file on one torch intra-op thread.  With torch's default
+    of a thread per core in each of several test processes sharing the
+    same cores, every small op waits at a barrier for threads the other
+    processes hold, and the file runs several times slower (ROADMAP C13,
+    C15)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def partitionable():
     with jax.threefry_partitionable(True):

@@ -3,7 +3,9 @@
 * The W4A16 planner (``kernels/gptq_matmul.plan``): for every qwen2-1.5b
   linear at decode, chunk and wave sizes, the blocks of the grid cover each
   (row, column, k) of the product exactly once, and K is split across
-  blocks only when the output tiles alone give the SMs too few blocks.
+  blocks only when the output tiles alone leave the SMs' block slots
+  idle (``tests/test_torch_gptq_hopper_plan.py`` holds the wgmma body's
+  plan at every shape ``chip_smoke.py`` checks).
 * The bf16 rounding the two kernels add, emulated in plain torch, against
   the JAX package's Pallas kernels (interpret mode) at the bf16 tolerance
   of ``tests/test_kernels.py`` (2e-2): the matmul rounds each dequantized
@@ -23,8 +25,20 @@ from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.gptq_matmul import gptq_matmul as j_gptq
 from repro_torch.core.quant import pack_int4, unpack_int4
 from repro_torch.kernels.flash_attention import MMA_HEAD_DIMS, check_head_dim
-from repro_torch.kernels.gptq_matmul import (BK, DECODE_BLOCKS_PER_SM, PACK,
-                                             plan)
+from repro_torch.kernels.gptq_matmul import BK, PACK, plan
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file on one torch intra-op thread.  With torch's default
+    of a thread per core in each of several test processes sharing the
+    same cores, every small op waits at a barrier for threads the other
+    processes hold, and the file runs several times slower (ROADMAP C13,
+    C15)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 LINEARS = {"wq/wo": (1536, 1536), "wk/wv": (1536, 256),
            "gate/up": (1536, 8960), "down": (8960, 1536)}   # (K, N)
@@ -33,8 +47,8 @@ SMS = 132                                                     # H100 SXM
 
 def _blocks(p, M, K, N):
     """The (rows, columns, k) ranges of every block of the grid, derived
-    from ``blockIdx`` as ``gptq_mma_kernel`` derives them: x walks N by
-    BN, y walks M by BM, z walks K by kt_per tiles of BK."""
+    from ``blockIdx`` as ``gptq_wgmma_kernel`` derives them: x walks N by
+    BN, y walks M by NT, z walks K by kt_per tiles of BK."""
     kt = math.ceil(K / BK)
     for z in range(p.splits):
         k0, k1 = z * p.kt_per * BK, min((z + 1) * p.kt_per, kt) * BK
@@ -50,11 +64,12 @@ def _blocks(p, M, K, N):
 def test_gptq_plan_covers_every_output_once(linear, M):
     K, N = LINEARS[linear]
     p = plan(M, K, N, 32, SMS)
-    assert p.bm == 16 * p.mt and (M > 16) == (p.mt > 1)
+    assert p.route == "wgmma" and p.bm == p.tile
+    assert p.tile == 8 if M <= 8 else 64 <= p.tile <= 256 or M <= 64
     gx, gy = math.ceil(N / p.bn), math.ceil(M / p.bm)
-    want = SMS * (DECODE_BLOCKS_PER_SM if p.mt == 1 else 1)
-    assert (p.splits > 1) == (gx * gy < want)
-    assert p.launches == 1 + (p.splits > 1)
+    slots = SMS * (2 if p.tile <= 32 else 1)
+    assert p.splits == 1 or gx * gy < slots
+    assert p.launches == 1
     rows = np.zeros(M, np.int64)
     cols = np.zeros(N, np.int64)
     k_cover = np.zeros((gy, gx, K), np.int16)
@@ -90,7 +105,7 @@ def _codes(rng, K, N):
 @pytest.mark.parametrize("M,K,N,gs", [(8, 128, 64, 32), (37, 256, 72, 64)])
 def test_gptq_bf16_weight_rounding_within_tolerance(M, K, N, gs):
     """Rounding each f32 dequantized weight to bf16 once (the tensor-core
-    body's B fragments) stays within the bf16 tolerance of the Pallas
+    bodies' A / B fragments) stays within the bf16 tolerance of the Pallas
     kernel, which multiplies the f32 weight by x in f32."""
     rng = np.random.default_rng(M + K)
     qw = pack_int4(_codes(rng, K, N))

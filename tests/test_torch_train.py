@@ -49,6 +49,19 @@ from repro_torch.optim import adamw as A
 from repro_torch.runtime.fault import PreemptionError, Supervisor
 from repro_torch.runtime.train_loop import make_train_step
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_intra_op_thread():
+    """Run this file on one torch intra-op thread.  With torch's default
+    of a thread per core in each of several test processes sharing the
+    same cores, every small op waits at a barrier for threads the other
+    processes hold, and the file runs several times slower (ROADMAP C13,
+    C15)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 LOSS_REL = {"float32": 1e-5, "bfloat16": 2e-2}
 GRAD_REL = 1e-4
 ADAM_REL = 1e-6
