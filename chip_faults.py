@@ -3,7 +3,7 @@
 
     python3 chip_faults.py
 
-Reads what three of ``chip_smoke``'s checks measure, first on the sound
+Reads what four of ``chip_smoke``'s checks measure, first on the sound
 port, then with a fault planted, and holds each reading to the check's
 own limit:
 
@@ -18,6 +18,14 @@ own limit:
   a copy of ``gptq_matmul.cu`` the same way: a group boundary inside a k
   tile keeps the previous group's scale and zero, or the two codes of
   each bf16 pair of an A fragment swap places;
+- the Mamba-1 selective scan's checks (phase 9, ``check_ssm_scan``, the
+  fused entry, and ``check_selective_scan``, the scan alone): each output
+  within its limit of the plain version.  Each fault is planted in a copy
+  of ``time_scan.cu`` the same way: the D skip dropped from the fused
+  entry's gate, one lane's states (the last lane of each channel) left
+  out of y, or C read from the step before inside a staged tile (a fault
+  only a wave can show).  Each names the fused check's cases that must
+  fail it (and those that must not);
 - the full-depth h2o-danube-3-4b serve (``serve_ring``): every served
   token against teacher forcing, the share equal
   (``TEACHER_AGREEMENT``) and the teacher's largest logit gap to a
@@ -42,6 +50,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FLASH_CU = "kernels/csrc/flash_attention.cu"
 GPTQ_CU = "kernels/csrc/gptq_matmul.cu"
+SCAN_CU = "kernels/csrc/time_scan.cu"
 # (name, text of flash_attention.cu's tensor-core kernel, its replacement)
 KERNEL_FAULTS = (
     ("band skips its first key tile",
@@ -60,6 +69,32 @@ GPTQ_FAULTS = (
     ("nibble pair swapped",
      "lo = (b & 0x000F000Fu) | MAGIC;\n  hi = ((b >> 4) & 0x000F000Fu) | MAGIC;",
      "hi = (b & 0x000F000Fu) | MAGIC;\n  lo = ((b >> 4) & 0x000F000Fu) | MAGIC;"),
+)
+
+
+# (name, text of time_scan.cu's selective-scan body, its replacement,
+# the fused check's cases (MAMBA_FUSED_CASES labels) that must fail, those
+# that must pass)
+SCAN_FAULTS = (
+    ("D skip dropped from the gate",
+     "round_to<T>(__fadd_rn(round_to<T>(y), skip))",
+     "round_to<T>(y)",
+     ("serve wave", "serve wave f32"), ()),
+    ("one lane's states left out of y",
+     "f_part[tt * THREADS + tid] = acc;",
+     "f_part[tt * THREADS + tid] = l == LANES - 1 ? 0.f : acc;",
+     ("ragged wave from a random state", "decode",
+      "single prompt, B and C scaled",
+      "serve wave f32, memory-carrying init"), ()),
+    # acts only inside a staged tile (tt > 0): decode's one-step tile
+    # cannot see it, the waves must
+    ("C read from the step before within a tile",
+     "load_states<NS>(f_bc + tt * 2 * N_STATE + N_STATE + l * NS, cv);",
+     "load_states<NS>(f_bc + (tt > 0 ? tt - 1 : 0) * 2 * N_STATE + N_STATE"
+     " + l * NS, cv);",
+     ("ragged wave from a random state",
+      "single prompt, B and C scaled",
+      "serve wave f32, memory-carrying init"), ("decode",)),
 )
 
 
@@ -110,6 +145,29 @@ def gptq_readings(src=None) -> dict:
     finally:
         cs.log = log
     return {"fails": fails, "rows": rows}
+
+
+def scan_readings(src=None) -> dict:
+    """The selective scan's checks (the fused entry's, then the scan
+    alone's) for the port under ``src`` (this checkout's when None), at
+    their own limits: {check: its message if it failed, else None}."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs                   # puts ROOT/src on the path
+    if src is not None:
+        sys.path.insert(0, src)               # the planted copy wins
+    import torch
+    from repro_torch.kernels import build
+    build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for check in (cs.check_ssm_scan, cs.check_selective_scan):
+        try:
+            check(gen)
+            out[check.__name__] = None
+        except AssertionError as e:
+            out[check.__name__] = str(e)
+        torch.cuda.empty_cache()
+    return out
 
 
 def flash_fails(readings: dict, tol: float, rel_tol: float) -> list:
@@ -214,6 +272,9 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--gptq-readings":
         print(json.dumps(gptq_readings(sys.argv[2])), flush=True)
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--scan-readings":
+        print(json.dumps(scan_readings(sys.argv[2])), flush=True)
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_faults: torch.cuda.is_available() is False; this script "
@@ -251,6 +312,27 @@ def main() -> int:
         if (name == "sound") != (r["fails"] is None):
             bad.append(f"gptq_matmul {name}: "
                        + (r["fails"] or "nothing fails"))
+    scan = report["selective_scan"] = {"sound": scan_readings()}
+    cases = {"sound": ((), ())}
+    for name, old, new, must_fail, must_pass in SCAN_FAULTS:
+        scan[name] = planted_kernel(name, old, new, SCAN_CU,
+                                    "--scan-readings")
+        cases[name] = (must_fail, must_pass)
+    for name, r in scan.items():
+        fails = {k: v for k, v in r.items() if v is not None}
+        cs.log(f"[scan] {name}: "
+               + (f"fails {json.dumps(fails)}" if fails
+                  else "passes every limit"))
+        fused = r.get("check_ssm_scan") or ""
+        must_fail, must_pass = cases[name]
+        missed = [c for c in must_fail if f"ssm_scan {c}:" not in fused]
+        wrong = [c for c in must_pass if f"ssm_scan {c}:" in fused]
+        if (name == "sound") != (not fails):
+            bad.append(f"selective_scan {name}: "
+                       + (json.dumps(fails) if fails else "nothing fails"))
+        elif missed or wrong:
+            bad.append(f"selective_scan {name}: fused cases that pass "
+                       f"{missed}, that fail {wrong}")
     ring = report["serve"] = serve_readings()
     for name, tf in ring.items():
         ok = cs.teacher_ok(tf)

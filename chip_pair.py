@@ -5,6 +5,7 @@
     python3 chip_pair.py build/other
     python3 chip_pair.py --b5 build/other           # the static kernel only
     python3 chip_pair.py --b3 build/other           # the int4 matmul only
+    python3 chip_pair.py --scan build/other         # the Mamba-1 scan only
 
 Each side runs in a process of its own, in the order other, this, this,
 other: the kernel checks of ``chip_smoke.py`` (paged decode and chunk
@@ -15,16 +16,22 @@ bf16-whole-prompt serves, each profiled; with ``--b5``, the static
 attention's checks alone; with ``--b3``, the int4 matmul's checks at the
 shapes of every model ``chip_smoke.py`` serves (qwen2-1.5b with the ragged
 check shape, h2o-danube-3-4b, recurrentgemma-2b, falcon-mamba-7b,
-llava-next-mistral-7b, hubert-xlarge, command-r-plus-104b). Both sides are
+llava-next-mistral-7b, hubert-xlarge, command-r-plus-104b); with
+``--scan``, falcon-mamba-7b's mixer core (``_ssm_inner``: the two
+projections, then the scan with its softplus, D skip and gate, fused or
+not as the side has it) at the serve's wave and a decode step, and the
+selective scan's own cases (``check_selective_scan``: f32 in and out, the
+serve's wave, a ragged wave, decode). Both sides are
 built from their own sources but measured by THIS checkout's
 ``chip_smoke`` functions, so a difference is the code's, not the method's.
 Prints one line per side and serve, then each static-attention case's time
 on both sides (the mean of a side's two turns) and their ratio (with
 ``--b3`` each int4 product's, beside this side's bound, library call and
-dense bf16 matmul); each side's details go to
+dense bf16 matmul; with ``--scan`` each case's); each side's details go to
 ``chiprun_out/chip_pair_<turn>_<side>.json``, the static attention's table
 to ``chiprun_out/chip_pair_b5.json``, the int4 matmul's to
-``chiprun_out/chip_pair_b3.json``. Needs one card.
+``chiprun_out/chip_pair_b3.json``, the scan's to
+``chiprun_out/chip_pair_scan.json``. Needs one card.
 """
 from __future__ import annotations
 
@@ -63,6 +70,41 @@ def b3_checks(cs) -> tuple:
                   None))
 
 
+# _ssm_inner's cases: (label, rows, width, prompt lengths, from a random
+# state), bf16 on falcon-mamba's init as the serve runs it
+SSM_INNER_CASES = (("serve wave", 8, 960, "SERVE_LENS", False),
+                   ("decode", 8, 1, None, True))
+
+
+def scan_checks(cs) -> tuple:
+    """The selective scan's checks (the scan alone) and falcon-mamba's
+    mixer core timed whole, as the side's ``_ssm_inner`` runs it."""
+    def inner(gen):
+        import torch
+        from repro_torch.configs.registry import get_config
+        from repro_torch.models import ssm
+        cfg = get_config(cs.MAMBA)
+        p = ssm.ssm_init(gen, cfg, device="cuda")
+        rows = []
+        for label, b, width, lens, random_state in SSM_INNER_CASES:
+            lens = getattr(cs, lens) if lens else None
+            args = cs.mamba_core_inputs(cfg, p, gen, b, width, lens,
+                                        "bfloat16", random_state)
+            _, _, xc, _, _, z, _, _, h0, mask = args
+            with torch.no_grad():
+                ms = cs.time_ms(lambda: ssm._ssm_inner(cfg, p, xc, z, h0,
+                                                       mask))
+            rows.append({"case": f"{label} [{b},{width}]", "ms": ms})
+            del args, xc, z, h0, mask
+        return {"name": "ssm_inner", "per_case": rows, "ms": rows[0]["ms"],
+                "plain_ms": None, "library_ms": None}
+
+    def scan(gen):
+        r = cs.check_selective_scan(gen)
+        return dict(r, per_case=r["cases"])
+    return inner, scan
+
+
 def side(src: str, only: str = "") -> dict:
     """This process's measurements of the port under ``src`` (``only``
     "--b5" or "--b3": that kernel's checks alone)."""
@@ -81,7 +123,8 @@ def side(src: str, only: str = "") -> dict:
     others = (cs.check_paged_attention, cs.check_paged_attention_quant,
               cs.check_flash_attention_chunk,
               cs.check_flash_attention_chunk_int8, cs.check_gptq_matmul)
-    checks = {"--b5": b5, "--b3": b3_checks(cs)}.get(only, b5 + others)
+    checks = {"--b5": b5, "--b3": b3_checks(cs),
+              "--scan": scan_checks(cs)}.get(only, b5 + others)
     for check in checks:
         r = check(gen)
         key = r.get("label", r["name"])
@@ -102,13 +145,14 @@ def side(src: str, only: str = "") -> dict:
     return out
 
 
-def b5_table(runs) -> list:
-    """Each static-attention case's time on both sides: (check, case,
+def b5_table(runs, prefixes=("flash_attention",)) -> list:
+    """Each static-attention case's time on both sides (or the cases of
+    the checks whose names start with one of ``prefixes``): (check, case,
     other ms, this ms, other / this), a side's ms the mean of its turns."""
     ms = {}
     for tag, r in runs:
         for key, rows in r.items():
-            if key.startswith("flash_attention") and ":" not in key \
+            if key.startswith(prefixes) and ":" not in key \
                     and not key.startswith("flash_attention_chunk"):
                 for row in rows:
                     ms.setdefault((key, row["case"]), {}).setdefault(
@@ -151,7 +195,7 @@ def main() -> int:
         return 0
     import torch
     args = sys.argv[1:]
-    only = args[0] if args[:1] in (["--b5"], ["--b3"]) else ""
+    only = args[0] if args[:1] in (["--b5"], ["--b3"], ["--scan"]) else ""
     b5_only = only != ""
     args = args[1:] if only else args
     if len(args) != 1 or not torch.cuda.is_available():
@@ -184,6 +228,14 @@ def main() -> int:
                   f"bound_ms={bound:.4f} library_ms="
                   + ("null" if lib is None else f"{lib:.4f}")
                   + f" dense_bf16_ms={dense:.4f}", flush=True)
+        return 0
+    if only == "--scan":
+        table = b5_table(runs, ("selective_scan", "ssm_inner"))
+        (out / "chip_pair_scan.json").write_text(json.dumps(
+            {"card": card, "cases": table}, indent=1))
+        for key, case, other, this, ratio in table:
+            print(f"[pair] {key} {case}: other_ms={other:.4f} this_ms="
+                  f"{this:.4f} other/this={ratio:.3f}", flush=True)
         return 0
     table = b5_table(runs)
     (out / "chip_pair_b5.json").write_text(json.dumps(

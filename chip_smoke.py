@@ -162,9 +162,21 @@ Phases, each of which fails loudly (any failure exits non-zero):
              attention, no paged pool): the time-scan kernel
              (``csrc/time_scan.cu``) against its plain versions on the
              card, each output within SCAN_REL_TOL of its RMS, bitwise
-             repeatable: ``selective_scan`` on a [8, 1024] wave with
-             ragged masked rows and on a decode step, ``linear_scan`` on
-             recurrentgemma's [8, 2048] wave (and whether it gives the
+             repeatable: ``selective_scan`` (the scan alone) on the
+             serve's wave, on a [8, 1024] wave with ragged masked rows
+             and on a decode step; its fused entry (``ops.ssm_scan``:
+             softplus, scan, D skip and gate in one launch) on inputs
+             made by the model's projections from falcon-mamba's init at
+             the serve's wave, the ragged wave from a random state,
+             decode, a single [1, 4096] prompt with a unit B and C, and
+             in f32 (also on a memory-carrying init), gated y within
+             FUSED_Y_TOL of its largest |y| (bf16) or SCAN_REL_TOL of
+             its RMS (f32), the scan's share of y at least
+             SCAN_SHARE_MIN limits where the state carries into y, each
+             timed beside the unfused path, its byte bound and its
+             exponentials' MUFU time, ptxas's registers and spills
+             printed; ``linear_scan``
+             on recurrentgemma's [8, 2048] wave (and whether it gives the
              addcmul loop's bits); ``gptq_matmul`` at in_proj / out_proj
              at decode and at the wave's 7,680 rows; the full-width model
              cut to 2 layers card vs CPU in f32 (dense) and bf16
@@ -269,6 +281,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1483,7 +1496,8 @@ def serve_once(llm, prompts, max_tokens, kernels, label, options, must,
                              f"{audit}")
     peak = torch.cuda.max_memory_allocated() if card else None
     graphs = eng.runner.graph_stats() if graphed else {}
-    prof = profile_serve(llm, prompts, sps, outs, kernels) if profile \
+    prof = profile_serve(llm, prompts, sps, outs, kernels,
+                         tries=PROFILE_TRIES.get(label, 1)) if profile \
         else None
     accounting = check_launch_accounting(llm, kernels, label) \
         if profile and kernels and graphed else None
@@ -1680,7 +1694,15 @@ def check_launch_accounting(llm, kernels, label: str) -> dict:
             "host_launch_calls": calls}
 
 
-def profile_serve(llm, prompts, sps, outs, kernels=()) -> dict:
+# Serves whose profile's device-to-host copies main() compares (the int8
+# serve may not copy more a step than the bf16 one): a session that lost
+# device records may have lost a copy too, so such a serve is profiled
+# again, up to this many sessions, until one loses none
+PROFILE_TRIES = {"bf16-chunked": 3, "int8-chunked": 3}
+
+
+def profile_serve(llm, prompts, sps, outs, kernels=(), tries: int = 1
+                  ) -> dict:
     """Serve the same requests again under ``torch.profiler`` (after the
     launch counts were read) and sum the device time by kernel: ours, and
     every other kernel PyTorch launched; count the device-to-host copies
@@ -1689,7 +1711,19 @@ def profile_serve(llm, prompts, sps, outs, kernels=()) -> dict:
     re-run's tokens against the first run's (greedy: identical).  The
     profiler loses a few of the ~200,000 device records of a serve
     (``records_lost``: our kernels' counters less their records), so the
-    busy time may read low by about that share."""
+    busy time may read low by about that share; with ``tries`` > 1 a
+    session that lost records is repeated, up to ``tries`` sessions, and
+    the last one read (``sessions``)."""
+    for session in range(1, tries + 1):
+        out = _profile_session(llm, prompts, sps, outs, kernels)
+        if not out["records_lost"]:
+            break
+    out["sessions"] = session
+    return out
+
+
+def _profile_session(llm, prompts, sps, outs, kernels) -> dict:
+    """One profiled re-run of the serve: ``profile_serve``'s record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     steps0 = llm.engine.metrics["work_steps"]
@@ -2334,6 +2368,7 @@ def log_serve(label: str, serve: dict, quant) -> None:
         + ("not measured" if hl is None else f"{hl:.1f}")
         + f" host_launch_calls={json.dumps(prof['host_launch_calls'])} "
         f"records_lost={prof['records_lost']} "
+        f"sessions={prof['sessions']} "
         f"ours_ms={json.dumps(prof['ours_ms'])}")
     acc = serve["launch_accounting"]
     if acc is not None:
@@ -3278,6 +3313,259 @@ def check_selective_scan(gen) -> dict:
             "cases": rows}
 
 
+# the fused entry (``ops.ssm_scan``: softplus, the scan, the D skip and
+# the gate in one launch) at falcon-mamba-7b's widths on inputs made by
+# the model's own projections from falcon-mamba's init (``ssm_init``:
+# its dt_bias, A_log and D draws): (label, rows, width, prompt lengths
+# masked as ``ssm_prefill`` masks them or None, activations, from a
+# random state, the init (MAMBA_INITS), its y must hold the scan's
+# share).  From a zero state the init's state stays ~1e-6 over a wave,
+# so the serve wave's y is the D skip times the gate to within bf16's
+# resolution and its check cannot see the scan.  A random state carries
+# into y through the slow states (dt ~ 0.001, A ~ -1), x_proj's B and C
+# columns scaled to a unit B and C carry the inputs into it, and so does
+# MAMBA_MEMORY's init (dt ~ 1, A = -0.05) in f32: those cases must show
+# the scan's share of y above SCAN_SHARE_MIN limits.  (A long live row
+# from a random state cannot be held to SCAN_REL_TOL: dt is nearly
+# constant in time, so a rounding of exp(dt A) repeats every step, and
+# f32 scans that round it differently part by ~1e-5 of a slow state's
+# size over 1,000 steps, more than 1e-4 of the RMS of a state whose
+# other elements have decayed.)
+MAMBA_FUSED_CASES = (
+    ("serve wave", MAMBA_WAVE[0], MAMBA_WAVE[1], SERVE_LENS, "bfloat16",
+     False, "served", False),
+    ("ragged wave from a random state", MAMBA_SCAN[0], MAMBA_SCAN[1],
+     MAMBA_SCAN_LENS, "bfloat16", True, "served", True),
+    ("decode", MAMBA_SCAN[0], 1, None, "bfloat16", True, "served", True),
+    ("single prompt, B and C scaled", 1, 4096, None, "bfloat16", False,
+     "scaled B, C", True),
+    ("serve wave f32", MAMBA_WAVE[0], MAMBA_WAVE[1], SERVE_LENS, "float32",
+     False, "served", False),
+    ("serve wave f32, memory-carrying init", MAMBA_WAVE[0], MAMBA_WAVE[1],
+     SERVE_LENS, "float32", False, "memory", True))
+# the inits of MAMBA_FUSED_CASES: falcon-mamba's own, MAMBA_MEMORY's dt
+# and A, or x_proj's B and C columns times MAMBA_BC_SCALE (a power of two:
+# the bf16 weight is the served one scaled exactly), which makes B and C
+# of unit size as a trained model's are
+MAMBA_INITS = ("served", "memory", "scaled B, C")
+MAMBA_BC_SCALE = 256.0
+# the fused entry's gated y: in bf16 within this share of the plain
+# version's largest |y| (the kernels' bf16 tolerance; a scan that differs
+# in the last f32 bits flips a bf16 rounding of y), in f32 within
+# SCAN_REL_TOL of its RMS; h_last within SCAN_REL_TOL of its RMS
+FUSED_Y_TOL = 2e-2
+# the scan's share of the plain version's y (its largest change from the
+# y of the D skip and the gate alone, C = 0) in a case that must see the
+# scan: at least this many y limits, so that a fault in the scan's part
+# of y cannot hide under the limit
+SCAN_SHARE_MIN = 10
+# the selective-scan kernel's instantiations, as ptxas names them:
+# (activations, fused, states a lane, tile steps) -> name fragment
+SCAN_INSTANTIATIONS = {
+    (act, fused, ns, tt): f"selective_scan_kernelI{mangled}Lb{int(fused)}E"
+                          f"Li{ns}ELi{tt}E"
+    for act, mangled, fused in (("float32", "f", False),
+                                ("float32", "f", True),
+                                ("bfloat16", "13__nv_bfloat16", True))
+    for ns in (8, 4) for tt in (16, 1)}
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi`` clocks.max.sm)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def scan_ptxas(build) -> dict:
+    """Registers and spill bytes of every selective-scan instantiation
+    (``build_all(verbose=True)``'s log; {} after a cached build)."""
+    log_ = build.LOGS.get("time_scan", "")
+    if not log_:
+        return {}
+    return {f"{act} fused={fused} NS={ns} TT={tt}": ptxas_usage(log_, fn)
+            for (act, fused, ns, tt), fn in SCAN_INSTANTIATIONS.items()}
+
+
+def unfused_ssm_scan(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0, mask):
+    """The Mamba-1 mixer core as ``_ssm_inner`` ran it before the fused
+    entry: the torch prologue and tail around ``selective_scan`` (the
+    scan alone, f32)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    dt = F.softplus(dt_lin + dt_bias.to(xc.dtype)).float()
+    if mask is not None:
+        dt = torch.where(mask[..., None], dt, 0.0)
+    A = -torch.exp(A_log.float())
+    y, h = ops.selective_scan(dt.contiguous(), xc.float().contiguous(),
+                              B.float().contiguous(), C.float().contiguous(),
+                              A.contiguous(), h0.float().contiguous())
+    y = y.to(xc.dtype) + xc * D.to(xc.dtype)
+    return y * F.silu(z), h
+
+
+def mamba_core_inputs(cfg, p, gen, rows: int, width: int, lens, act: str,
+                      random_state: bool) -> tuple:
+    """``ops.ssm_scan``'s arguments as ``ssm_prefill`` forms them: a random
+    [rows, width, d] input through in_proj, the causal conv and SiLU (zero
+    past each row's length), x_proj and dt_proj, in ``act``; B, C and z
+    the projections' column views."""
+    import torch
+    from repro_torch.models import ssm
+    dt = getattr(torch, act)
+    pw = {k: (v.to(dt) if k in ("in_proj", "x_proj", "dt_proj", "conv_w",
+                                "conv_b") else v) for k, v in p.items()}
+    x = torch.randn((rows, width, cfg.d_model), generator=gen,
+                    device="cuda").to(dt)
+    mask = None
+    xi, z = ssm._in_proj(cfg, pw, x)
+    if lens is not None:
+        mask = torch.arange(width, device="cuda")[None] < torch.tensor(
+            lens, device="cuda")[:, None]
+        xi = torch.where(mask[..., None], xi, torch.zeros_like(xi))
+    xc = torch.nn.functional.silu(ssm._conv(xi, pw["conv_w"])
+                                  + pw["conv_b"])
+    if mask is not None:
+        xc = torch.where(mask[..., None], xc, torch.zeros_like(xc))
+    R, N = ssm.dt_rank(cfg), cfg.ssm_state
+    dbc = xc @ pw["x_proj"]
+    dt_r, B, C = dbc.split([R, N, N], dim=-1)
+    dt_lin = dt_r @ pw["dt_proj"]
+    din = xc.shape[-1]
+    h0 = (torch.randn((rows, din, N), generator=gen, device="cuda")
+          if random_state else torch.zeros((rows, din, N), device="cuda"))
+    return (dt_lin, p["dt_bias"], xc, B, C, z, p["A_log"], p["D"], h0,
+            mask)
+
+
+def check_ssm_scan(gen, build=None) -> dict:
+    """The fused entry (``selective_scan.fused`` through ``ops.ssm_scan``)
+    in MAMBA_FUSED_CASES against its plain version (``ssm_scan_ref``, the
+    torch composition ``_ssm_inner`` ran) on the card: y within
+    FUSED_Y_TOL of its largest |y| in bf16 and SCAN_REL_TOL of its RMS in
+    f32, h_last within SCAN_REL_TOL of its RMS, two calls bitwise equal;
+    where a case must see the scan, the scan's share of the plain y at
+    least SCAN_SHARE_MIN y limits.  Every case is held; the failures are
+    raised together, one "ssm_scan <label>: ..." each.  Each passing case
+    is timed beside the unfused path (``unfused_ssm_scan``), the plain
+    version, its byte bound and its exponentials' MUFU time (one ex2 a
+    state element, 16 a clock an SM at the card's highest clock);
+    ptxas's registers and spills of each instantiation."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.time_scan import selective_scan
+    from repro_torch.models import ssm
+    cfg = get_config(MAMBA)
+    p = ssm.ssm_init(gen, cfg, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
+    din, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    R = ssm.dt_rank(cfg)
+    x_bc = p["x_proj"].clone()
+    x_bc[:, R:] *= MAMBA_BC_SCALE
+    inits = dict(zip(MAMBA_INITS, (
+        p,
+        dict(p, dt_bias=torch.full((din,), MAMBA_MEMORY["dt_bias"],
+                                   device="cuda"),
+             A_log=torch.full((din, N), math.log(-MAMBA_MEMORY["A"]),
+                              device="cuda")),
+        dict(p, x_proj=x_bc))))
+    rows_out, fails = [], []
+    for label, rows, width, lens, act, random_state, init, sees_scan in \
+            MAMBA_FUSED_CASES:
+        held = len(fails)
+        args = mamba_core_inputs(cfg, inits[init], gen, rows, width, lens,
+                                 act, random_state)
+        dt_lin, _, xc, B, C, z, _, D, h0, mask = args
+        kernel = lambda: selective_scan.fused(*args)
+        got, again = kernel(), kernel()
+        want = ref.ssm_scan_ref(*args)
+        skip_only = xc * D.to(xc.dtype) * torch.nn.functional.silu(z)
+        torch.cuda.synchronize()
+        y_err = (got[0].float() - want[0].float()).abs().max().item()
+        y_max = want[0].float().abs().max().item()
+        y_rms = want[0].float().pow(2).mean().sqrt().item()
+        y_lim = (FUSED_Y_TOL * y_max if act == "bfloat16"
+                 else SCAN_REL_TOL * y_rms)
+        share = (want[0].float() - skip_only.float()).abs().max().item()
+        h_err = (got[1] - want[1]).abs().max().item()
+        h_rms = want[1].pow(2).mean().sqrt().item()
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        del skip_only
+        log(f"ssm_scan {label}: y_err={y_err:.3e} (limit {y_lim:.3e}) "
+            f"scan_share={share / y_lim:.1f} limits"
+            + (f" (must be >= {SCAN_SHARE_MIN})" if sees_scan else "")
+            + f" h_last_rel_err={h_err / h_rms:.2e}")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            fails.append(f"ssm_scan {label}: two calls differ")
+        elif sees_scan and not share >= SCAN_SHARE_MIN * y_lim:
+            fails.append(f"ssm_scan {label}: the scan's share of y "
+                         f"{share:.3e} is under {SCAN_SHARE_MIN} limits "
+                         f"({y_lim:.3e}): the check cannot see the scan")
+        elif not (finite and y_err <= y_lim
+                  and h_err <= SCAN_REL_TOL * h_rms):
+            fails.append(
+                f"ssm_scan {label}: y max err {y_err:.3e} (limit "
+                f"{y_lim:.3e}), h_last max err {h_err:.3e} over RMS "
+                f"{h_rms:.3e} (limit {SCAN_REL_TOL}), finite {finite}")
+        if len(fails) > held:
+            # a failed case is not timed; the other cases are still held
+            del args, got, again, want, dt_lin, xc, B, C, z, D, h0, mask
+            torch.cuda.empty_cache()
+            continue
+        Bt, S, din = xc.shape
+        N = cfg.ssm_state
+        es = xc.element_size()
+        nbytes = (4 * es * Bt * S * din + 2 * N * es * Bt * S
+                  + 4 * (din * N + 2 * din + 2 * Bt * din * N) + Bt * S)
+        flops = Bt * S * din * (7 * N + 11)
+        row = {"case": f"{label} [{Bt},{S}] din {din} N {N} {act}"
+                       + (f", prompts {tuple(lens)}" if lens else ""),
+               "max_abs_err": max(y_err, h_err), "y_max_abs_err": y_err,
+               "y_limit": y_lim, "scan_share_limits": share / y_lim,
+               "h_last_rel_err": h_err / h_rms,
+               "bitwise_equal_to_plain": all(
+                   torch.equal(g, w) for g, w in zip(got, want)),
+               "ms": time_ms(kernel),
+               "unfused_ms": time_ms(lambda: unfused_ssm_scan(*args)),
+               "plain_ms": time_ms(lambda: ref.ssm_scan_ref(*args), iters=2),
+               "bound": _scan_bound(nbytes, flops),
+               "mufu_ms": Bt * S * din * N / (16 * sms * clock) * 1e3}
+        row["share_of_bound"] = row["bound"][0] / row["ms"]
+        log(f"ssm_scan {row['case']}: kernel_ms={row['ms']:.4f} "
+            f"unfused_ms={row['unfused_ms']:.4f} plain_ms="
+            f"{row['plain_ms']:.4f} bound_ms={row['bound'][0]:.5f} "
+            f"({row['bound'][1]}; share {row['share_of_bound']:.3f}) "
+            f"mufu_ms={row['mufu_ms']:.5f} y_err={y_err:.3e} (limit "
+            f"{y_lim:.3e}) h_last_rel_err={row['h_last_rel_err']:.2e}")
+        rows_out.append(row)
+        del args, got, again, want, dt_lin, xc, B, C, z, D, h0, mask
+        torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError("; ".join(fails))
+    usage = scan_ptxas(build) if build is not None else {}
+    log("[build] ptxas, selective_scan_kernel<act, fused, NS, TT>: "
+        + (json.dumps(usage) if usage else "not measured (cached build)"))
+    main = rows_out[0]
+    return {"name": "selective_scan", "label": "selective_scan[fused]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/time_scan.cu",
+            "replaces": "src/repro/models/ssm.py:99 (the lax.scan step of "
+                        "_ssm_inner with its softplus, D skip and gate; "
+                        "not a Pallas site)",
+            "max_abs_err": max(r["max_abs_err"] for r in rows_out),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "unfused_ms": main["unfused_ms"], "bound": main["bound"],
+            "library_ms": None, "ptxas": usage,
+            "shape": main["case"] + "; no single torch call computes it",
+            "cases": rows_out}
+
+
 def check_linear_scan(gen) -> dict:
     """The RG-LRU's recurrence at recurrentgemma-2b's wave [8, 2048] x
     2560, ragged rows state-transparent (a = 1, g = 0), from a random
@@ -3547,7 +3835,9 @@ def phase_ssm(report: dict, gen, kernels) -> list:
     import torch
     r = report["ssm"] = {}
     t_phase = time.perf_counter()
-    checks = [check_selective_scan(gen), check_linear_scan(gen)]
+    from repro_torch.kernels import build
+    checks = [check_selective_scan(gen), check_ssm_scan(gen, build),
+              check_linear_scan(gen)]
     g = check_gptq_matmul(
         gen, shapes=MAMBA_GPTQ_SHAPES, main_shape=("in_proj", 8),
         shape="x[8,4096] @ int4[4096,16384] gs 32 (in_proj, decode)",
@@ -3561,7 +3851,7 @@ def phase_ssm(report: dict, gen, kernels) -> list:
             f"bound_ms={k['bound'][0]:.5f} ({k['bound'][1]}) "
             f"max_abs_err={k['max_abs_err']:.3e} [{k['shape']}]")
     log(f"[kernel] linear_scan bitwise equal to one addcmul a step: "
-        f"{checks[1]['bitwise_equal_to_addcmul']}")
+        f"{checks[2]['bitwise_equal_to_addcmul']}")
     r["kernels"] = checks
     r["model"] = res = phase_ssm_model()
     log(f"[model] {MAMBA_MODEL['layers']}-layer full-width {MAMBA} card vs "
@@ -5361,6 +5651,10 @@ def check_no_hidden_grad(kernels) -> dict:
         "selective_scan": lambda: ops.selective_scan(
             grad(1, 4, 64), f32(1, 4, 64), f32(1, 4, 16), f32(1, 4, 16),
             f32(64, 16), f32(1, 64, 16)),
+        "selective_scan (fused)": lambda: ops.ssm_scan(
+            grad(1, 4, 64), f32(64), f32(1, 4, 64), f32(1, 4, 16),
+            f32(1, 4, 16), f32(1, 4, 64), f32(64, 16), f32(64),
+            f32(1, 64, 16)),
         "linear_scan": lambda: ops.linear_scan(
             grad(1, 4, 64), f32(1, 4, 64), f32(1, 64))}
     for k in kernels:

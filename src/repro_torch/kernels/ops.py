@@ -160,6 +160,24 @@ def selective_scan(dt, u, B, C, A, h0):
     return _ref.selective_scan_ref(dt, u, B, C, A, h0)
 
 
+def ssm_scan(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0, mask=None):
+    """The Mamba-1 mixer core after its two matmuls (``_ssm_inner``):
+    dt = softplus(dt_lin + dt_bias) (0 where ``mask`` [Bt, S] is False), A
+    = -exp(A_log), the selective scan of xc [Bt, S, din] over B, C [Bt, S,
+    N] from h0 [Bt, din, N] f32, then (y + xc D) * silu(z), at the plain
+    version's rounding points in xc's dtype -> (y [Bt, S, din] in xc's
+    dtype, h_last [Bt, din, N] f32).  On the card one launch of the
+    selective-scan kernel, counted by ``selective_scan``; B, C and z may be
+    column views of the projections' outputs."""
+    if _on_cuda(xc):
+        _serving_only("selective_scan", dt_lin, dt_bias, xc, B, C, z, A_log,
+                      D, h0)
+        return _selective_scan.fused(dt_lin, dt_bias, xc, B, C, z, A_log, D,
+                                     h0, mask)
+    return _ref.ssm_scan_ref(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0,
+                             mask)
+
+
 def linear_scan(a, g, h0):
     """The RG-LRU recurrence h_t = a_t h_{t-1} + g_t: a, g [Bt, S, w], h0
     [Bt, w], all f32 -> (hs [Bt, S, w], h_last [Bt, w])."""

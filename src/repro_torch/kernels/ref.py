@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.gqa import decode_attention, grouped_attention
 from repro_torch.core.kv_quant import (KVCache, gather_kv_quant,
@@ -119,6 +120,26 @@ def selective_scan_ref(dt: torch.Tensor, u: torch.Tensor, B: torch.Tensor,
         h = da * h + (dt[:, t] * u[:, t])[..., None] * B[:, t, None, :]
         y[:, t] = torch.einsum("bdn,bn->bd", h, C[:, t])
     return y, h
+
+
+def ssm_scan_ref(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0, mask=None):
+    """The Mamba-1 mixer core after its two matmuls, the torch composition
+    ``models/ssm.py :: _ssm_inner`` ran around ``selective_scan_ref``:
+    softplus(dt_lin + dt_bias) in xc's dtype, then f32 (0 where ``mask``
+    [Bt, S] is False), A = -exp(A_log), the scan in f32, then (y + xc D)
+    * silu(z) in xc's dtype.  dt_lin, xc, z [Bt, S, din]; B, C [Bt, S, N];
+    dt_bias, D [din]; A_log [din, N]; h0 [Bt, din, N].  Returns (y [Bt, S,
+    din] in xc's dtype, h_last [Bt, din, N] f32)."""
+    dt = F.softplus(dt_lin + dt_bias.to(xc.dtype)).float()      # [B, S, din]
+    if mask is not None:
+        dt = torch.where(mask[..., None], dt, 0.0)
+    A = -torch.exp(A_log.float())                               # [din, N]
+    y, h = selective_scan_ref(dt.contiguous(), xc.float().contiguous(),
+                              B.float().contiguous(),
+                              C.float().contiguous(), A.contiguous(),
+                              h0.float().contiguous())
+    y = y.to(xc.dtype) + xc * D.to(xc.dtype)
+    return y * F.silu(z), h
 
 
 def linear_scan_ref(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor):

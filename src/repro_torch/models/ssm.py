@@ -5,13 +5,13 @@ sequence's final state, and the one-token decode over that state.
 
 The JAX package scans time with ``lax.scan`` in remat'd chunks so that
 training can recompute them; the forward is a plain sequential scan in
-f32, which is what runs here.  Everything that is not the recurrence (the
-projections, the causal conv, the gates, softplus, the D skip) is
-computed for the whole wave at once in torch; the recurrence over time
-is one call of ``ops.selective_scan`` (Mamba-1: ``h = exp(dt A) h + (dt
-u) B``, ``y = sum_n h C``) or ``ops.linear_scan`` (RG-LRU: ``h = a h +
-g``) per layer: on the card one launch of the time-scan kernel
-(``kernels/csrc/time_scan.cu``), on the CPU the plain loops of
+f32, which is what runs here.  The projections and the causal conv (and
+the RG-LRU's gates) are computed for the whole wave at once in torch; the
+recurrence over time is one call per layer of ``ops.ssm_scan`` (Mamba-1:
+softplus, ``h = exp(dt A) h + (dt u) B``, ``y = sum_n h C``, the D skip
+and the SiLU gate) or ``ops.linear_scan`` (RG-LRU: ``h = a h + g``): on
+the card one launch of the time-scan kernel
+(``kernels/csrc/time_scan.cu``), on the CPU the plain versions of
 ``kernels/ref.py``.  The roofline dry run's ``skip_mixer_core`` branch of
 the reference is not ported (ROADMAP A13).
 """
@@ -96,21 +96,16 @@ def _ssm_inner(cfg: ModelConfig, p: Params, xc: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Selective scan of xc [B, S, din] (post-conv) from h0 [B, din, N]
     f32, gated by z.  Returns (y [B, S, din] in xc's dtype, h_last).
-    Where ``mask`` [B, S] is False, dt = 0: the state passes through."""
+    Where ``mask`` [B, S] is False, dt = 0: the state passes through.
+    After the two projections everything is one ``ops.ssm_scan`` (on the
+    card one kernel launch: softplus, the scan, the D skip and the gate;
+    B, C and z read in place)."""
     R, N = dt_rank(cfg), cfg.ssm_state
     dbc = xc @ p["x_proj"].to(xc.dtype)
     dt_r, b_ssm, c_ssm = dbc.split([R, N, N], dim=-1)
-    dt = F.softplus(dt_r @ p["dt_proj"].to(xc.dtype)
-                    + p["dt_bias"].to(xc.dtype)).float()        # [B, S, din]
-    if mask is not None:
-        dt = torch.where(mask[..., None], dt, 0.0)
-    A = -torch.exp(p["A_log"].float())                          # [din, N]
-    y, h = ops.selective_scan(dt.contiguous(), xc.float().contiguous(),
-                              b_ssm.float().contiguous(),
-                              c_ssm.float().contiguous(), A.contiguous(),
-                              h0.float().contiguous())
-    y = y.to(xc.dtype) + xc * p["D"].to(xc.dtype)
-    return y * act_fn("silu")(z), h
+    dt_lin = dt_r @ p["dt_proj"].to(xc.dtype)                   # [B, S, din]
+    return ops.ssm_scan(dt_lin, p["dt_bias"], xc, b_ssm, c_ssm, z,
+                        p["A_log"], p["D"], h0, mask)
 
 
 def _in_proj(cfg: ModelConfig, p: Params, x: torch.Tensor):
