@@ -1561,7 +1561,9 @@ OURS = {"paged_attention_": "paged_attention",
         # the split-K sum kernel of older trees (chip_pair.py serves them)
         "splitk_reduce_kernel": "gptq_matmul",
         "selective_scan_kernel": "selective_scan",
-        "linear_scan_kernel": "linear_scan"}
+        "linear_scan_kernel": "linear_scan",
+        "selective_scan_bwd_kernel": "selective_scan_bwd",
+        "linear_scan_bwd_kernel": "linear_scan_bwd"}
 INT8_NAMES = {"paged_attention": "paged_attention_quant",
               "flash_attention_chunk": "flash_attention_chunk_int8"}
 
@@ -4687,6 +4689,11 @@ CMDR_LOGIT_REL_TOL = 0.02
 # about every other run on near-ties alone, so this check is held at
 # TEACHER_AGREEMENT, the bf16 paths' token limit against an oracle
 CMDR_AGREEMENT = TEACHER_AGREEMENT
+# the model checks' depth: 1 layer (2 once), whose CPU side
+# (bf16 products, the int4 dequantized at every call) took ~100 s of the
+# script's 1,200 s limit on the card's host (ROADMAP C16); multi-layer
+# pool indexing is held by qwen2-1.5b's 2-layer phase_model
+CMDR_MODEL_LAYERS = 1
 
 
 def cmdr_forward(dev: str = "cuda", ref_dev: str = "cpu", layers: int = 2,
@@ -4850,25 +4857,27 @@ def cmdr_kernels(gen) -> list:
     return checks
 
 
-def cmdr_model() -> dict:
-    """Phase 12's 2-layer full-width model card vs CPU: ``phase_model`` at
-    group 128 over bf16 and int8 pools (the decode step, a chunk and the
-    unified step, drawn norms, logits within CMDR_LOGIT_REL_TOL of their
-    largest; no whole-prompt wave: the chunked serve runs none), then
-    ``cmdr_forward`` (greedy agreement over its positions)."""
+def cmdr_model(layers: int = CMDR_MODEL_LAYERS) -> dict:
+    """Phase 12's full-width model cut to ``layers``, card vs CPU:
+    ``phase_model`` at group 128 over bf16 and int8 pools (the decode
+    step, a chunk and the unified step, drawn norms, logits within
+    CMDR_LOGIT_REL_TOL of their largest; no whole-prompt wave: the chunked
+    serve runs none), then ``cmdr_forward`` (greedy agreement over its
+    positions)."""
     import torch
     out = {}
     for kv in ("bf16", "int8"):
         t0 = time.perf_counter()
-        out[kv] = res = phase_model("cuda", kv=kv, config=CMDR, gs=CMDR_GS,
+        out[kv] = res = phase_model("cuda", layers=layers, kv=kv,
+                                    config=CMDR, gs=CMDR_GS,
                                     init_dev="cuda", wave=False,
                                     rel_tol=CMDR_LOGIT_REL_TOL)
         res["seconds"] = time.perf_counter() - t0
-        log(f"[model] 2-layer full-width {CMDR} rtn-int4 gs {CMDR_GS}, {kv} "
-            f"pool, card vs CPU: {json.dumps(res)}")
+        log(f"[model] {layers}-layer full-width {CMDR} rtn-int4 gs {CMDR_GS}"
+            f", {kv} pool, card vs CPU: {json.dumps(res)}")
         torch.cuda.empty_cache()
-    out["forward"] = res = cmdr_forward()
-    log(f"[model] 2-layer full-width {CMDR} T.forward card vs CPU: "
+    out["forward"] = res = cmdr_forward(layers=layers)
+    log(f"[model] {layers}-layer full-width {CMDR} T.forward card vs CPU: "
         f"{json.dumps(res)}")
     torch.cuda.empty_cache()
     return out
@@ -5285,32 +5294,58 @@ def check_flash_autograd(gen) -> dict:
             "serves": ("train-full-depth",), "per_case": rows}
 
 
-def _train_grads(cfg, params, batch, dev: str, detach_attention=False):
+def _train_grads(cfg, params, batch, dev: str, control=None):
     """``T.loss_fn`` and every leaf's gradient of ``params`` (numpy-seeded
-    CPU tensors, copied to ``dev`` in the trainer's per-layer layout); with
-    ``detach_attention`` the attention output is detached (the control:
-    wq / wk / wv and their biases get no gradient)."""
+    CPU tensors, copied to ``dev`` in the trainer's per-layer layout);
+    with ``control`` (module, attribute) that function's outputs are
+    detached (``_Detached``: what lies behind it gets no gradient)."""
+    import contextlib
     import torch
     from repro_torch.bridge import tree_to
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.optim.adamw import tree_leaves
     p = T.unstack_layers(tree_to(params, dev))
     leaves = tree_leaves(p)
     for t in leaves:
         t.requires_grad_(True)
-    real = ops.flash_attention
-    if detach_attention:
-        ops.flash_attention = lambda *a, **kw: real(*a, **kw).detach()
-    try:
+    with (_Detached(*control) if control else contextlib.nullcontext()):
         loss = T.loss_fn(cfg, p, {k: torch.from_numpy(v).to(dev)
                                   for k, v in batch.items()})
         g = torch.autograd.grad(loss, leaves, allow_unused=True)
-    finally:
-        ops.flash_attention = real
     return float(loss.detach()), [torch.zeros_like(t) if d is None
                                   else d.detach()
-                         for t, d in zip(leaves, g)]
+                                  for t, d in zip(leaves, g)]
+
+
+def _rms_rel(got, want) -> float:
+    """RMS of the difference over the RMS of ``want``, in f32 on ``got``'s
+    device (the MoE's 1.7 B gradients in float64 on the host took
+    seconds)."""
+    w = want.to(got.device).float()
+    return ((got.float() - w).pow(2).mean().sqrt()
+            / w.pow(2).mean().sqrt().clamp(min=1e-30)).item()
+
+
+class _Detached:
+    """Within the block, ``module.attr``'s outputs are detached (a
+    control: what lies behind it gets no gradient)."""
+
+    def __init__(self, module, attr):
+        self.module, self.attr = module, attr
+
+    def __enter__(self):
+        import torch
+        self.real = real = getattr(self.module, self.attr)
+
+        def detached(*a, **kw):
+            out = real(*a, **kw)
+            return (out.detach() if isinstance(out, torch.Tensor)
+                    else type(out)(t.detach() for t in out))
+
+        setattr(self.module, self.attr, detached)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.real)
 
 
 def phase_train_model(dev: str = "cuda", ref_dev: str = "cpu",
@@ -5327,6 +5362,7 @@ def phase_train_model(dev: str = "cuda", ref_dev: str = "cpu",
     import numpy as np
     import torch
     from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import transformer as T
     cfg = (get_reduced(TRAIN) if reduced else get_config(TRAIN)).replace(
@@ -5342,12 +5378,11 @@ def phase_train_model(dev: str = "cuda", ref_dev: str = "cpu",
     cpu_s = time.perf_counter() - t0
     out = {"layers": layers, "batch": [b, s], "cpu_s": cpu_s,
            "cpu_loss": want_loss}
-    for label, detach in (("card", False), ("control", True)):
+    for label, control in (("card", None),
+                           ("control", (ops, "flash_attention"))):
         n0 = flash_attention.launches
-        loss, got = _train_grads(cfg, params, batch, dev, detach)
-        rel = [((g.float().cpu() - w.float()).pow(2).mean().sqrt()
-                / w.float().pow(2).mean().sqrt().clamp(min=1e-30)).item()
-               for g, w in zip(got, want)]
+        loss, got = _train_grads(cfg, params, batch, dev, control)
+        rel = [_rms_rel(g, w) for g, w in zip(got, want)]
         worst = int(np.argmax(rel))
         out[label] = r = {"loss": loss,
                           "loss_rel_err": abs(loss - want_loss) / want_loss,
@@ -5620,8 +5655,9 @@ def train_restart(kernels, dev: str = "cuda", reduced: bool = False) -> dict:
 
 def check_no_hidden_grad(kernels) -> dict:
     """Phase 14 (e): every serving-only kernel entry (B1, B4, B2 with both
-    pool formats, B3, both time scans) raises ``RuntimeError`` naming its
-    kernel when autograd would record its call, before it launches."""
+    pool formats, B3) raises ``RuntimeError`` naming its kernel when
+    autograd would record its call, before it launches.  (The time scans
+    have autograd rules since phase 14 (f).)"""
     import torch
     from repro_torch.kernels import ops
     c = dict(device="cuda")
@@ -5647,16 +5683,7 @@ def check_no_hidden_grad(kernels) -> dict:
             z(1, 16, KV, D)),
         "gptq_matmul": lambda: ops.quant_matmul(
             grad(8, 256), {"qweight": i32(32, 256), "scales": f32(8, 256),
-                           "zeros": f32(8, 256)}),
-        "selective_scan": lambda: ops.selective_scan(
-            grad(1, 4, 64), f32(1, 4, 64), f32(1, 4, 16), f32(1, 4, 16),
-            f32(64, 16), f32(1, 64, 16)),
-        "selective_scan (fused)": lambda: ops.ssm_scan(
-            grad(1, 4, 64), f32(64), f32(1, 4, 64), f32(1, 4, 16),
-            f32(1, 4, 16), f32(1, 4, 64), f32(64, 16), f32(64),
-            f32(1, 64, 16)),
-        "linear_scan": lambda: ops.linear_scan(
-            grad(1, 4, 64), f32(1, 4, 64), f32(1, 64))}
+                           "zeros": f32(8, 256)})}
     for k in kernels:
         k.launches = 0
     out = {}
@@ -5676,6 +5703,441 @@ def check_no_hidden_grad(kernels) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 14 (f): the trainer for the MoE, hybrid and Mamba families
+# (qwen2-moe-a2.7b, recurrentgemma-2b, falcon-mamba-7b at full width): the
+# time scans' backward kernels against their plain versions, each family's
+# loss and gradients card vs CPU, and deep runs through launch.train.main
+# --------------------------------------------------------------------------
+
+# the backward kernels' checks at the trainer's shapes [8, 512]: the
+# RG-LRU's width 2560 and falcon-mamba's din 8192 with a state of 16, from
+# a random state with a random h_last gradient; the selective scan also at
+# a ragged S that is not a multiple of the kernel's checkpoint chunk
+SCAN_BWD_LINEAR = (TRAIN_BATCH, TRAIN_SEQ, 2560)
+SCAN_BWD_SELECTIVE = (TRAIN_BATCH, TRAIN_SEQ, 8192, 16)
+SCAN_BWD_RAGGED_S = 333
+# each output's largest error over its own RMS (the plain version in f32
+# sums in another order and takes torch's exp): 1e-3 in the first chip
+# run, tightened to 1e-4 on its reading (NVIDIA H100 80GB HBM3, 700 W:
+# the selective scan's worst output, gA, 1.37e-5 at [8, 512], 7.97e-6 at
+# S 333; the linear scan bitwise its plain version)
+SCAN_BWD_REL_TOL = 1e-4
+# each family card vs CPU at full width (TRAIN_LOSS_REL, TRAIN_GRAD_RMS):
+# (layers, activations); 3 recurrentgemma layers run both RG-LRU blocks
+# and the sliding-window one; the MoE in f32, as phase 6 (bf16 rounding
+# turns routing ties into other experts, and one token's k assignments
+# moved are ~6% of a 128-token batch's expert gradient)
+TRAIN_FAMILY_MODEL = {MOE: (2, "float32"), RGEMMA: (3, "bfloat16"),
+                      MAMBA: (2, "bfloat16")}
+# the deep runs: layers, chosen so that f32 master weights, gradients and
+# two AdamW moments (16 bytes a parameter) and a step's activations stay
+# under ~75 GB of the card's 80 (peaks in PERF.md)
+TRAIN_FAMILY_DEPTH = {MOE: 4, RGEMMA: 26, MAMBA: 32}
+TRAIN_FAMILY_STEPS = 4           # the first builds plans; the last profiled
+
+
+def _scan_bwd_case(name, label, kernel, plain, args, control_args, nbytes,
+                   exps, rows):
+    """One backward case: the kernel against its plain version on the same
+    inputs, each output's largest error within SCAN_BWD_REL_TOL of its RMS,
+    two calls bitwise equal; the control (the plain version on a cotangent
+    shifted by one step) must miss the limit; timed beside the plain
+    version and the bound (bytes, or the MUFU's exponentials)."""
+    import torch
+    got = kernel(*args)
+    again = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    rel, worst = {}, 0.0
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        if not torch.equal(g, a):
+            raise AssertionError(f"{name} {label}: two calls differ (output "
+                                 f"{i})")
+        rms = w.double().pow(2).mean().sqrt().item()
+        err = (g - w).abs().max().item()
+        worst = max(worst, err)
+        rel[i] = err / rms if rms else float("inf")
+        if not (bool(torch.isfinite(g).all())
+                and rel[i] <= SCAN_BWD_REL_TOL):
+            raise AssertionError(f"{name} {label}: output {i} max err "
+                                 f"{rel[i]:.3e} of its RMS (limit "
+                                 f"{SCAN_BWD_REL_TOL})")
+    ctrl = plain(*control_args)
+    ctrl_rel = max((c - w).abs().max().item()
+                   / w.double().pow(2).mean().sqrt().item()
+                   for c, w in zip(ctrl, want) if w.abs().max().item() > 0)
+    if ctrl_rel <= SCAN_BWD_REL_TOL:
+        raise AssertionError(f"{name} {label}: the control (cotangent "
+                             f"shifted a step) is within the limit: "
+                             f"{ctrl_rel:.3e}")
+    del got, again, want, ctrl
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_e = exps / (16 * 132 * sm_clock_hz()) * 1e3
+    row = {"case": label, "max_abs_err": worst, "rel_err": rel,
+           "max_rel_err": max(rel.values()),
+           "control_rel_err": ctrl_rel, "bitwise_repeat": True,
+           "ms": time_ms(lambda: kernel(*args), iters=5),
+           "plain_ms": time_ms(lambda: plain(*args), iters=1),
+           "bound": (t_b, "bytes") if t_b >= t_e else (t_e, "operations"),
+           "bound_bytes_ms": t_b, "bound_mufu_ms": t_e}
+    log(f"[train] {name} {label}: kernel_ms={row['ms']:.4f} plain_ms="
+        f"{row['plain_ms']:.2f} bound_ms={row['bound'][0]:.5f} "
+        f"({row['bound'][1]}; bytes {t_b:.5f}, MUFU {t_e:.5f}) max err over "
+        f"RMS {row['max_rel_err']:.2e} by output {json.dumps(rel)}; control "
+        f"{ctrl_rel:.2e} (limit {SCAN_BWD_REL_TOL})")
+    rows.append(row)
+    return row
+
+
+def check_scan_backward(gen) -> list:
+    """Phase 14 (f) (1): ``linear_scan_bwd`` at recurrentgemma's [8, 512] x
+    2560 and ``selective_scan_bwd`` at falcon-mamba's [8, 512] x 8192 x 16
+    and at a ragged S, from random states with random gradients of every
+    output, against ``ref.linear_scan_bwd_ref`` / ``selective_scan_bwd_ref``
+    (see ``_scan_bwd_case``).  Returns the two kernel records."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.time_scan import linear_scan, selective_scan
+    dev = "cuda"
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    out = []
+    b, S, w = SCAN_BWD_LINEAR
+    a = torch.rand((b, S, w), generator=gen, device=dev) * 0.5 + 0.5
+    g, h0 = rnd(b, S, w), rnd(b, w)
+    hs, _ = linear_scan(a, g, h0)
+    ghs, ghl = rnd(b, S, w), rnd(b, w)
+    from repro_torch.kernels import build
+    ptxas = {fn: ptxas_usage(build.LOGS.get("time_scan", ""), fn)
+             for fn in ("linear_scan_bwd_kernel", "selective_scan_bwd_kernel")}
+    log(f"[build] ptxas, the backward scans: {json.dumps(ptxas)}")
+    rows = []
+    _scan_bwd_case("linear_scan_bwd", f"rgemma train [{b},{S}] w {w}",
+                   linear_scan.backward, ref.linear_scan_bwd_ref,
+                   (a, hs, h0, ghs, ghl),
+                   (a, hs, h0, torch.roll(ghs, 1, 1), ghl),
+                   4 * (5 * b * S * w + 3 * b * w), 0, rows)
+    r = rows[0]
+    out.append({"name": "linear_scan_bwd", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/time_scan.cu",
+                "replaces": "src/repro/models/ssm.py:215 (XLA's derivative "
+                            "of the lax.scan step of _rglru_scan; not a "
+                            "Pallas site)",
+                "max_abs_err": r["max_abs_err"],
+                "max_rel_err": r["max_rel_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound": r["bound"],
+                "library_ms": None, "serves": tuple(
+                    f"train-{m}" for m in TRAIN_FAMILY_DEPTH),
+                "shape": r["case"] + " (max_rel_err: the largest error over "
+                "its output's RMS); no single torch call computes it",
+                "cases": rows})
+    del a, g, h0, hs, ghs, ghl
+    b, S, din, N = SCAN_BWD_SELECTIVE
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).repeat(din, 1)
+    rows = []
+    for s in (S, SCAN_BWD_RAGGED_S):
+        dt = torch.rand((b, s, din), generator=gen, device=dev) * 0.099 + 0.001
+        u, Bm, Cm = rnd(b, s, din), rnd(b, s, N), rnd(b, s, N)
+        h0, gy, ghl = rnd(b, din, N), rnd(b, s, din), rnd(b, din, N)
+        elems = b * s * din * N
+        _scan_bwd_case(
+            "selective_scan_bwd", f"mamba train [{b},{s}] din {din} N {N} "
+            "from a random state", selective_scan.backward,
+            ref.selective_scan_bwd_ref, (dt, u, Bm, Cm, A, h0, gy, ghl),
+            (dt, u, Bm, Cm, A, h0, torch.roll(gy, 1, 1), ghl),
+            4 * (5 * b * s * din + 4 * b * s * N + 2 * din * N
+                 + 3 * b * din * N), 2 * elems, rows)
+        del dt, u, Bm, Cm, h0, gy, ghl
+        torch.cuda.empty_cache()
+    r = rows[0]
+    out.append({"name": "selective_scan_bwd", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/time_scan.cu",
+                "replaces": "src/repro/models/ssm.py:99 (XLA's derivative "
+                            "of the lax.scan step of _ssm_inner; not a "
+                            "Pallas site)",
+                "max_abs_err": max(x["max_abs_err"] for x in rows),
+                "max_rel_err": max(x["max_rel_err"] for x in rows),
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound": r["bound"],
+                "library_ms": None, "serves": tuple(
+                    f"train-{m}" for m in TRAIN_FAMILY_DEPTH),
+                "shape": r["case"] + " (max_rel_err: the largest error over "
+                "its output's RMS; also at S " + str(SCAN_BWD_RAGGED_S)
+                + "; bound: the bytes, or the checkpoint pass's and the "
+                "recompute's exponentials on the MUFU); no single torch "
+                "call computes it", "ptxas": ptxas, "cases": rows})
+    return out
+
+
+class _Routes:
+    """Records each ``moe._route`` call's expert ids while in use."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real, self.ids = moe._route, []
+
+        def route(*a, **kw):
+            ids, w = self.real(*a, **kw)
+            self.ids.append(ids.detach().cpu())
+            return ids, w
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self.real
+
+
+def family_control(config: str):
+    """The control of a family's card-vs-CPU gradients: the routed
+    experts', the RG-LRU's or the Mamba mixer core's output detached."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    return {MOE: (moe, "_routed_local"), RGEMMA: (ops, "linear_scan"),
+            MAMBA: (ops, "ssm_scan")}[config]
+
+
+def family_launches(cfg) -> dict:
+    """Each kernel's launches in one forward and backward of ``cfg``'s
+    trainer: the forward and the recompute of each layer launch its
+    forward kernel, the backward its backward kernel (B5 has none)."""
+    from repro_torch.models import transformer as T
+    kinds = [k for k, _, _ in T.layer_plan(cfg)]
+    attn = sum(k in ("full", "sliding") for k in kinds)
+    rec, ssm = kinds.count("recurrent"), kinds.count("ssm")
+    return {"flash_attention": 2 * attn, "linear_scan": 2 * rec,
+            "linear_scan_bwd": rec, "selective_scan": 2 * ssm,
+            "selective_scan_bwd": ssm}
+
+
+def _family_grads(cfg, params, batch, dev, kernels, control=None):
+    """``_train_grads`` with the kernels' launches counted and the routed
+    experts' ids of each ``_route`` call recorded: (loss, grads,
+    launches, ids)."""
+    for k in kernels:
+        k.launches = 0
+    with _Routes() as routes:
+        loss, grads = _train_grads(cfg, params, batch, dev, control)
+    return loss, grads, {k.name: k.launches for k in kernels}, routes.ids
+
+
+def phase_train_family(config: str, kernels=(), dev: str = "cuda",
+                       ref_dev: str = "cpu", reduced: bool = False) -> dict:
+    """Phase 14 (f) (2): ``config`` at full width cut to
+    TRAIN_FAMILY_MODEL's layers, one numpy-seeded batch of TRAIN_MODEL's
+    shape, f32 weights drawn from seed 0 on the card (copied to the CPU
+    for its side): the loss and every leaf's gradient on the card against
+    the CPU (the plain versions), within TRAIN_LOSS_REL and TRAIN_GRAD_RMS;
+    exact launches (``family_launches``); the control (``family_control``)
+    must miss the gradient limit; for the MoE the (token, expert)
+    assignments that differ between card and CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.bridge import tree_to
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.models import transformer as T
+    layers, dtype = TRAIN_FAMILY_MODEL[config]
+    cfg = (get_reduced(config) if reduced else get_config(config)).replace(
+        num_layers=layers, dtype=dtype)
+    params = tree_to(T.init_params(cfg, 0, device=dev), ref_dev)
+    rng = np.random.default_rng(5)
+    b, s = TRAIN_MODEL["batch"]
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s + 1))
+             .astype(np.int32)}
+    names = _leaf_paths(T.unstack_layers(params))
+    t0 = time.perf_counter()
+    want_loss, want, _, want_ids = _family_grads(cfg, params, batch, ref_dev,
+                                                 kernels)
+    cpu_s = time.perf_counter() - t0
+    out = {"layers": layers, "dtype": dtype, "batch": [b, s],
+           "cpu_s": cpu_s, "cpu_loss": want_loss}
+    expect = family_launches(cfg)
+    for label, control in (("card", None), ("control",
+                                            family_control(config))):
+        t0 = time.perf_counter()
+        loss, got, launches, ids = _family_grads(cfg, params, batch, dev,
+                                                 kernels, control)
+        rel = [_rms_rel(g, w) for g, w in zip(got, want)]
+        worst = int(np.argmax(rel))
+        out[label] = r = {"loss": loss,
+                          "loss_rel_err": abs(loss - want_loss) / want_loss,
+                          "grad_rms_rel_worst": rel[worst],
+                          "grad_rms_rel_median": float(np.median(rel)),
+                          "worst_leaf": names[worst], "launches": launches,
+                          "seconds": time.perf_counter() - t0}
+        if ids:
+            # the first forward's routing, layer by layer (the recompute
+            # routes again), against the CPU's
+            n = len(want_ids) // 2 or len(want_ids)
+            r["assignments_differ"] = sum(
+                int((~(a[..., :, None] == c[..., None, :]).any(-1)).sum())
+                for a, c in zip(ids[:n], want_ids[:n]))
+            r["assignments"] = sum(int(a.numel()) for a in ids[:n])
+        del got
+        ok = (r["loss_rel_err"] <= TRAIN_LOSS_REL
+              and r["grad_rms_rel_worst"] <= TRAIN_GRAD_RMS)
+        if dev != "cpu" and label == "card":
+            bad = {k: (n, expect.get(k, 0)) for k, n in launches.items()
+                   if n != expect.get(k, 0)}
+            if bad:
+                raise AssertionError(f"train {config}: launches (got, want) "
+                                     f"{bad}")
+        if ok != (label == "card"):
+            raise AssertionError(
+                f"train {config} {label}: loss rel err "
+                f"{r['loss_rel_err']:.3e} (limit {TRAIN_LOSS_REL}), worst "
+                f"leaf {r['worst_leaf']} gradient {r['grad_rms_rel_worst']:.3e}"
+                f" of its RMS (limit {TRAIN_GRAD_RMS})"
+                + (": the control passed" if ok else ""))
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+    return out
+
+
+class _NoSave:
+    """A ``Checkpointer`` whose saves write nothing (the deep family runs:
+    an f32 tree and its moments are 40-60 GB; phase 14 (c) times the
+    writer on qwen2-1.5b)."""
+
+    def __init__(self, directory, keep: int = 3):
+        self.saves = []
+
+    def save(self, step, trees, extra=None):
+        self.saves.append(step)
+
+    def latest_step(self):
+        return None
+
+
+def _profile_split(prof) -> dict:
+    """A profiled step's device time by part: the time scans' kernels, the
+    static attention, the dense and grouped products, the rest."""
+    split = dict.fromkeys(("time_scan", "flash_attention", "gemm", "other"),
+                          0.0)
+    by, ops = {}, 0
+    for name, on_device, ms in _events(prof):
+        if not on_device:
+            continue
+        ops += 1
+        ours = ours_name(name)
+        key = ("time_scan" if ours in SCAN_KERNELS | {"linear_scan_bwd",
+                                                      "selective_scan_bwd"}
+               else "flash_attention" if ours == "flash_attention"
+               else "gemm" if any(f in name.lower() for f in
+                                  ("gemm", "cutlass", "xmma", "nvjet"))
+               else "other")
+        split[key] += ms
+        t, n = by.get(name[:60], (0.0, 0))
+        by[name[:60]] = (t + ms, n + 1)
+    return {"device_ms": split, "device_busy_ms": sum(split.values()),
+            "device_ops": ops,
+            "top": [{"kernel": k, "ms": t, "calls": n} for k, (t, n) in
+                    sorted(by.items(), key=lambda kv: -kv[1][0])[:8]]}
+
+
+def train_family_depth(config: str, kernels, dev: str = "cuda",
+                       reduced: bool = False) -> dict:
+    """Phase 14 (f) (3): ``config`` at TRAIN_FAMILY_DEPTH's layers through
+    ``launch.train.main``, TRAIN_FAMILY_STEPS steps of [8, 512] with the
+    saves stubbed (``_NoSave``): finite losses, exact launches a step
+    (``family_launches``), step ms and tokens/s over the steps between the
+    first and the last, peak memory; the last step runs under
+    ``torch.profiler`` (device busy and idle share, time by part)."""
+    import math
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.launch import train
+    layers = TRAIN_FAMILY_DEPTH[config]
+    cfg = (get_reduced(config) if reduced else get_config(config)).replace(
+        num_layers=layers)
+    prof_out = {}
+    real_make, real_ckpt = train.make_train_step, train.Checkpointer
+
+    def make(*a, **kw):
+        step = real_make(*a, **kw)
+        calls = [0]
+
+        def profiled(*sa):
+            calls[0] += 1
+            if calls[0] < TRAIN_FAMILY_STEPS or dev == "cpu":
+                return step(*sa)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = step(*sa)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            prof_out.update(_profile_split(prof), wall_ms=wall * 1e3)
+            return res
+
+        return profiled
+
+    train.make_train_step, train.Checkpointer = make, _NoSave
+    try:
+        run = run_train(["--arch", config, "--layers", str(layers),
+                         "--batch", str(TRAIN_BATCH), "--seq",
+                         str(TRAIN_SEQ), "--steps", str(TRAIN_FAMILY_STEPS)]
+                        + (["--reduced"] if reduced else []), kernels, dev)
+    finally:
+        train.make_train_step, train.Checkpointer = real_make, real_ckpt
+    want = {k: n * TRAIN_FAMILY_STEPS
+            for k, n in family_launches(cfg).items()}
+    got = run["launches"]
+    if len(run["losses"]) != TRAIN_FAMILY_STEPS or not all(
+            math.isfinite(x) for x in run["losses"]):
+        raise AssertionError(f"train {config} depth: losses {run['losses']}")
+    bad = {k: (n, want.get(k, 0)) for k, n in got.items()
+           if n != want.get(k, 0)}
+    if dev != "cpu" and bad:
+        raise AssertionError(f"train {config} depth: launches (got, want) "
+                             f"{bad}")
+    steady = run["step_s"][1:-1]
+    run.update(layers=layers, first_step_s=run["step_s"][0],
+               step_ms=1e3 * sum(steady) / len(steady),
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ * len(steady)
+               / sum(steady), profile=prof_out)
+    if prof_out:
+        prof_out["device_idle_share"] = 1 - prof_out["device_busy_ms"] \
+            / prof_out["wall_ms"]
+    return run
+
+
+def phase_train_families(report: dict, gen, kernels) -> list:
+    """Phase 14 (f) on the card: (1) the backward kernels
+    (``check_scan_backward``), (2) each family card vs CPU
+    (``phase_train_family``), (3) each family's deep run
+    (``train_family_depth``).  Returns the two kernel checks."""
+    import torch
+    r = report["train"]["families"] = {}
+    t_phase = time.perf_counter()
+    checks = check_scan_backward(gen)
+    torch.cuda.empty_cache()
+    log_time("train (f) kernels")
+    for config in TRAIN_FAMILY_MODEL:
+        t0 = time.perf_counter()
+        r[config] = res = {"model": phase_train_family(config, kernels)}
+        log(f"[train] {TRAIN_FAMILY_MODEL[config][0]}-layer full-width "
+            f"{config} card vs CPU (loss, every leaf's gradient): "
+            f"{json.dumps(res['model'])} ({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res["depth"] = dp = train_family_depth(config, kernels)
+        report["train"]["serve"][f"train-{config}"] = {
+            "launches": dp["launches"]}
+        log(f"[train] {config} at {dp['layers']} layers via "
+            f"launch.train.main, {TRAIN_FAMILY_STEPS} steps of "
+            f"[{TRAIN_BATCH},{TRAIN_SEQ}]: losses {dp['losses']}, step_ms="
+            f"{dp['step_ms']:.1f} (first {dp['first_step_s']:.2f} s), "
+            f"tokens_per_s={dp['tokens_per_s']:.0f}, peak_gb="
+            f"{dp['peak_gb']:.2f}, launches {dp['launches']}, profiled step "
+            f"{json.dumps(dp['profile'])} ({time.perf_counter() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+        log_time(f"train (f) {config}")
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"[train] phase 14 (f) took {r['seconds']:.1f} s")
+    return checks
+
+
 def phase_train(report: dict, gen, kernels) -> list:
     """Phase 14 on the card: (a) B5 under autograd (``check_flash_autograd``),
     (b) the 2-layer full-width trainer card vs CPU with its control
@@ -5683,7 +6145,8 @@ def phase_train(report: dict, gen, kernels) -> list:
     ``launch.train.main`` (``train_depth``) and two profiled steps
     (``train_profile``), (d) the restart through the Supervisor
     (``train_restart``), (e) the serving kernels' refusals under autograd
-    (``check_no_hidden_grad``).  Returns the kernel checks."""
+    (``check_no_hidden_grad``), (f) the MoE, hybrid and Mamba families
+    (``phase_train_families``).  Returns the kernel checks."""
     import torch
     r = report["train"] = {}
     t_phase = time.perf_counter()
@@ -5714,6 +6177,9 @@ def phase_train(report: dict, gen, kernels) -> list:
         f"{RESTART_FAIL_AT}): {json.dumps(rs)}")
     r["guard"] = gd = check_no_hidden_grad(kernels)
     log(f"[train] serving kernels refuse autograd: {json.dumps(gd)}")
+    torch.cuda.empty_cache()
+    log_time("train (e)")
+    checks += phase_train_families(report, gen, kernels)
     r["seconds"] = time.perf_counter() - t_phase
     log(f"[train] phase 14 took {r['seconds']:.1f} s")
     return checks

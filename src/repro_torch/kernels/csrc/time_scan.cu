@@ -91,6 +91,48 @@
 //    bitwise.  The softplus keeps torch's expf and log1pf (the scan's dt
 //    must round to torch's); the gate's SiLU takes __expf and __fdividef
 //    (within 2 ulp of torch's before its bf16 rounding).
+//
+// The backward kernels (the trainer's autograd rules, kernels/time_scan.py
+// :: LinearScanFn, SelectiveScanFn).  The JAX package differentiates its
+// lax.scan with XLA; the port's forward replaced that lax.scan, and each
+// backward is a recurrence of the same shape run backward in time, so
+// each gets a reverse-time kernel of its own, one launch a call.
+//  * linear_scan_bwd: lambda = dL/dh_t walked t = S-1 .. 0 from g_hlast:
+//    lambda += ghs_t; gg_t = lambda; ga_t = lambda h_{t-1} (h_{-1} = h0,
+//    h_{t-1} read from the forward's hs); lambda = a_t lambda; gh0 =
+//    lambda.  One thread a (sequence, channel), as linear_scan_kernel,
+//    tiles of LIN_TT steps loaded into registers before they are walked;
+//    every operation rounds as the plain version's (no contraction), so
+//    the two agree bit for bit.  Bound by bytes (20 a (token, channel)).
+//  * selective_scan_bwd, the scan alone in f32 at state size 16: with
+//    e_t = exp(dt_t A) and lambda_t = dL/dh_t (lambda_{S-1} = g_hlast +
+//    gy_{S-1} C_{S-1}, lambda_t = e_{t+1} lambda_{t+1} + gy_t C_t):
+//      gC_t[n]  = sum_d gy_t[d] h_t[d, n]
+//      gB_t[n]  = sum_d lambda_t[d, n] dt_t[d] u_t[d]
+//      gu_t[d]  = dt_t[d] sum_n lambda_t[d, n] B_t[n]
+//      gdt_t[d] = sum_n lambda_t[d, n] (A e_t h_{t-1} + u_t[d] B_t[n])
+//      gA       = sum_{b, t} lambda_t dt_t e_t h_{t-1},  gh0 = e_0 lambda_0
+//    Running h backward divides by e, which is unstable, so the kernel
+//    recomputes h forward from checkpoints.  One thread owns a (sequence,
+//    channel) with its 16 states in registers (BWD_CH channels a block).
+//    Pass 1 runs the forward from h0 and writes the state entering each
+//    chunk of BWD_K steps into a scratch buffer [Bt, ceil(S / BWD_K),
+//    din, N] (the wrapper allocates it for the call: 537 MB at [8, 512]
+//    x 8192 x 16).  Pass 2 walks the
+//    chunks from the last: it recomputes the chunk's states h_{t-1} into
+//    shared memory ([BWD_K][N][BWD_CH], each thread its own column), then
+//    steps back through them.  gu and gdt are sums over the thread's own
+//    states.  gB and gC sum over din, across threads and blocks, and are
+//    summed without float atomics: each warp adds its lanes' 32 values
+//    (gC then gB) by a reduce-scatter butterfly of shuffles (lane j ends
+//    with value j), the block adds its warps' in order, and writes a
+//    partial [Bt, S, din / BWD_CH, 2N]; gA is written per sequence [Bt,
+//    din, N].  The wrapper sums both partials in a fixed order, so two
+//    calls agree bit for bit.  Exponentials as the forward's: ex2(dt A
+//    log2(e) + 1) / 2.  Per state element and step it does three (pass
+//    1, the recompute, the step back) and ~12 other f32 operations, and
+//    moves ~4 bytes of inputs and outputs: bound by the MUFU and by its
+//    instruction rate (a simple body; making it fast is later work).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -104,6 +146,13 @@ constexpr int LIN_THREADS = 64; // channels of a linear-scan block
 constexpr int LIN_TT = 16;      // linear scan: time steps a register tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float SOFTPLUS_THRESHOLD = 20.f;
+constexpr int BWD_CH = 64;      // selective_scan_bwd: channels a block
+constexpr int BWD_K = 4;        // time steps between its checkpoints:
+                                // its shared memory (17 KB a block)
+                                // leaves registers to set the blocks an
+                                // SM (8); at 16 steps, 3 blocks of 70 KB
+                                // took 2x as long on the H100
+constexpr int BWD_WARPS = BWD_CH / 32;
 
 struct ScanArgs {
   const void* dt;      // dt (f32), or dt_lin (T) when fused
@@ -447,6 +496,192 @@ __global__ void __launch_bounds__(LIN_THREADS) linear_scan_kernel(
   h_last[(size_t)b * w + c] = h;
 }
 
+__global__ void __launch_bounds__(LIN_THREADS) linear_scan_bwd_kernel(
+    const float* __restrict__ a, const float* __restrict__ hs,
+    const float* __restrict__ h0, const float* __restrict__ ghs,
+    const float* __restrict__ g_hlast, float* __restrict__ ga,
+    float* __restrict__ gg, float* __restrict__ gh0, int S, int w) {
+  const int b = blockIdx.y;
+  const int c = blockIdx.x * LIN_THREADS + threadIdx.x;
+  if (c >= w) return;
+  float lam = g_hlast != nullptr ? g_hlast[(size_t)b * w + c] : 0.f;
+  const float h_init = h0[(size_t)b * w + c];
+  const size_t base = (size_t)b * S * w + c;
+  for (int t1 = S; t1 > 0; t1 -= LIN_TT) {
+    const int t0 = max(t1 - LIN_TT, 0), nt = t1 - t0;
+    float av[LIN_TT], gv[LIN_TT], hp[LIN_TT];
+#pragma unroll
+    for (int tt = 0; tt < LIN_TT; ++tt) {
+      const int t = t0 + tt;
+      const size_t at = base + (size_t)t * w;
+      av[tt] = tt < nt ? a[at] : 0.f;
+      gv[tt] = tt < nt ? ghs[at] : 0.f;
+      hp[tt] = tt >= nt ? 0.f : t > 0 ? hs[at - w] : h_init;
+    }
+#pragma unroll
+    for (int tt = LIN_TT - 1; tt >= 0; --tt) {
+      if (tt < nt) {
+        const size_t at = base + (size_t)(t0 + tt) * w;
+        lam = __fadd_rn(lam, gv[tt]);
+        gg[at] = lam;
+        ga[at] = __fmul_rn(lam, hp[tt]);
+        lam = __fmul_rn(av[tt], lam);
+      }
+    }
+  }
+  gh0[(size_t)b * w + c] = lam;
+}
+
+struct BwdArgs {
+  const float* dt;       // [Bt, S, din]
+  const float* u;        // [Bt, S, din]
+  const float* B;        // [Bt, S, N]
+  const float* C;        // [Bt, S, N]
+  const float* A;        // [din, N]
+  const float* h0;       // [Bt, din, N]
+  const float* gy;       // [Bt, S, din]
+  const float* g_hlast;  // [Bt, din, N] or null (zero)
+  float* ck;             // scratch [Bt, ceil(S / BWD_K), din, N]
+  float* gdt;            // [Bt, S, din]
+  float* gu;             // [Bt, S, din]
+  float* gcb;            // partials [Bt, S, din / BWD_CH, 2 N]: gC, gB
+  float* ga;             // partials [Bt, din, N]
+  float* gh0;            // [Bt, din, N]
+  int S, din;
+};
+
+// exp(dt A) from dt log2(e) and A: ex2(dt A log2(e) + 1) / 2 (the
+// forward's argument, its fraction rounded to nearest, not truncated)
+__device__ __forceinline__ float decay(float dl, float a) {
+  return ex2_approx(fmaf(dl, a, 1.f)) * 0.5f;
+}
+
+// One level of the reduce-scatter below: of v[0 .. 2M - 1], a lane keeps
+// the half its lane bit M names and adds its partner's copy of it
+template <int M>
+__device__ __forceinline__ void reduce_scatter_level(float* v, int lane) {
+  const bool upper = (lane & M) != 0;
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    const float send = upper ? v[i] : v[i + M];
+    const float keep = upper ? v[i + M] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+}
+
+// v[0 .. 31] summed over the warp's lanes: lane j ends with the sum of
+// v[j] in v[0] (a butterfly that halves the values at each level: 31
+// shuffles, every sum in a fixed order)
+__device__ __forceinline__ void warp_reduce_scatter32(float* v, int lane) {
+  reduce_scatter_level<16>(v, lane);
+  reduce_scatter_level<8>(v, lane);
+  reduce_scatter_level<4>(v, lane);
+  reduce_scatter_level<2>(v, lane);
+  reduce_scatter_level<1>(v, lane);
+}
+
+constexpr int BWD_SMEM = (BWD_K * N_STATE * BWD_CH + BWD_K * BWD_WARPS * 32)
+                         * (int)sizeof(float);
+
+__global__ void __launch_bounds__(BWD_CH) selective_scan_bwd_kernel(
+    const BwdArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* hbuf = reinterpret_cast<float*>(smem);     // [BWD_K][N][BWD_CH]
+  float* red = hbuf + BWD_K * N_STATE * BWD_CH;      // [BWD_K][WARPS][32]
+  const int S = p.S, din = p.din;
+  const int b = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int d = blockIdx.x * BWD_CH + tid;
+  const int nck = (S + BWD_K - 1) / BWD_K;
+  const long long row0 = (long long)b * S;
+  const long long st = ((long long)b * din + d) * N_STATE;
+  float a[N_STATE], h[N_STATE];
+  load_states<N_STATE>(p.A + (long long)d * N_STATE, a);
+  load_states<N_STATE>(p.h0 + st, h);
+
+  // one step forward on this thread's states: h = e h + (dt u) B
+  auto forward = [&](int t) {
+    const long long at = (row0 + t) * din + d;
+    const float dtv = p.dt[at];
+    const float dx = dtv * p.u[at], dl = dtv * LOG2E;
+    float bv[N_STATE];
+    load_states<N_STATE>(p.B + (row0 + t) * N_STATE, bv);
+#pragma unroll
+    for (int j = 0; j < N_STATE; ++j)
+      h[j] = fmaf(decay(dl, a[j]), h[j], dx * bv[j]);
+  };
+  auto ck_at = [&](int c) {
+    return p.ck + (((long long)b * nck + c) * din + d) * N_STATE;
+  };
+
+  // pass 1: the state entering each chunk
+  for (int t = 0; t < S; ++t) {
+    if (t % BWD_K == 0) store_states<N_STATE>(ck_at(t / BWD_K), h);
+    forward(t);
+  }
+
+  // pass 2: the chunks from the last
+  float lam[N_STATE], gA[N_STATE];
+  if (p.g_hlast != nullptr) {
+    load_states<N_STATE>(p.g_hlast + st, lam);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N_STATE; ++j) lam[j] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < N_STATE; ++j) gA[j] = 0.f;
+  for (int c = nck - 1; c >= 0; --c) {
+    const int t0 = c * BWD_K, nt = min(BWD_K, S - t0);
+    load_states<N_STATE>(ck_at(c), h);
+    for (int tt = 0; tt < nt; ++tt) {            // h_{t-1} of each step
+#pragma unroll
+      for (int j = 0; j < N_STATE; ++j)
+        hbuf[(tt * N_STATE + j) * BWD_CH + tid] = h[j];
+      forward(t0 + tt);
+    }
+    for (int tt = nt - 1; tt >= 0; --tt) {
+      const long long at = (row0 + t0 + tt) * din + d;
+      const float dtv = p.dt[at], uv = p.u[at], g = p.gy[at];
+      const float dx = dtv * uv, dl = dtv * LOG2E;
+      float bv[N_STATE], cv[N_STATE], v[2 * N_STATE];
+      load_states<N_STATE>(p.B + (row0 + t0 + tt) * N_STATE, bv);
+      load_states<N_STATE>(p.C + (row0 + t0 + tt) * N_STATE, cv);
+      float sb = 0.f, sq = 0.f;
+#pragma unroll
+      for (int j = 0; j < N_STATE; ++j) {
+        const float hp = hbuf[(tt * N_STATE + j) * BWD_CH + tid];
+        const float e = decay(dl, a[j]);
+        const float hc = fmaf(e, hp, dx * bv[j]);     // h_t, as pass 1's
+        lam[j] = fmaf(g, cv[j], lam[j]);
+        v[j] = g * hc;                                // gC_t's part
+        v[N_STATE + j] = lam[j] * dx;                 // gB_t's part
+        const float q = lam[j] * e * hp;
+        sb = fmaf(lam[j], bv[j], sb);
+        sq = fmaf(a[j], q, sq);
+        gA[j] = fmaf(dtv, q, gA[j]);
+        lam[j] *= e;
+      }
+      p.gu[at] = dtv * sb;
+      p.gdt[at] = fmaf(uv, sb, sq);
+      warp_reduce_scatter32(v, lane);
+      red[(tt * BWD_WARPS + warp) * 32 + lane] = v[0];
+    }
+    __syncthreads();                              // the chunk's warp sums
+    for (int i = tid; i < nt * 2 * N_STATE; i += BWD_CH) {
+      const int tt = i / (2 * N_STATE), j = i % (2 * N_STATE);
+      float sum = red[tt * BWD_WARPS * 32 + j];
+#pragma unroll
+      for (int w = 1; w < BWD_WARPS; ++w)
+        sum += red[(tt * BWD_WARPS + w) * 32 + j];
+      p.gcb[((row0 + t0 + tt) * gridDim.x + blockIdx.x) * 2 * N_STATE + j]
+          = sum;
+    }
+    __syncthreads();                              // red free again
+  }
+  store_states<N_STATE>(p.gh0 + st, lam);
+  store_states<N_STATE>(p.ga + st, gA);
+}
+
 template <typename T, bool FUSED, int NS, int TT>
 int launch_one(const ScanArgs& p, int Bt, cudaStream_t s) {
   using L = Smem<T, FUSED, NS, TT>;
@@ -518,3 +753,40 @@ extern "C" int linear_scan_launch(const float* a, const float* g,
       a, g, h0, hs, h_last, S, w);
   return (int)cudaGetLastError();
 }
+
+// The linear scan's backward; g_hlast may be null (a zero gradient).
+extern "C" int linear_scan_bwd_launch(const float* a, const float* hs,
+                                      const float* h0, const float* ghs,
+                                      const float* g_hlast, float* ga,
+                                      float* gg, float* gh0, int Bt, int S,
+                                      int w, void* stream) {
+  if (Bt <= 0 || Bt > 65535 || w <= 0 || S < 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((w + LIN_THREADS - 1) / LIN_THREADS, Bt);
+  linear_scan_bwd_kernel<<<grid, LIN_THREADS, 0, (cudaStream_t)stream>>>(
+      a, hs, h0, ghs, g_hlast, ga, gg, gh0, S, w);
+  return (int)cudaGetLastError();
+}
+
+// The selective scan's backward (the scan alone, f32); g_hlast may be
+// null; ck [Bt, ceil(S / BWD_K), din, N], gcb [Bt, S, din / BWD_CH, 2 N]
+// and ga [Bt, din, N] are the caller's scratch and partials
+// (kernels/time_scan.py: BWD_CHANNELS, BWD_CHUNK).
+extern "C" int selective_scan_bwd_launch(
+    const float* dt, const float* u, const float* B, const float* C,
+    const float* A, const float* h0, const float* gy, const float* g_hlast,
+    float* ck, float* gdt, float* gu, float* gcb, float* ga, float* gh0,
+    int Bt, int S, int din, int N, void* stream) {
+  if (bad_shape(Bt, S, din, N) || din % BWD_CH != 0)
+    return (int)cudaErrorInvalidValue;
+  static size_t granted = 0;
+  const cudaError_t e =
+      rt::allow_smem(selective_scan_bwd_kernel, BWD_SMEM, &granted);
+  if (e != cudaSuccess) return (int)e;
+  BwdArgs p{dt, u, B, C, A, h0, gy, g_hlast, ck, gdt, gu, gcb, ga, gh0, S,
+            din};
+  selective_scan_bwd_kernel<<<dim3(din / BWD_CH, Bt), BWD_CH, BWD_SMEM,
+                              (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+

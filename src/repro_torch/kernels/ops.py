@@ -6,11 +6,17 @@ it does not take.  There is no fallback from a CUDA tensor to the plain
 version and no flag that selects one.
 
 Gradients: on the CPU autograd differentiates the plain versions.  On the
-card the static ``flash_attention`` goes through its autograd rule
-(``FlashAttentionFn``) when autograd records the call; every other kernel
-serves only and has no backward, so it raises when grad is enabled and an
-input requires grad, instead of returning an output without a
-``grad_fn`` that would drop the gradients silently.
+card a call that autograd records goes through an autograd rule: the
+static ``flash_attention`` through ``FlashAttentionFn`` (the kernel
+forward, the plain version's backward), the time scans through
+``LinearScanFn`` and ``SelectiveScanFn`` (the kernel forward, a
+reverse-time backward kernel), and ``ssm_scan`` through the plain
+version's torch composition around ``SelectiveScanFn``.  The paged,
+chunk-prefill and int4 kernels serve only and have no backward, so they
+raise when grad is enabled and an input requires grad, instead of
+returning an output without a ``grad_fn`` that would drop the gradients
+silently.  Under ``no_grad`` every entry launches exactly its serving
+kernel.
 """
 from __future__ import annotations
 
@@ -27,12 +33,13 @@ from repro_torch.kernels.gptq_matmul import gptq_matmul
 from repro_torch.kernels.paged_attention import paged_attention as _paged
 from repro_torch.kernels.paged_attention_quant import (
     paged_attention_quant as _paged_quant)
+from repro_torch.kernels.time_scan import LinearScanFn, SelectiveScanFn
 from repro_torch.kernels.time_scan import linear_scan as _linear_scan
 from repro_torch.kernels.time_scan import selective_scan as _selective_scan
 
 KERNELS = (_paged, _paged_quant, flash_attention_chunk,
            flash_attention_chunk_int8, _flash, gptq_matmul, _selective_scan,
-           _linear_scan)
+           _linear_scan, _selective_scan.bwd, _linear_scan.bwd)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -55,8 +62,8 @@ def _serving_only(name: str, *tensors) -> None:
         raise RuntimeError(
             f"{name}: the CUDA kernel serves only and has no backward; an "
             "input requires grad with grad enabled, so its gradient would "
-            "be dropped (run it under torch.no_grad(), or train a family "
-            "whose forward runs only flash_attention)")
+            "be dropped (run it under torch.no_grad(); training runs no "
+            "paged, chunk-prefill or int4 kernel)")
 
 
 def paged_attention(q, k_pool, v_pool, block_table, seq_lens,
@@ -153,9 +160,11 @@ def quant_matmul(x: torch.Tensor, params: Dict[str, torch.Tensor]
 def selective_scan(dt, u, B, C, A, h0):
     """The Mamba-1 selective scan over time: dt, u [Bt, S, din], B, C
     [Bt, S, N], A [din, N], h0 [Bt, din, N], all f32 -> (y [Bt, S, din],
-    h_last [Bt, din, N])."""
+    h_last [Bt, din, N]).  On the card a call that autograd records goes
+    through ``SelectiveScanFn``."""
     if _on_cuda(dt):
-        _serving_only("selective_scan", dt, u, B, C, A, h0)
+        if _records_grad(dt, u, B, C, A, h0):
+            return SelectiveScanFn.apply(dt, u, B, C, A, h0)
         return _selective_scan(dt, u, B, C, A, h0)
     return _ref.selective_scan_ref(dt, u, B, C, A, h0)
 
@@ -168,10 +177,20 @@ def ssm_scan(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0, mask=None):
     version's rounding points in xc's dtype -> (y [Bt, S, din] in xc's
     dtype, h_last [Bt, din, N] f32).  On the card one launch of the
     selective-scan kernel, counted by ``selective_scan``; B, C and z may be
-    column views of the projections' outputs."""
+    column views of the projections' outputs.  A call on the card that
+    autograd records runs the plain version's torch composition around
+    ``SelectiveScanFn`` (the scan alone: its forward and backward
+    kernels), so each input gets its gradient from autograd of those ops;
+    no training path passes a mask, and one raises there."""
     if _on_cuda(xc):
-        _serving_only("selective_scan", dt_lin, dt_bias, xc, B, C, z, A_log,
-                      D, h0)
+        if _records_grad(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0):
+            if mask is not None:
+                raise RuntimeError(
+                    "ssm_scan: a mask under autograd is not supported on "
+                    "the card (the trainer scans whole sequences; masked "
+                    "prefill runs under torch.no_grad())")
+            return _ref.ssm_scan_ref(dt_lin, dt_bias, xc, B, C, z, A_log, D,
+                                     h0, scan=SelectiveScanFn.apply)
         return _selective_scan.fused(dt_lin, dt_bias, xc, B, C, z, A_log, D,
                                      h0, mask)
     return _ref.ssm_scan_ref(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0,
@@ -180,8 +199,10 @@ def ssm_scan(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0, mask=None):
 
 def linear_scan(a, g, h0):
     """The RG-LRU recurrence h_t = a_t h_{t-1} + g_t: a, g [Bt, S, w], h0
-    [Bt, w], all f32 -> (hs [Bt, S, w], h_last [Bt, w])."""
+    [Bt, w], all f32 -> (hs [Bt, S, w], h_last [Bt, w]).  On the card a
+    call that autograd records goes through ``LinearScanFn``."""
     if _on_cuda(a):
-        _serving_only("linear_scan", a, g, h0)
+        if _records_grad(a, g, h0):
+            return LinearScanFn.apply(a, g, h0)
         return _linear_scan(a, g, h0)
     return _ref.linear_scan_ref(a, g, h0)

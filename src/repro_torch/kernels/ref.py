@@ -122,36 +122,98 @@ def selective_scan_ref(dt: torch.Tensor, u: torch.Tensor, B: torch.Tensor,
     return y, h
 
 
-def ssm_scan_ref(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0, mask=None):
+def selective_scan_bwd_ref(dt, u, B, C, A, h0, gy, g_hlast=None):
+    """The selective scan's backward in f32, the plain version of the
+    ``selective_scan_bwd`` kernel: h recomputed forward from h0, then time
+    walked backward with lambda_t = dL/dh_t (lambda_{S-1} = g_hlast + gy_{S-1}
+    C_{S-1}, lambda_t = exp(dt_{t+1} A) lambda_{t+1} + gy_t C_t):
+
+        gC_t[n]  = sum_d gy_t[d] h_t[d, n]
+        gB_t[n]  = sum_d lambda_t[d, n] dt_t[d] u_t[d]
+        gu_t[d]  = dt_t[d] sum_n lambda_t[d, n] B_t[n]
+        gdt_t[d] = sum_n lambda_t[d, n] (A e h_{t-1} + u_t[d] B_t[n])[d, n]
+        gA       = sum_{b, t} lambda_t dt_t e h_{t-1}
+        gh0      = exp(dt_0 A) lambda_0
+
+    with e = exp(dt_t A) and h_{-1} = h0.  Shapes as ``selective_scan_ref``;
+    gy [Bt, S, din]; g_hlast [Bt, din, N] or None (zero).  Returns (gdt,
+    gu, gB, gC, gA, gh0)."""
+    S = dt.shape[1]
+    hs = [h0]
+    for t in range(S):
+        da = torch.exp(dt[:, t, :, None] * A[None])
+        hs.append(da * hs[-1] + (dt[:, t] * u[:, t])[..., None]
+                  * B[:, t, None, :])
+    lam = torch.zeros_like(h0) if g_hlast is None else g_hlast
+    gdt, gu = torch.empty_like(dt), torch.empty_like(u)
+    gB, gC = torch.empty_like(B), torch.empty_like(C)
+    gA = torch.zeros_like(A)
+    for t in range(S - 1, -1, -1):
+        da = torch.exp(dt[:, t, :, None] * A[None])
+        hp = hs[t]
+        lam = lam + gy[:, t, :, None] * C[:, t, None, :]
+        dtu = dt[:, t] * u[:, t]
+        gC[:, t] = torch.einsum("bd,bdn->bn", gy[:, t], hs[t + 1])
+        gB[:, t] = torch.einsum("bdn,bd->bn", lam, dtu)
+        sb = torch.einsum("bdn,bn->bd", lam, B[:, t])
+        gu[:, t] = dt[:, t] * sb
+        q = lam * da * hp
+        gdt[:, t] = (q * A[None]).sum(-1) + u[:, t] * sb
+        gA = gA + (q * dt[:, t, :, None]).sum(0)
+        lam = da * lam
+    return gdt, gu, gB, gC, gA, lam
+
+
+def ssm_scan_ref(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0, mask=None,
+                 scan=selective_scan_ref):
     """The Mamba-1 mixer core after its two matmuls, the torch composition
     ``models/ssm.py :: _ssm_inner`` ran around ``selective_scan_ref``:
     softplus(dt_lin + dt_bias) in xc's dtype, then f32 (0 where ``mask``
     [Bt, S] is False), A = -exp(A_log), the scan in f32, then (y + xc D)
     * silu(z) in xc's dtype.  dt_lin, xc, z [Bt, S, din]; B, C [Bt, S, N];
     dt_bias, D [din]; A_log [din, N]; h0 [Bt, din, N].  Returns (y [Bt, S,
-    din] in xc's dtype, h_last [Bt, din, N] f32)."""
+    din] in xc's dtype, h_last [Bt, din, N] f32).  ``scan`` computes the
+    scan alone (``ops.ssm_scan`` passes the selective-scan kernel's
+    autograd rule on the card)."""
     dt = F.softplus(dt_lin + dt_bias.to(xc.dtype)).float()      # [B, S, din]
     if mask is not None:
         dt = torch.where(mask[..., None], dt, 0.0)
     A = -torch.exp(A_log.float())                               # [din, N]
-    y, h = selective_scan_ref(dt.contiguous(), xc.float().contiguous(),
-                              B.float().contiguous(),
-                              C.float().contiguous(), A.contiguous(),
-                              h0.float().contiguous())
+    y, h = scan(dt.contiguous(), xc.float().contiguous(),
+                B.float().contiguous(), C.float().contiguous(),
+                A.contiguous(), h0.float().contiguous())
     y = y.to(xc.dtype) + xc * D.to(xc.dtype)
     return y * F.silu(z), h
 
 
 def linear_scan_ref(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor):
     """The RG-LRU's recurrence ``h_t = a_t h_{t-1} + g_t`` in f32, one
-    ``addcmul`` per time step into a time-major buffer (row t contiguous).
-    a, g [Bt, S, w]; h0 [Bt, w].  Returns (hs [Bt, S, w], h_last [Bt,
-    w])."""
+    ``addcmul`` per time step over time-major rows (row t contiguous),
+    stacked after; autograd differentiates it.  a, g [Bt, S, w]; h0 [Bt,
+    w].  Returns (hs [Bt, S, w], h_last [Bt, w])."""
     a_t = a.transpose(0, 1).contiguous()                        # [S, B, w]
     g_t = g.transpose(0, 1).contiguous()
-    hs = torch.empty_like(a_t)
+    rows = []
     h = h0
     for t in range(a_t.shape[0]):
-        torch.addcmul(g_t[t], a_t[t], h, out=hs[t])
-        h = hs[t]
+        h = torch.addcmul(g_t[t], a_t[t], h)
+        rows.append(h)
+    hs = torch.stack(rows) if rows else torch.empty_like(a_t)
     return hs.transpose(0, 1), h
+
+
+def linear_scan_bwd_ref(a, hs, h0, ghs, g_hlast=None):
+    """The linear scan's backward in f32, the plain version of the
+    ``linear_scan_bwd`` kernel: with lambda = dL/dh_t walked from t = S-1
+    down to 0 (starting at g_hlast, or zero), ``lambda += ghs_t``, ``gg_t =
+    lambda``, ``ga_t = lambda h_{t-1}`` (h_{-1} = h0, h_{t-1} read from the
+    forward's ``hs``), ``lambda = a_t lambda``; at the end gh0 = lambda.
+    a, hs, ghs [Bt, S, w]; h0, g_hlast [Bt, w].  Returns (ga, gg, gh0)."""
+    lam = torch.zeros_like(h0) if g_hlast is None else g_hlast
+    ga, gg = torch.empty_like(a), torch.empty_like(a)
+    for t in range(a.shape[1] - 1, -1, -1):
+        lam = lam + ghs[:, t]
+        gg[:, t] = lam
+        ga[:, t] = lam * (hs[:, t - 1] if t > 0 else h0)
+        lam = a[:, t] * lam
+    return ga, gg, lam

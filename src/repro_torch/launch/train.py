@@ -6,6 +6,15 @@ and logged lines).
         --steps 8 --batch 8 --seq 512 --save-every 8 --ckpt-dir DIR
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --reduced --device cpu --steps 20 --fail-at-step 7 --save-every 5
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch falcon-mamba-7b --layers 32 --steps 4 --batch 8 --seq 512
+
+Every ported family trains: the dense and sliding-window decoders, the
+MoE decoder (qwen2-moe-a2.7b), the RG-LRU hybrid (recurrentgemma-2b), the
+Mamba-1 stack (falcon-mamba-7b), the vision-prefixed decoder and the
+audio encoder.  ``--layers`` cuts the depth (f32 master weights, their
+gradient and two AdamW moments take 16 bytes a parameter: on one 80 GB
+card qwen2-moe runs 4 of its 24 layers, falcon-mamba 32 of its 64).
 
 It trains on the card (``--device cuda``, the default; raises on a host
 without one); ``--device cpu`` runs the plain reference path.  f32

@@ -19,7 +19,11 @@ Two things differ from the reference by design, neither in the result:
 - The combine is a gather through the inverse permutation into
   ``[T, k, d]`` and a sum over ``k`` in a fixed order, not a scatter-add
   (``index_add_`` on the card adds with atomics, in an order that changes
-  from run to run), so a run repeats bit for bit.
+  from run to run), so a run repeats bit for bit.  The dispatch gathers
+  each token's k copies through the sort's permutation too
+  (``dispatch_rows``), so the backward of every gather on the path
+  scatters to distinct rows and sums the k copies by a reshape and a sum:
+  a backward repeats bit for bit as well.
 
 The reference's expert-parallel branch (``ctx`` / ``shard_map``, a psum
 over the model axis) waits for the port's parallelism (ROADMAP A13).
@@ -80,6 +84,18 @@ def grouped_mm(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor
     return fn(x, w, offs=offs)
 
 
+def dispatch_rows(x2: torch.Tensor, order: torch.Tensor, k: int
+                  ) -> torch.Tensor:
+    """The sorted assignments' rows [T*k, d] of tokens x2 [T, d]: row j is
+    token ``order[j] // k``, bitwise ``x2.index_select(0, order // k)``,
+    but gathered from the k copies of each token through the permutation
+    ``order``, so its backward adds into distinct rows (no two atomic adds
+    on one address) and sums each token's k copies by a reshape."""
+    T, d = x2.shape
+    return x2[:, None].expand(T, k, d).reshape(T * k, d).index_select(
+        0, order)
+
+
 def _routed_local(cfg: ModelConfig, p: Params, x2: torch.Tensor
                   ) -> torch.Tensor:
     """The routed experts' contribution for tokens x2 [T, d] -> [T, d]."""
@@ -93,7 +109,7 @@ def _routed_local(cfg: ModelConfig, p: Params, x2: torch.Tensor
     sizes = torch.zeros(e_pad, dtype=torch.int32, device=x2.device) \
         .scatter_add_(0, ids, torch.ones_like(ids, dtype=torch.int32))
     offs = torch.cumsum(sizes, 0, dtype=torch.int32)
-    xs = x2.index_select(0, order // k)                            # [T*k, d]
+    xs = dispatch_rows(x2, order, k)                               # [T*k, d]
     g = grouped_mm(xs, p["we_gate"].to(x2.dtype), offs)
     u = grouped_mm(xs, p["we_up"].to(x2.dtype), offs)
     rows = grouped_mm(act_fn(cfg.act)(g) * u, p["we_down"].to(x2.dtype), offs)

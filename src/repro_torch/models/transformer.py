@@ -96,24 +96,15 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 
 def require_trainable(cfg: ModelConfig) -> None:
-    """The trainer takes the ported families whose forward runs only the
-    static attention kernel (which has an autograd rule) and torch ops:
-    the dense decoders (full attention or a sliding window), the decoder
-    behind a vision prefix and the audio encoder.  The MoE
-    FFN's routed experts run ``torch._grouped_mm`` and the hybrid's and
-    Mamba's recurrences the hand-written time-scan kernel, which has no
-    backward: those are refused by name."""
+    """The trainer takes every ported family: the dense decoders (full
+    attention or a sliding window), the MoE decoder (its routed experts'
+    ``torch._grouped_mm`` products with their autograd, the dispatch and
+    combine gathered through permutations), the RG-LRU hybrid and the
+    Mamba-1 stack (the time-scan kernels' autograd rules, each with a
+    reverse-time backward kernel), the decoder behind a vision prefix and
+    the audio encoder.  Other families raise as ``_require_ported``
+    does."""
     _require_ported(cfg)
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: training the MoE family needs a backward through "
-            "the routed experts' torch._grouped_mm routing, which is not "
-            "ported yet (ROADMAP A12)")
-    if cfg.family in ("hybrid", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family needs a "
-            "backward of the hand-written time-scan kernel "
-            "(csrc/time_scan.cu), which is not written yet (ROADMAP A12)")
 
 
 def require_decoder(cfg: ModelConfig) -> None:

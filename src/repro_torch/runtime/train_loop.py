@@ -2,7 +2,11 @@
 device.  ``make_train_step`` differentiates ``transformer.loss_fn`` (each
 layer rematerialised: ``transformer.forward``), sums the f32 gradients of
 its microbatches in order and divides them, as the reference's scan does,
-and applies AdamW in place.  It runs eagerly: torch has no ``jit``.
+and applies AdamW in place.  It runs eagerly: torch has no ``jit``.  It
+trains every ported family: the dense, sliding-window, vision-prefixed and
+audio models, the MoE decoder (qwen2-moe), the RG-LRU hybrid
+(recurrentgemma) and the Mamba-1 stack (falcon-mamba); on the card the
+time scans' backward runs their reverse-time kernels.
 
 Sharded steps (``ctx``, the shardings of ``jit_train_step``) and the int8
 error-feedback gradient compression (``make_compressed_grad_fn``,
@@ -49,9 +53,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, ctx=None,
     metrics)``; metrics are 0-d device tensors ``loss``, ``grad_norm`` and
     ``lr``.  ``params`` (f32 master weights) and the moments are in the
     trainer's layout, each layer stack a list of independent per-layer
-    leaves (``T.unstack_layers``), and are updated in place.  Only the
-    families whose forward has a backward on the card are trained
-    (``T.require_trainable``)."""
+    leaves (``T.unstack_layers``), and are updated in place.  Every
+    ported family is trained (``T.require_trainable``)."""
     if ctx is not None:
         _refuse_mesh("make_train_step(ctx=...)")
     T.require_trainable(cfg)

@@ -397,7 +397,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         linear_scan(scan, scan, torch.zeros(2, 8))
     kernels = (paged_attention, paged_attention_quant, gptq_matmul,
                flash_attention_chunk, flash_attention_chunk_int8,
-               flash_attention, selective_scan, linear_scan)
+               flash_attention, selective_scan, linear_scan,
+               selective_scan.bwd, linear_scan.bwd)
     assert set(ops.KERNELS) == set(kernels)
     assert [k.launches for k in kernels] == [0] * len(kernels)
     with pytest.raises(ValueError, match="device"):

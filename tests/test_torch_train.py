@@ -69,9 +69,17 @@ STEP_UPDATE_REL = 1e-2
 # (arch, config overrides): a window shorter than the sequence bites
 ARCHS = {"qwen2-1.5b": {}, "qwen1.5-0.5b": {},
          "h2o-danube-3-4b": {"sliding_window": 6},
-         "llava-next-mistral-7b": {}, "hubert-xlarge": {}}
+         "llava-next-mistral-7b": {}, "hubert-xlarge": {},
+         "qwen2-moe-a2.7b": {},
+         # 3 layers: two RG-LRU blocks and a sliding-window one (the
+         # reduced default's 2 are both recurrent)
+         "recurrentgemma-2b": {"sliding_window": 6, "num_layers": 3},
+         "falcon-mamba-7b": {}}
 TRAINED = ("qwen2-1.5b", "h2o-danube-3-4b", "llava-next-mistral-7b",
-           "hubert-xlarge")
+           "hubert-xlarge", "qwen2-moe-a2.7b", "recurrentgemma-2b",
+           "falcon-mamba-7b")
+# one model of each family the trainer took on last: MoE, hybrid, Mamba
+NEW_FAMILIES = ("qwen2-moe-a2.7b", "recurrentgemma-2b", "falcon-mamba-7b")
 
 
 def _np(tree):
@@ -105,7 +113,10 @@ def _batch(cfg, B=2, S=12, seed=1):
 
 @pytest.fixture(scope="module")
 def jax_params():
-    """The JAX package's f32 init of each reduced arch, as numpy."""
+    """The JAX package's f32 init of each reduced arch, as numpy, drawn in
+    this process: the reference's hybrid init folds ``hash(name)`` into its
+    keys (ROADMAP C12), so its weights are bridged within the process and
+    never compared with another run's."""
     out = {}
     for arch in ARCHS:
         jcfg, _ = _configs(arch)
@@ -162,7 +173,10 @@ def test_loss_mask_weights_the_mean(jax_params):
 @pytest.mark.parametrize("arch", TRAINED)
 def test_grads_match_jax(jax_params, arch):
     """Every leaf's gradient (the encoder's unused embedding included,
-    zeros in both) within GRAD_REL of the leaf's largest |g|."""
+    zeros in both) within GRAD_REL of the leaf's largest |g|.  The
+    hybrid's: the reference's chunked scan zeroes the RG-LRU's last state
+    at some widths (ROADMAP C14), but only ``h_last``, which no loss
+    reads; the gradients flow through ``hs`` alone."""
     jcfg, cfg = _configs(arch)
     batch = _batch(cfg)
     jg = jax.grad(lambda p: JT.loss_fn(
@@ -293,15 +307,16 @@ def test_flash_attention_fn_backward_is_the_plain_autograd(case,
 
 
 def test_serving_kernels_refuse_autograd(monkeypatch):
-    """On the card every kernel but the static attention raises when
-    autograd would record its call, instead of returning an output
-    without a grad_fn (``_on_cuda`` patched, the kernels replaced by a
-    marker); under no_grad each launches."""
+    """On the card the four serving kernels (paged decode, its int8 twin,
+    the chunk prefill, the int4 matmul) raise when autograd would record
+    their call, instead of returning an output without a grad_fn
+    (``_on_cuda`` patched, the kernels replaced by a marker); under
+    no_grad each launches.  The static attention and the time scans have
+    autograd rules (``tests/test_torch_scan_grad.py``)."""
     launched = []
     marker = lambda *a, **kw: launched.append(1) or a[0]
     for name in ("_paged", "_paged_quant", "flash_attention_chunk",
-                 "flash_attention_chunk_int8", "gptq_matmul",
-                 "_selective_scan", "_linear_scan"):
+                 "flash_attention_chunk_int8", "gptq_matmul"):
         monkeypatch.setattr(ops, name, marker)
     monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
     x = torch.ones(2, 4, requires_grad=True)
@@ -314,9 +329,7 @@ def test_serving_kernels_refuse_autograd(monkeypatch):
             a, z, z, z, z, z, z),
         "flash_attention_chunk": lambda a: ops.chunk_prefill_attention(
             a, z[None], z[None], None, None, 0, z, z, z, z, z),
-        "gptq_matmul": lambda a: ops.quant_matmul(a, int4),
-        "selective_scan": lambda a: ops.selective_scan(a, z, z, z, z, z),
-        "linear_scan": lambda a: ops.linear_scan(a, z, z)}
+        "gptq_matmul": lambda a: ops.quant_matmul(a, int4)}
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=name):
             call(x)
@@ -395,19 +408,58 @@ def test_opt_state_bridge_round_trip(jax_params):
         np.testing.assert_array_equal(g, w)
 
 
+# the leaves that make each new family's tree its own
+FAMILY_LEAVES = {"qwen2-moe-a2.7b": ("layers", "moe", "we_gate"),
+                 "recurrentgemma-2b": ("rec_layers", "rec", "a_param"),
+                 "falcon-mamba-7b": ("layers", "ssm", "A_log")}
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_family_bridge_round_trip(jax_params, arch):
+    """The MoE expert stacks, the hybrid's ``rec_layers`` /
+    ``attn_layers`` and Mamba's ``A_log`` / ``D``: the reference's params
+    and AdamW state (numpy) into the port, in the trainer's per-layer
+    layout, and back, bitwise."""
+    npp = jax_params[arch]
+    a, b, c = FAMILY_LEAVES[arch]
+    assert npp[a][b][c].ndim >= 2
+    if arch == "recurrentgemma-2b":
+        assert "attn_layers" in npp
+    if arch == "falcon-mamba-7b":
+        assert "D" in npp["layers"]["ssm"]
+    pp = _port_params(npp)
+    assert isinstance(pp[a], list)
+    for w, g in zip(jax.tree.leaves(npp),
+                    jax.tree.leaves(params_to_numpy(pp))):
+        np.testing.assert_array_equal(g, w)
+    jst = JA.init_opt_state(jax.tree.map(jnp.asarray, npp), JA.AdamWConfig())
+    jst = JA.OptState(jnp.int32(5), *jax.tree.map(
+        lambda t: t + 0.25, (jst.mu, jst.nu)))
+    st = opt_state_from_numpy(_np(jst), device="cpu")
+    st = A.OptState(st.step, T.unstack_layers(st.mu),
+                    T.unstack_layers(st.nu))
+    back = opt_state_to_numpy(st)
+    assert int(back[0]) == 5
+    for w, g in zip(jax.tree.leaves(_np(jst)), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(g, w)
+
+
 # ------------------------------------------------------------- train step
-@pytest.mark.parametrize("micro", [1, 2])
-def test_train_step_matches_jax(jax_params, micro):
+@pytest.mark.parametrize("arch, micro", [
+    pytest.param("qwen2-1.5b", 1, id="1"),
+    pytest.param("qwen2-1.5b", 2, id="2"),
+    *(pytest.param(a, 1, id=a) for a in NEW_FAMILIES)])
+def test_train_step_matches_jax(jax_params, arch, micro):
     """3 steps of ``make_train_step`` against the reference's
     (``ctx=None``) from the same params, on the same batches: losses
     within LOSS_REL, each leaf's 3-step update within STEP_UPDATE_REL of
-    the reference's in norm."""
-    jcfg, cfg = _configs("qwen2-1.5b")
+    the reference's in norm; one model of each family."""
+    jcfg, cfg = _configs(arch)
     kw = dict(lr=1e-2, warmup_steps=1, total_steps=10)
     rng = np.random.default_rng(1)
     batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, 17))
                 .astype(np.int32)} for _ in range(3)]
-    npp = jax_params["qwen2-1.5b"]
+    npp = jax_params[arch]
     jstep = jax.jit(j_make_train_step(jcfg, JA.AdamWConfig(**kw), None,
                                       None, micro))
     jp = jax.tree.map(jnp.asarray, npp)
