@@ -26,6 +26,11 @@ own limit:
   out of y, or C read from the step before inside a staged tile (a fault
   only a wave can show).  Each names the fused check's cases that must
   fail it (and those that must not);
+- the Mamba-1 backward's checks (phase 14 (f), ``check_scan_backward``:
+  the scan alone's and the fused core's backward against their plain
+  versions, and the recomputed h_t bitwise the forward's).  Each fault is
+  planted in a copy of ``time_scan.cu``: the checkpoint read one tile
+  off, or e_{t+1} where e_t belongs in the gA and gdt terms;
 - the full-depth h2o-danube-3-4b serve (``serve_ring``): every served
   token against teacher forcing, the share equal
   (``TEACHER_AGREEMENT``) and the teacher's largest logit gap to a
@@ -36,6 +41,16 @@ own limit:
 Prints each reading beside its limit and exits 0 only if the sound port
 passes every limit and every planted fault fails at least one.  Details
 go to ``chiprun_out/chip_faults.json``.  Needs one card.
+
+    python3 chip_faults.py --scan-bwd
+
+reads the Mamba-1 backward's sound port and its two faults alone.
+
+    python3 chip_faults.py --scan-bwd-variants [name ...]
+
+times the scan alone's backward as it is and with each ablation of
+SCAN_BWD_VARIANTS (a part of the kernel left out: not a fault, a cost)
+planted the same way, and writes ``chiprun_out/chip_faults_variants.json``.
 """
 from __future__ import annotations
 
@@ -96,6 +111,58 @@ SCAN_FAULTS = (
       "single prompt, B and C scaled",
       "serve wave f32, memory-carrying init"), ("decode",)),
 )
+
+
+# (name, text of time_scan.cu's backward body, its replacement): each must
+# fail ``check_scan_backward``
+SCAN_BWD_FAULTS = (
+    ("checkpoint read one tile off",
+     "const float* ck = p.ck + ((long long)b * ntiles + k) * din * N_STATE",
+     "const float* ck = p.ck + ((long long)b * ntiles + (k > 0 ? k - 1 : k))"
+     " * din * N_STATE"),
+    ("e_{t+1} in the gA and gdt terms",
+     "        const float q = le * hp[tt][j];",
+     "        const float q = lam[j] * decay(f_sc[(tt < TT - 1 ? tt + 1 : tt)"
+     " * CH + c].x, a2[j]) * hp[tt][j];"),
+)
+
+# (not faults) name -> [(text of time_scan.cu's backward body, its
+# replacement)]: what each ablation of ``--scan-bwd-variants`` leaves out
+# of the kernel, to time what that part costs (its gradients are wrong)
+SCAN_BWD_VARIANTS = {
+    # the step back's second exponential (e_t recomputed) replaced by its
+    # argument
+    "no_second_exp": [
+        ("        const float e = decay(sc.x, a2[j]);\n",
+         "        const float e = fmaf(sc.x, a2[j], 1.f);\n")],
+    # the recompute's exponential replaced by dt
+    "no_recompute_exp": [
+        ("        h[j] = fmaf(decay(sc.x, a2[j]), h[j], sc.y * bb[j]);",
+         "        h[j] = fmaf(sc.x, h[j], sc.y * bb[j]);")],
+    # the step back's shuffled sums (sum_n over the lanes, gC / gB over
+    # the warp's channels) replaced by sums in the thread
+    "no_reductions": [
+        ("      float r[2] = {sb, sq};\n      scatter_level<1, 1>(r, lane);\n"
+         "      r[0] += __shfl_xor_sync(0xffffffffu, r[0], 2);\n"
+         "      if (l < 2) f_sq[(tt * CH + c) * 2 + l] = r[0];\n",
+         "      if (l < 2) f_sq[(tt * CH + c) * 2 + l] = sb + sq;\n"),
+        ("      scatter_level<16, 4>(v, lane);\n      scatter_level<8, 2>(v, "
+         "lane);\n      scatter_level<4, 1>(v, lane);\n",
+         "      v[0] = ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + "
+         "(v[6] + v[7]));\n")],
+    # no step back at all
+    "no_step_back": [
+        ("#pragma unroll\n    for (int tt = TT - 1; tt >= 0; --tt) {\n"
+         "      const float4 sc = f_sc[tt * CH + c];   // dt, dt u, gy\n",
+         "#pragma unroll\n    for (int tt = TT - 1; tt >= 0 && k < -5; --tt) "
+         "{\n      const float4 sc = f_sc[tt * CH + c];   // dt, dt u, gy\n")],
+    # no per-tile outputs (gu, gdt)
+    "no_write_out": [("    write_out(k, buf);\n",
+                      "    if (k < -5) write_out(k, buf);\n")],
+    # no gC / gB partials and no arrivals
+    "no_gcb": [("  auto write_bc = [&](int k) {\n",
+                "  auto write_bc = [&](int k) {\n    if (k >= -1) return;\n")],
+}
 
 
 def flash_readings(src=None) -> dict:
@@ -170,26 +237,115 @@ def scan_readings(src=None) -> dict:
     return out
 
 
+def scan_bwd_readings(src=None) -> dict:
+    """Phase 14 (f)'s backward checks for the port under ``src`` (this
+    checkout's when None), at their own limits: {"check_scan_backward":
+    its message if it failed, else None}."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs                   # puts ROOT/src on the path
+    if src is not None:
+        sys.path.insert(0, src)               # the planted copy wins
+    import torch
+    from repro_torch.kernels import build
+    build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    try:
+        cs.check_scan_backward(gen)
+        return {"check_scan_backward": None}
+    except AssertionError as e:
+        return {"check_scan_backward": str(e)}
+
+
+def scan_bwd_timing(src=None) -> dict:
+    """The scan alone's ``selective_scan_bwd`` for the port under ``src``
+    (this checkout's when None) at falcon-mamba's trainer shape from a
+    random state: its time and its outputs' largest error over their RMS
+    against ``ref.selective_scan_bwd_ref``."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs                   # puts ROOT/src on the path
+    if src is not None:
+        sys.path.insert(0, src)               # the planted copy wins
+    import torch
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.time_scan import selective_scan
+    build.build_all()
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    b, S, din, N = cs.SCAN_BWD_SELECTIVE
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device=dev).repeat(din, 1)
+    dt = torch.rand((b, S, din), generator=gen, device=dev) * 0.099 + 0.001
+    u, Bm, Cm = rnd(b, S, din), rnd(b, S, N), rnd(b, S, N)
+    h0, gy, ghl = rnd(b, din, N), rnd(b, S, din), rnd(b, din, N)
+    _, _, ck = selective_scan(dt, u, Bm, Cm, A, h0, checkpoints=True)
+    call = lambda: selective_scan.backward(dt, u, Bm, Cm, A, ck, gy, ghl)
+    got = call()
+    want = ref.selective_scan_bwd_ref(dt, u, Bm, Cm, A, h0, gy, ghl)
+    rel = max(((g - w).abs().max() / w.pow(2).mean().sqrt()).item()
+              for g, w in zip(got, want))
+    return {"ms": cs.time_ms(call, iters=5), "max_rel_err": rel}
+
+
+def scan_bwd_variants(names) -> int:
+    """Time the port as it is ("base") and each of ``names`` (all of
+    SCAN_BWD_VARIANTS when empty) through ``planted_kernel``; one line a
+    variant and ``chiprun_out/chip_faults_variants.json``."""
+    import chip_smoke as cs
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    out = {"card": smi.stdout.strip()}
+    cs.log(f"[variants] card: {out['card']}")
+    for name in ["base", *(names or SCAN_BWD_VARIANTS)]:
+        out[name] = planted_kernel(name, SCAN_BWD_VARIANTS.get(name, ()),
+                                   SCAN_CU, "--scan-bwd-timing")
+        cs.log(f"[variants] {name}: {json.dumps(out[name])}")
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "chip_faults_variants.json").write_text(
+        json.dumps(out, indent=1))
+    return 0
+
+
+def scan_bwd_faults(report: dict, bad: list) -> None:
+    """The sound port passes ``check_scan_backward`` and each of
+    SCAN_BWD_FAULTS fails it."""
+    import chip_smoke as cs
+    bwd = report["selective_scan_bwd"] = {"sound": scan_bwd_readings()}
+    for name, old, new in SCAN_BWD_FAULTS:
+        bwd[name] = planted_kernel(name, [(old, new)], SCAN_CU,
+                                   "--scan-bwd-readings")
+    for name, r in bwd.items():
+        msg = r["check_scan_backward"]
+        cs.log(f"[scan_bwd] {name}: "
+               + ("passes every limit" if msg is None else f"fails: {msg}"))
+        if (name == "sound") != (msg is None):
+            bad.append(f"selective_scan_bwd {name}: "
+                       + (msg or "nothing fails"))
+
+
 def flash_fails(readings: dict, tol: float, rel_tol: float) -> list:
     return [f"{check}: {case}" for check, rows in readings.items()
             for case, err, rel in rows if not (err <= tol and rel <= rel_tol)]
 
 
-def planted_kernel(name: str, old: str, new: str, source: str = FLASH_CU,
+def planted_kernel(name: str, edits, source: str = FLASH_CU,
                    readings: str = "--flash-readings") -> dict:
-    """Build a copy of the port with ``old`` replaced by ``new`` in the
-    kernel ``source`` and read its checks (``readings``) in a process of
-    its own."""
+    """Build a copy of the port with each ``(old, new)`` of ``edits``
+    replaced in the kernel ``source`` and read its checks (``readings``)
+    in a process of its own."""
     with tempfile.TemporaryDirectory() as tmp:
         pkg = Path(tmp) / "src" / "repro_torch"
         shutil.copytree(ROOT / "src" / "repro_torch", pkg,
                         ignore=shutil.ignore_patterns("__pycache__"))
         cu = pkg / source
         text = cu.read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"fault {name!r}: its text occurs "
-                               f"{text.count(old)} times in {source}")
-        cu.write_text(text.replace(old, new))
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f"fault {name!r}: its text occurs "
+                                   f"{text.count(old)} times in {source}")
+            text = text.replace(old, new)
+        cu.write_text(text)
         proc = subprocess.run(
             [sys.executable, __file__, readings, str(pkg.parent)],
             capture_output=True, text=True, timeout=900)
@@ -275,6 +431,12 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--scan-readings":
         print(json.dumps(scan_readings(sys.argv[2])), flush=True)
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--scan-bwd-readings":
+        print(json.dumps(scan_bwd_readings(sys.argv[2])), flush=True)
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--scan-bwd-timing":
+        print(json.dumps(scan_bwd_timing(sys.argv[2])), flush=True)
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_faults: torch.cuda.is_available() is False; this script "
@@ -283,13 +445,19 @@ def main() -> int:
     t0 = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
+    if sys.argv[1:] == ["--scan-bwd"]:
+        report, bad = {}, []
+        scan_bwd_faults(report, bad)
+        return finish(report, bad, t0)
+    if sys.argv[1:2] == ["--scan-bwd-variants"]:
+        return scan_bwd_variants(sys.argv[2:])
     tol, rel_tol = cs.TOL, cs.FLASH_REL_TOL
     report, bad = {"limits": {"TOL": tol, "FLASH_REL_TOL": rel_tol,
                               "TEACHER_AGREEMENT": cs.TEACHER_AGREEMENT,
                               "TEACHER_GAP": cs.TEACHER_GAP}}, []
     flash = report["flash_attention"] = {"sound": flash_readings()}
     for name, old, new in KERNEL_FAULTS:
-        flash[name] = planted_kernel(name, old, new)
+        flash[name] = planted_kernel(name, [(old, new)])
     cs.TOL, cs.FLASH_REL_TOL = tol, rel_tol
     for name, readings in flash.items():
         fails = flash_fails(readings, tol, rel_tol)
@@ -303,7 +471,7 @@ def main() -> int:
             bad.append(f"{name}: {fails if fails else 'nothing fails'}")
     gptq = report["gptq_matmul"] = {"sound": gptq_readings()}
     for name, old, new in GPTQ_FAULTS:
-        gptq[name] = planted_kernel(name, old, new, GPTQ_CU,
+        gptq[name] = planted_kernel(name, [(old, new)], GPTQ_CU,
                                     "--gptq-readings")
     for name, r in gptq.items():
         cs.log(f"[gptq] {name}: "
@@ -315,7 +483,7 @@ def main() -> int:
     scan = report["selective_scan"] = {"sound": scan_readings()}
     cases = {"sound": ((), ())}
     for name, old, new, must_fail, must_pass in SCAN_FAULTS:
-        scan[name] = planted_kernel(name, old, new, SCAN_CU,
+        scan[name] = planted_kernel(name, [(old, new)], SCAN_CU,
                                     "--scan-readings")
         cases[name] = (must_fail, must_pass)
     for name, r in scan.items():
@@ -333,6 +501,7 @@ def main() -> int:
         elif missed or wrong:
             bad.append(f"selective_scan {name}: fused cases that pass "
                        f"{missed}, that fail {wrong}")
+    scan_bwd_faults(report, bad)
     ring = report["serve"] = serve_readings()
     for name, tf in ring.items():
         ok = cs.teacher_ok(tf)
@@ -343,6 +512,11 @@ def main() -> int:
                f"{tf['mean_gap']:.5f}: {'passes' if ok else 'fails'}")
         if (name == "sound") != ok:
             bad.append(f"{name}: {'fails' if name == 'sound' else 'passes'}")
+    return finish(report, bad, t0)
+
+
+def finish(report: dict, bad: list, t0: float) -> int:
+    import chip_smoke as cs
     report["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

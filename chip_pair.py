@@ -6,6 +6,7 @@
     python3 chip_pair.py --b5 build/other           # the static kernel only
     python3 chip_pair.py --b3 build/other           # the int4 matmul only
     python3 chip_pair.py --scan build/other         # the Mamba-1 scan only
+    python3 chip_pair.py --scan-bwd build/other     # the Mamba-1 backward
 
 Each side runs in a process of its own, in the order other, this, this,
 other: the kernel checks of ``chip_smoke.py`` (paged decode and chunk
@@ -21,7 +22,13 @@ llava-next-mistral-7b, hubert-xlarge, command-r-plus-104b); with
 projections, then the scan with its softplus, D skip and gate, fused or
 not as the side has it) at the serve's wave and a decode step, and the
 selective scan's own cases (``check_selective_scan``: f32 in and out, the
-serve's wave, a ragged wave, decode). Both sides are
+serve's wave, a ragged wave, decode); with ``--scan-bwd``, the trainer's
+Mamba path at [8, 512]: the scan alone's backward (``SelectiveScanFn``
+under autograd, its backward alone timed), falcon-mamba's mixer core
+(``ops.ssm_scan`` under autograd in bf16 on falcon-mamba's init: its
+forward, and its forward and backward; fused or composed as the side has
+it) and a 32-layer falcon-mamba train step (``train_family_depth``: step
+ms, peak GB, the profiled step's split). Both sides are
 built from their own sources but measured by THIS checkout's
 ``chip_smoke`` functions, so a difference is the code's, not the method's.
 Prints one line per side and serve, then each static-attention case's time
@@ -31,7 +38,8 @@ dense bf16 matmul; with ``--scan`` each case's); each side's details go to
 ``chiprun_out/chip_pair_<turn>_<side>.json``, the static attention's table
 to ``chiprun_out/chip_pair_b5.json``, the int4 matmul's to
 ``chiprun_out/chip_pair_b3.json``, the scan's to
-``chiprun_out/chip_pair_scan.json``. Needs one card.
+``chiprun_out/chip_pair_scan.json``, the backward's to
+``chiprun_out/chip_pair_scan_bwd.json``. Needs one card.
 """
 from __future__ import annotations
 
@@ -105,6 +113,80 @@ def scan_checks(cs) -> tuple:
     return inner, scan
 
 
+def scan_bwd_checks(cs) -> tuple:
+    """The trainer's Mamba path at [8, 512] as the side runs it: the scan
+    alone's backward kernel through its autograd rule, the mixer core's
+    forward and forward plus backward under autograd, and a 32-layer
+    falcon-mamba train step."""
+    def timed_grad(outs, ins, cots):
+        import torch
+        return cs.time_ms(lambda: torch.autograd.grad(
+            outs, ins, cots, retain_graph=True), iters=5)
+
+    def scan(gen):
+        import torch
+        from repro_torch.kernels import ops
+        b, S, din, N = cs.SCAN_BWD_SELECTIVE
+        rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+        A = -torch.arange(1, N + 1, dtype=torch.float32,
+                          device="cuda").repeat(din, 1)
+        dt = torch.rand((b, S, din), generator=gen, device="cuda") * 0.099 \
+            + 0.001
+        ins = [t.requires_grad_(True) for t in
+               (dt, rnd(b, S, din), rnd(b, S, N), rnd(b, S, N), A,
+                rnd(b, din, N))]
+        outs = ops.selective_scan(*ins)
+        ms = timed_grad(outs, ins, (rnd(b, S, din), rnd(b, din, N)))
+        return {"name": "selective_scan_bwd", "ms": ms, "plain_ms": None,
+                "library_ms": None, "per_case": [
+                    {"case": f"SelectiveScanFn backward [{b},{S}] din "
+                             f"{din} N {N}", "ms": ms}]}
+
+    def core(gen):
+        import torch
+        from repro_torch.configs.registry import get_config
+        from repro_torch.kernels import ops
+        from repro_torch.models import ssm
+        cfg = get_config(cs.MAMBA)
+        b, S, din, N = cs.SCAN_BWD_SELECTIVE
+        p = ssm.ssm_init(gen, cfg, device="cuda")
+        args = [t.detach().requires_grad_(True) for t in
+                cs.mamba_core_inputs(cfg, p, gen, b, S, None, "bfloat16",
+                                     False)[:9]]
+        g_out = torch.randn((b, S, din), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+        fwd = cs.time_ms(lambda: ops.ssm_scan(*args), iters=5)
+
+        def both():
+            y, _ = ops.ssm_scan(*args)
+            torch.autograd.grad(y, args, g_out)
+        rows = [{"case": f"core forward [{b},{S}] bf16", "ms": fwd},
+                {"case": f"core forward + backward [{b},{S}] bf16",
+                 "ms": cs.time_ms(both, iters=5)}]
+        return {"name": "ssm_core", "ms": rows[1]["ms"], "plain_ms": None,
+                "library_ms": None, "per_case": rows}
+
+    def step(gen):
+        import torch
+        from repro_torch.kernels import ops
+        torch.cuda.empty_cache()
+        run = cs.train_family_depth(cs.MAMBA, ops.KERNELS)
+        prof = run["profile"]
+        keep = ("device_ms", "device_busy_ms", "wall_ms", "adamw_ms",
+                "ssm_core_forward_ms", "device_idle_share")
+        return {"name": "train_mamba", "ms": run["step_ms"],
+                "plain_ms": None, "library_ms": None,
+                "step": {"step_ms": run["step_ms"],
+                         "peak_gb": run["peak_gb"],
+                         "launches": run["launches"],
+                         "profile": {k: prof.get(k) for k in keep}},
+                "per_case": [{"case": f"falcon-mamba-7b "
+                              f"{cs.TRAIN_FAMILY_DEPTH[cs.MAMBA]} layers, "
+                              f"[{cs.TRAIN_BATCH},{cs.TRAIN_SEQ}] step",
+                              "ms": run["step_ms"]}]}
+    return scan, core, step
+
+
 def side(src: str, only: str = "") -> dict:
     """This process's measurements of the port under ``src`` (``only``
     "--b5" or "--b3": that kernel's checks alone)."""
@@ -124,13 +206,16 @@ def side(src: str, only: str = "") -> dict:
               cs.check_flash_attention_chunk,
               cs.check_flash_attention_chunk_int8, cs.check_gptq_matmul)
     checks = {"--b5": b5, "--b3": b3_checks(cs),
-              "--scan": scan_checks(cs)}.get(only, b5 + others)
+              "--scan": scan_checks(cs),
+              "--scan-bwd": scan_bwd_checks(cs)}.get(only, b5 + others)
     for check in checks:
         r = check(gen)
         key = r.get("label", r["name"])
         out[key] = r.get("per_case") or r["per_shape"]
         out[key + ":main"] = {"ms": r["ms"], "plain_ms": r["plain_ms"],
                               "library_ms": r["library_ms"]}
+        if "step" in r:
+            out[key + ":step"] = r["step"]
         torch.cuda.empty_cache()
     if only:
         return out
@@ -195,7 +280,8 @@ def main() -> int:
         return 0
     import torch
     args = sys.argv[1:]
-    only = args[0] if args[:1] in (["--b5"], ["--b3"], ["--scan"]) else ""
+    only = args[0] if args[:1] in (["--b5"], ["--b3"], ["--scan"],
+                                   ["--scan-bwd"]) else ""
     b5_only = only != ""
     args = args[1:] if only else args
     if len(args) != 1 or not torch.cuda.is_available():
@@ -228,6 +314,18 @@ def main() -> int:
                   f"bound_ms={bound:.4f} library_ms="
                   + ("null" if lib is None else f"{lib:.4f}")
                   + f" dense_bf16_ms={dense:.4f}", flush=True)
+        return 0
+    if only == "--scan-bwd":
+        table = b5_table(runs, ("selective_scan_bwd", "ssm_core",
+                                "train_mamba"))
+        steps = [(tag, r["train_mamba:step"]) for tag, r in runs]
+        (out / "chip_pair_scan_bwd.json").write_text(json.dumps(
+            {"card": card, "cases": table, "steps": steps}, indent=1))
+        for key, case, other, this, ratio in table:
+            print(f"[pair] {key} {case}: other_ms={other:.4f} this_ms="
+                  f"{this:.4f} other/this={ratio:.3f}", flush=True)
+        for tag, st in steps:
+            print(f"[pair] {tag} train step: {json.dumps(st)}", flush=True)
         return 0
     if only == "--scan":
         table = b5_table(runs, ("selective_scan", "ssm_inner"))

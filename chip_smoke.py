@@ -194,7 +194,7 @@ Phases, each of which fails loudly (any failure exits non-zero):
              / CHUNK_CASES, the static kernel at the vision wave's shape
              [4, 3080] causal, ``gptq_matmul`` at its linears (K 14,336
              for w_down) at decode and at the wave's 12,320 rows; the
-             full-width model cut to 2 layers card vs CPU with the prefix
+             full-width model cut to 1 layer card vs CPU with the prefix
              in f32 (dense) and bf16 (rtn-int4): ``T.prefill`` (seq_lens
              prefix + text) and 3 decode steps, greedy agreement, and
              other patch embeddings moving the logits (the control); then
@@ -271,7 +271,15 @@ Phases, each of which fails loudly (any failure exits non-zero):
              ``Supervisor``: a failure injected before step 3, restored
              from step 2, held to the uninterrupted run's losses; (e)
              every serving-only kernel raises under autograd instead of
-             returning an output without a gradient.
+             returning an output without a gradient; (f) the MoE, hybrid
+             and Mamba families: the time scans' backward kernels
+             (``linear_scan_bwd``; ``selective_scan_bwd``, the scan alone
+             from the forward's checkpoints and the fused core's, bf16 and
+             f32, its recomputed states bitwise the forward's) against
+             their plain versions, each family cut to 2 or 3 layers card
+             vs CPU with a control, and each at depth through
+             ``launch.train.main`` (falcon-mamba's with the plain core
+             composition refused on the card).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -3922,13 +3930,15 @@ VISION_ROWS = len(VISION_TEXT) * (2880 + max(VISION_TEXT))     # 12,320
 # every int4 linear at decode (8 rows) and at the vision wave's rows
 LLAVA_GPTQ_SHAPES = [(lname, K, N, GS, (8, VISION_ROWS))
                      for lname, (K, N) in LLAVA_LINEARS.items()]
-# the 2-layer full-width model, card vs CPU: requests of 20 and 200 text
-# tokens behind the prefix, then 3 teacher-forced decode steps; f32 with
-# dense weights on both requests, then bf16 with rtn-int4 weights (the
-# served form) on the 200-token one alone (the CPU's bf16 products and
-# its per-call int4 dequantization took 88 s for the pair on the card's
-# host, 2.1x f32's 29 s)
-VLM_MODEL = {"layers": 2, "text": (20, 200), "steps": 3,
+# the full-width model cut to 1 layer (at 2 its CPU side took ~90 s of
+# the script's 1,200 s limit on the card's host: ROADMAP C16;
+# multi-layer pool indexing is held by qwen2-1.5b's 2-layer phase_model),
+# card vs CPU: requests of 20 and 200 text tokens behind the prefix, then
+# 3 teacher-forced decode steps; f32 with dense weights on both requests,
+# then bf16 with rtn-int4 weights (the served form) on the 200-token one
+# alone (the CPU's bf16 products and its per-call int4 dequantization
+# took 88 s for the pair at 2 layers on the card's host, 2.1x f32's 29 s)
+VLM_MODEL = {"layers": 1, "text": (20, 200), "steps": 3,
              "rows": {"float32": (0, 1), "bfloat16": (1,)}}
 VLM_TOL = {"float32": MOE_LOGIT_TOL, "bfloat16": LOGIT_TOL}
 # greedy tokens of the card against the CPU's (the logits within the
@@ -4100,7 +4110,7 @@ def _rope_on(ref_dev: str, call):
 
 def phase_vlm_model(dev: str = "cuda", ref_dev: str = "cpu",
                     reduced: bool = False) -> dict:
-    """llava-next-mistral-7b at full width cut to VLM_MODEL's 2 layers, in
+    """llava-next-mistral-7b at full width cut to VLM_MODEL's 1 layer, in
     f32 with dense weights and in bf16 with rtn-int4 weights: the same
     params, 2,880 patch embeddings, tables and tokens through ``T.prefill``
     (the prefix counts as context: ``seq_lens`` must read prefix + text)
@@ -5713,7 +5723,8 @@ def check_no_hidden_grad(kernels) -> dict:
 # the backward kernels' checks at the trainer's shapes [8, 512]: the
 # RG-LRU's width 2560 and falcon-mamba's din 8192 with a state of 16, from
 # a random state with a random h_last gradient; the selective scan also at
-# a ragged S that is not a multiple of the kernel's checkpoint chunk
+# a ragged S that is not a multiple of the forward's 16-step tiles (the
+# backward's checkpoints)
 SCAN_BWD_LINEAR = (TRAIN_BATCH, TRAIN_SEQ, 2560)
 SCAN_BWD_SELECTIVE = (TRAIN_BATCH, TRAIN_SEQ, 8192, 16)
 SCAN_BWD_RAGGED_S = 333
@@ -5723,6 +5734,30 @@ SCAN_BWD_RAGGED_S = 333
 # the selective scan's worst output, gA, 1.37e-5 at [8, 512], 7.97e-6 at
 # S 333; the linear scan bitwise its plain version)
 SCAN_BWD_REL_TOL = 1e-4
+# the fused mixer core's backward (``SsmScanFn``: the softplus', D skip's
+# and gate's derivatives in the kernel, in f32 registers) in bf16 against
+# its plain version ``ssm_scan_bwd_ref`` (the same f32 chain, its outputs
+# rounded to bf16 once): each output's largest error over its own RMS.
+# On the H100 (700 W) the kernel read 0.051 (served init) and 0.035
+# (memory-carrying init), both at g_dt_lin, whose largest value is ~47x /
+# ~100x its RMS; the shifted-cotangent control reads >= 1.  The limit sits
+# 3x above the sound readings and well below the control.  The plain
+# autograd of the composition in bf16 (every intermediate gradient
+# rounded to bf16, the trainer's path before ``SsmScanFn``) is recorded
+# beside it as a second witness, ungated (PERF.md)
+FUSED_BWD_BF16_TOL = 0.15
+# its cases: (label, activations, S, falcon-mamba's own init or
+# MAMBA_MEMORY's, from a random state), each held to ``ssm_scan_bwd_ref``
+# over each output's RMS: f32 at SCAN_BWD_REL_TOL, bf16 at
+# FUSED_BWD_BF16_TOL; the first is the kernels line's
+SCAN_BWD_FUSED_CASES = (
+    ("bf16, served init, random state", "bfloat16", TRAIN_SEQ, "served",
+     True),
+    ("f32, served init, random state", "float32", TRAIN_SEQ, "served", True),
+    ("f32, memory-carrying init", "float32", SCAN_BWD_RAGGED_S, "memory",
+     False),
+    ("bf16, memory-carrying init", "bfloat16", SCAN_BWD_RAGGED_S, "memory",
+     False))
 # each family card vs CPU at full width (TRAIN_LOSS_REL, TRAIN_GRAD_RMS):
 # (layers, activations); 3 recurrentgemma layers run both RG-LRU blocks
 # and the sliding-window one; the MoE in f32, as phase 6 (bf16 rounding
@@ -5737,68 +5772,154 @@ TRAIN_FAMILY_DEPTH = {MOE: 4, RGEMMA: 26, MAMBA: 32}
 TRAIN_FAMILY_STEPS = 4           # the first builds plans; the last profiled
 
 
-def _scan_bwd_case(name, label, kernel, plain, args, control_args, nbytes,
-                   exps, rows):
-    """One backward case: the kernel against its plain version on the same
-    inputs, each output's largest error within SCAN_BWD_REL_TOL of its RMS,
-    two calls bitwise equal; the control (the plain version on a cotangent
-    shifted by one step) must miss the limit; timed beside the plain
-    version and the bound (bytes, or the MUFU's exponentials)."""
+def _scan_bwd_case(name, label, kernel, plain, control, nbytes, exps, rows,
+                   tol=SCAN_BWD_REL_TOL, exps_two=None, of="rms"):
+    """One backward case: ``kernel()`` against ``plain()`` (each a tuple of
+    outputs), each output's largest error within ``tol`` of its RMS (``of``
+    "max": of its largest |value|; both recorded), two calls bitwise
+    equal; ``control()`` (the plain version on a cotangent shifted by one
+    step) must miss the limit; timed beside the plain version and the
+    bound: bytes, or one exponential a state element on the MUFU
+    (``exps``; ``exps_two``: the count of a design that takes two
+    exponentials a state element, beside it)."""
     import torch
-    got = kernel(*args)
-    again = kernel(*args)
-    want = plain(*args)
+
+    def scale(w):
+        w = w.double()
+        return (w.abs().max() if of == "max" else w.pow(2).mean().sqrt()
+                ).item()
+
+    got = kernel()
+    again = kernel()
+    want = plain()
     torch.cuda.synchronize()
-    rel, worst = {}, 0.0
+    rel, rel_rms, worst = {}, {}, 0.0
     for i, (g, a, w) in enumerate(zip(got, again, want)):
         if not torch.equal(g, a):
             raise AssertionError(f"{name} {label}: two calls differ (output "
                                  f"{i})")
-        rms = w.double().pow(2).mean().sqrt().item()
-        err = (g - w).abs().max().item()
+        err = (g.double() - w.double()).abs().max().item()
         worst = max(worst, err)
-        rel[i] = err / rms if rms else float("inf")
-        if not (bool(torch.isfinite(g).all())
-                and rel[i] <= SCAN_BWD_REL_TOL):
+        sc, rms = scale(w), w.double().pow(2).mean().sqrt().item()
+        rel[i] = err / sc if sc else float("inf")
+        rel_rms[i] = err / rms if rms else float("inf")
+        if not (bool(torch.isfinite(g).all()) and rel[i] <= tol):
             raise AssertionError(f"{name} {label}: output {i} max err "
-                                 f"{rel[i]:.3e} of its RMS (limit "
-                                 f"{SCAN_BWD_REL_TOL})")
-    ctrl = plain(*control_args)
-    ctrl_rel = max((c - w).abs().max().item()
-                   / w.double().pow(2).mean().sqrt().item()
+                                 f"{rel[i]:.3e} of its {of} (limit {tol})")
+    ctrl = control()
+    ctrl_rel = max((c.double() - w.double()).abs().max().item() / scale(w)
                    for c, w in zip(ctrl, want) if w.abs().max().item() > 0)
-    if ctrl_rel <= SCAN_BWD_REL_TOL:
+    if ctrl_rel <= tol:
         raise AssertionError(f"{name} {label}: the control (cotangent "
                              f"shifted a step) is within the limit: "
                              f"{ctrl_rel:.3e}")
     del got, again, want, ctrl
+    clock = 16 * 132 * sm_clock_hz()
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_e = exps / (16 * 132 * sm_clock_hz()) * 1e3
+    t_e = exps / clock * 1e3
     row = {"case": label, "max_abs_err": worst, "rel_err": rel,
-           "max_rel_err": max(rel.values()),
+           "max_rel_err": max(rel.values()), "limit": tol, "of": of,
+           "rel_err_of_rms": rel_rms,
            "control_rel_err": ctrl_rel, "bitwise_repeat": True,
-           "ms": time_ms(lambda: kernel(*args), iters=5),
-           "plain_ms": time_ms(lambda: plain(*args), iters=1),
+           "ms": time_ms(kernel, iters=5),
+           "plain_ms": time_ms(plain, iters=1),
            "bound": (t_b, "bytes") if t_b >= t_e else (t_e, "operations"),
            "bound_bytes_ms": t_b, "bound_mufu_ms": t_e}
+    if exps_two is not None:
+        row["bound_mufu_two_exp_ms"] = exps_two / clock * 1e3
     log(f"[train] {name} {label}: kernel_ms={row['ms']:.4f} plain_ms="
         f"{row['plain_ms']:.2f} bound_ms={row['bound'][0]:.5f} "
-        f"({row['bound'][1]}; bytes {t_b:.5f}, MUFU {t_e:.5f}) max err over "
-        f"RMS {row['max_rel_err']:.2e} by output {json.dumps(rel)}; control "
-        f"{ctrl_rel:.2e} (limit {SCAN_BWD_REL_TOL})")
+        f"({row['bound'][1]}; bytes {t_b:.5f}, MUFU {t_e:.5f}"
+        + (f", two exponentials {row['bound_mufu_two_exp_ms']:.5f}"
+           if exps_two is not None else "")
+        + f") max err over {of} {row['max_rel_err']:.2e} by output "
+        f"{json.dumps(rel)} (over RMS {json.dumps(rel_rms)}); control "
+        f"{ctrl_rel:.2e} (limit {tol})")
     rows.append(row)
     return row
 
 
-def check_scan_backward(gen) -> list:
-    """Phase 14 (f) (1): ``linear_scan_bwd`` at recurrentgemma's [8, 512] x
-    2560 and ``selective_scan_bwd`` at falcon-mamba's [8, 512] x 8192 x 16
-    and at a ragged S, from random states with random gradients of every
-    output, against ``ref.linear_scan_bwd_ref`` / ``selective_scan_bwd_ref``
-    (see ``_scan_bwd_case``).  Returns the two kernel records."""
+def _recompute_bitwise(name, label, backward, ck, h_last) -> None:
+    """The backward's recomputed state at the end of every tile (its
+    ``h_end``) equals the forward's bit for bit: the next tile's
+    checkpoint, and h_last at the last."""
+    import torch
+    h_end = torch.empty_like(ck)
+    backward(h_end)
+    torch.cuda.synchronize()
+    if not (torch.equal(h_end[:, :-1], ck[:, 1:])
+            and torch.equal(h_end[:, -1], h_last)):
+        bad = int((h_end[:, :-1] != ck[:, 1:]).sum()) + int(
+            (h_end[:, -1] != h_last).sum())
+        raise AssertionError(f"{name} {label}: the recomputed h_t differs "
+                             f"from the forward's in {bad} values")
+    log(f"[train] {name} {label}: the recomputed h_t at every tile's end "
+        f"equals the forward's bitwise ({ck.shape[1]} tiles)")
+
+
+class _NoPlainCore:
+    """While in use, ``ref.ssm_scan_ref`` (the Mamba core's plain torch
+    composition) raises on a CUDA tensor: under autograd on the card the
+    core must run through ``SsmScanFn``'s kernels alone."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        self.real = real = ref.ssm_scan_ref
+
+        def guarded(*a, **kw):
+            if a[2].is_cuda:
+                raise AssertionError("ssm_scan_ref ran on the card: the "
+                                     "Mamba core fell back to the plain "
+                                     "composition")
+            return real(*a, **kw)
+
+        ref.ssm_scan_ref = guarded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+        ref.ssm_scan_ref = self.real
+
+
+def composed_ssm_scan(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0):
+    """The Mamba-1 mixer core under autograd as the trainer ran it before
+    ``SsmScanFn``: the plain version's torch composition around
+    ``SelectiveScanFn`` (the scan alone's forward and backward kernels)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.time_scan import SelectiveScanFn
+    return ref.ssm_scan_ref(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0,
+                            scan=SelectiveScanFn.apply)
+
+
+def _plain_core_grads(args, g_out, g_hlast):
+    """Autograd of ``ref.ssm_scan_ref`` (the plain composition and scan)
+    for every input of the core, on ``args``' device."""
     import torch
     from repro_torch.kernels import ref
+    ins = [a.detach().requires_grad_(True) for a in args]
+    with torch.enable_grad():
+        y, h = ref.ssm_scan_ref(*ins)
+        return torch.autograd.grad((y, h), ins, (g_out, g_hlast))
+
+
+def check_scan_backward(gen) -> list:
+    """Phase 14 (f) (1): ``linear_scan_bwd`` at recurrentgemma's [8, 512] x
+    2560, the scan alone's ``selective_scan_bwd`` at falcon-mamba's [8,
+    512] x 8192 x 16 and at a ragged S (from the forward's checkpoints),
+    from random states with random gradients of every output, against
+    ``ref.linear_scan_bwd_ref`` / ``selective_scan_bwd_ref``; then the
+    fused core's backward in SCAN_BWD_FUSED_CASES on inputs made by the
+    model's own projections (``mamba_core_inputs``) against
+    ``ref.ssm_scan_bwd_ref`` (the plain autograd recorded beside the bf16
+    cases); in every
+    selective case the recomputed h_t bitwise the forward's
+    (``_recompute_bitwise``).  See ``_scan_bwd_case``.  Returns the three
+    kernel records."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.time_scan import linear_scan, selective_scan
+    from repro_torch.models import ssm
     dev = "cuda"
     rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
     out = []
@@ -5808,14 +5929,21 @@ def check_scan_backward(gen) -> list:
     hs, _ = linear_scan(a, g, h0)
     ghs, ghl = rnd(b, S, w), rnd(b, w)
     from repro_torch.kernels import build
-    ptxas = {fn: ptxas_usage(build.LOGS.get("time_scan", ""), fn)
-             for fn in ("linear_scan_bwd_kernel", "selective_scan_bwd_kernel")}
+    log_ = build.LOGS.get("time_scan", "")
+    ptxas = {fn: ptxas_usage(log_, key) for fn, key in (
+        ("linear_scan_bwd_kernel", "linear_scan_bwd_kernel"),
+        ("selective_scan_bwd_kernel<f32>", "selective_scan_bwd_kernelIfLb0"),
+        ("selective_scan_bwd_kernel<f32, fused>",
+         "selective_scan_bwd_kernelIfLb1"),
+        ("selective_scan_bwd_kernel<bf16, fused>",
+         "selective_scan_bwd_kernelI13__nv_bfloat16Lb1"))}
     log(f"[build] ptxas, the backward scans: {json.dumps(ptxas)}")
     rows = []
     _scan_bwd_case("linear_scan_bwd", f"rgemma train [{b},{S}] w {w}",
-                   linear_scan.backward, ref.linear_scan_bwd_ref,
-                   (a, hs, h0, ghs, ghl),
-                   (a, hs, h0, torch.roll(ghs, 1, 1), ghl),
+                   lambda: linear_scan.backward(a, hs, h0, ghs, ghl),
+                   lambda: ref.linear_scan_bwd_ref(a, hs, h0, ghs, ghl),
+                   lambda: ref.linear_scan_bwd_ref(
+                       a, hs, h0, torch.roll(ghs, 1, 1), ghl),
                    4 * (5 * b * S * w + 3 * b * w), 0, rows)
     r = rows[0]
     out.append({"name": "linear_scan_bwd", "route": "cuda",
@@ -5839,15 +5967,22 @@ def check_scan_backward(gen) -> list:
         dt = torch.rand((b, s, din), generator=gen, device=dev) * 0.099 + 0.001
         u, Bm, Cm = rnd(b, s, din), rnd(b, s, N), rnd(b, s, N)
         h0, gy, ghl = rnd(b, din, N), rnd(b, s, din), rnd(b, din, N)
+        _, h_last, ck = selective_scan(dt, u, Bm, Cm, A, h0, checkpoints=True)
+        label = f"mamba train [{b},{s}] din {din} N {N} from a random state"
         elems = b * s * din * N
         _scan_bwd_case(
-            "selective_scan_bwd", f"mamba train [{b},{s}] din {din} N {N} "
-            "from a random state", selective_scan.backward,
-            ref.selective_scan_bwd_ref, (dt, u, Bm, Cm, A, h0, gy, ghl),
-            (dt, u, Bm, Cm, A, h0, torch.roll(gy, 1, 1), ghl),
+            "selective_scan_bwd", label,
+            lambda: selective_scan.backward(dt, u, Bm, Cm, A, ck, gy, ghl),
+            lambda: ref.selective_scan_bwd_ref(dt, u, Bm, Cm, A, h0, gy, ghl),
+            lambda: ref.selective_scan_bwd_ref(dt, u, Bm, Cm, A, h0,
+                                               torch.roll(gy, 1, 1), ghl),
             4 * (5 * b * s * din + 4 * b * s * N + 2 * din * N
-                 + 3 * b * din * N), 2 * elems, rows)
-        del dt, u, Bm, Cm, h0, gy, ghl
+                 + 3 * b * din * N), elems, rows, exps_two=2 * elems)
+        _recompute_bitwise("selective_scan_bwd", label, lambda he:
+                           selective_scan.backward(dt, u, Bm, Cm, A, ck, gy,
+                                                   ghl, h_end=he),
+                           ck, h_last)
+        del dt, u, Bm, Cm, h0, gy, ghl, ck, h_last
         torch.cuda.empty_cache()
     r = rows[0]
     out.append({"name": "selective_scan_bwd", "route": "cuda",
@@ -5862,9 +5997,95 @@ def check_scan_backward(gen) -> list:
                     f"train-{m}" for m in TRAIN_FAMILY_DEPTH),
                 "shape": r["case"] + " (max_rel_err: the largest error over "
                 "its output's RMS; also at S " + str(SCAN_BWD_RAGGED_S)
-                + "; bound: the bytes, or the checkpoint pass's and the "
-                "recompute's exponentials on the MUFU); no single torch "
-                "call computes it", "ptxas": ptxas, "cases": rows})
+                + "; bound: the bytes, or one exponential a state element "
+                "on the MUFU); no single torch call computes it; the "
+                "trainer runs the fused entry, counted on its own",
+                "ptxas": ptxas, "cases": rows})
+
+    # the fused core's backward
+    cfg = get_config(MAMBA)
+    rows = []
+    for label, act, s, init, random_state in SCAN_BWD_FUSED_CASES:
+        p = ssm.ssm_init(gen, cfg, device=dev)
+        if init == "memory":
+            p["dt_bias"].fill_(MAMBA_MEMORY["dt_bias"])
+            p["A_log"].fill_(math.log(-MAMBA_MEMORY["A"]))
+        args = mamba_core_inputs(cfg, p, gen, b, s, None, act,
+                                 random_state)[:9]
+        del p
+        dt_lin, dt_bias, xc, Bm, Cm, z, A_log, D, h0 = args
+        g_out = rnd(b, s, din).to(xc.dtype)
+        ghl = rnd(b, din, N)
+        _, h_last, ck = selective_scan.fused(*args, checkpoints=True)
+        core = (dt_lin, dt_bias, xc, Bm, Cm, z, A_log, D)
+        label = f"mamba core [{b},{s}] din {din} N {N}, {label}"
+        kernel = lambda: selective_scan.fused_backward(*core, ck, g_out, ghl)
+        elems = b * s * din * N
+        esize = xc.element_size()
+        row = _scan_bwd_case(
+            "selective_scan_bwd[fused]", label, kernel,
+            lambda: ref.ssm_scan_bwd_ref(*args, g_out, ghl),
+            lambda: ref.ssm_scan_bwd_ref(*args, torch.roll(g_out, 1, 1),
+                                         ghl),
+            esize * (7 * b * s * din + 4 * b * s * N)
+            + 4 * (2 * din * N + 4 * din + 3 * b * din * N), elems, rows,
+            tol=SCAN_BWD_REL_TOL if act == "float32" else FUSED_BWD_BF16_TOL)
+        if not rows[:-1]:
+            # the trainer's core under autograd, forward and backward: the
+            # fused rule against the composition it replaced
+            ins = [t.detach().requires_grad_(True) for t in args]
+
+            def fwd_bwd(fn):
+                y, _ = fn(*ins)
+                torch.autograd.grad(y, ins, g_out)
+
+            row["core_fwd_bwd_ms"] = time_ms(
+                lambda: fwd_bwd(ops.ssm_scan), iters=3)
+            row["composed_fwd_bwd_ms"] = time_ms(
+                lambda: fwd_bwd(composed_ssm_scan), iters=3)
+            log(f"[train] mamba core {label}: forward + backward under "
+                f"autograd {row['core_fwd_bwd_ms']:.4f} ms (SsmScanFn), "
+                f"{row['composed_fwd_bwd_ms']:.4f} ms (the composition "
+                f"around SelectiveScanFn, the path before SsmScanFn)")
+            del ins
+        if act == "bfloat16":
+            # the second witness (recorded, not gated): the plain autograd
+            # of the composition in bf16, each output's largest error over
+            # its RMS and over its largest |value|
+            got = kernel()
+            want = _plain_core_grads(args, g_out, ghl)
+            witness = row["autograd_witness"] = {"of_rms": {}, "of_max": {}}
+            for i, (x, y) in enumerate(zip(got, want)):
+                err = (x.double() - y.double()).abs().max().item()
+                y = y.double()
+                witness["of_rms"][i] = err / y.pow(2).mean().sqrt().item()
+                witness["of_max"][i] = err / y.abs().max().item()
+            log(f"[train] selective_scan_bwd[fused] {label}: against the "
+                f"plain autograd in bf16 (recorded) {json.dumps(witness)}")
+            del got, want
+        _recompute_bitwise("selective_scan_bwd[fused]", label, lambda he:
+                           selective_scan.fused_backward(*core, ck, g_out,
+                                                         ghl, h_end=he),
+                           ck, h_last)
+        del args, core, dt_lin, dt_bias, xc, Bm, Cm, z, A_log, D, h0, g_out
+        del ghl, ck, h_last
+        torch.cuda.empty_cache()
+    r = rows[0]
+    out.append({"name": "selective_scan_bwd[fused]", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/time_scan.cu",
+                "replaces": "src/repro/models/ssm.py:71 (XLA's derivative "
+                            "of _ssm_inner after its projections: the "
+                            "lax.scan step at :99 and its softplus, D skip "
+                            "and gate; not a Pallas site)",
+                "max_abs_err": max(x["max_abs_err"] for x in rows),
+                "max_rel_err": max(x["max_rel_err"] for x in rows),
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound": r["bound"],
+                "library_ms": None, "serves": (f"train-{MAMBA}",),
+                "shape": r["case"] + " (max_rel_err: the largest error over "
+                "its output's RMS against ssm_scan_bwd_ref, bf16 at "
+                "FUSED_BWD_BF16_TOL, f32 at SCAN_BWD_REL_TOL; also f32 and "
+                "the memory-carrying init at S " + str(SCAN_BWD_RAGGED_S)
+                + "); no single torch call computes it", "cases": rows})
     return out
 
 
@@ -5897,17 +6118,23 @@ def family_control(config: str):
             MAMBA: (ops, "ssm_scan")}[config]
 
 
-def family_launches(cfg) -> dict:
+def family_launches(cfg, kernels=()) -> dict:
     """Each kernel's launches in one forward and backward of ``cfg``'s
     trainer: the forward and the recompute of each layer launch its
-    forward kernel, the backward its backward kernel (B5 has none)."""
+    forward kernel, the backward its backward kernel (B5 has none); the
+    Mamba core's backward is the fused entry's (``SsmScanFn``), never the
+    scan alone's, unless ``kernels`` has no counter of the fused entry (an
+    older tree, served by ``chip_pair.py``, where the trainer ran the scan
+    alone's backward)."""
     from repro_torch.models import transformer as T
     kinds = [k for k, _, _ in T.layer_plan(cfg)]
     attn = sum(k in ("full", "sliding") for k in kinds)
     rec, ssm = kinds.count("recurrent"), kinds.count("ssm")
+    fused = "selective_scan_bwd[fused]"
+    older = kernels and fused not in {k.name for k in kernels}
     return {"flash_attention": 2 * attn, "linear_scan": 2 * rec,
             "linear_scan_bwd": rec, "selective_scan": 2 * ssm,
-            "selective_scan_bwd": ssm}
+            "selective_scan_bwd" if older else fused: ssm}
 
 
 def _family_grads(cfg, params, batch, dev, kernels, control=None):
@@ -5951,7 +6178,7 @@ def phase_train_family(config: str, kernels=(), dev: str = "cuda",
     cpu_s = time.perf_counter() - t0
     out = {"layers": layers, "dtype": dtype, "batch": [b, s],
            "cpu_s": cpu_s, "cpu_loss": want_loss}
-    expect = family_launches(cfg)
+    expect = family_launches(cfg, kernels)
     for label, control in (("card", None), ("control",
                                             family_control(config))):
         t0 = time.perf_counter()
@@ -6035,6 +6262,37 @@ def _profile_split(prof) -> dict:
                     sorted(by.items(), key=lambda kv: -kv[1][0])[:8]]}
 
 
+class _Spans:
+    """While in use, each call of ``module.attr`` on the card is bracketed
+    by CUDA events on the current stream; ``ms()`` is their device time
+    summed (events only: no synchronisation inside the step)."""
+
+    def __init__(self, module, attr):
+        self.module, self.attr, self.pairs = module, attr, []
+
+    def __enter__(self):
+        import torch
+        self.real = real = getattr(self.module, self.attr)
+
+        def spanned(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = real(*a, **kw)
+            e.record()
+            self.pairs.append((s, e))
+            return out
+
+        setattr(self.module, self.attr, spanned)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.real)
+
+    def ms(self) -> float:
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
 def train_family_depth(config: str, kernels, dev: str = "cuda",
                        reduced: bool = False) -> dict:
     """Phase 14 (f) (3): ``config`` at TRAIN_FAMILY_DEPTH's layers through
@@ -6042,12 +6300,17 @@ def train_family_depth(config: str, kernels, dev: str = "cuda",
     saves stubbed (``_NoSave``): finite losses, exact launches a step
     (``family_launches``), step ms and tokens/s over the steps between the
     first and the last, peak memory; the last step runs under
-    ``torch.profiler`` (device busy and idle share, time by part)."""
+    ``torch.profiler`` (device busy and idle share, time by part), with
+    the AdamW update's and the Mamba cores' forwards' spans (``_Spans``:
+    ``adamw_ms``, ``ssm_core_forward_ms``, the forward and the recompute
+    of every layer)."""
     import math
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.registry import get_config, get_reduced
+    from repro_torch.kernels import ops
     from repro_torch.launch import train
+    from repro_torch.runtime import train_loop
     layers = TRAIN_FAMILY_DEPTH[config]
     cfg = (get_reduced(config) if reduced else get_config(config)).replace(
         num_layers=layers)
@@ -6062,12 +6325,16 @@ def train_family_depth(config: str, kernels, dev: str = "cuda",
             calls[0] += 1
             if calls[0] < TRAIN_FAMILY_STEPS or dev == "cpu":
                 return step(*sa)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                    _Spans(train_loop, "apply_updates") as adamw, \
+                    _Spans(ops, "ssm_scan") as core:
                 t0 = time.perf_counter()
                 res = step(*sa)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            prof_out.update(_profile_split(prof), wall_ms=wall * 1e3)
+            prof_out.update(_profile_split(prof), wall_ms=wall * 1e3,
+                            adamw_ms=adamw.ms(),
+                            ssm_core_forward_ms=core.ms())
             return res
 
         return profiled
@@ -6081,7 +6348,7 @@ def train_family_depth(config: str, kernels, dev: str = "cuda",
     finally:
         train.make_train_step, train.Checkpointer = real_make, real_ckpt
     want = {k: n * TRAIN_FAMILY_STEPS
-            for k, n in family_launches(cfg).items()}
+            for k, n in family_launches(cfg, kernels).items()}
     got = run["launches"]
     if len(run["losses"]) != TRAIN_FAMILY_STEPS or not all(
             math.isfinite(x) for x in run["losses"]):
@@ -6106,22 +6373,31 @@ def phase_train_families(report: dict, gen, kernels) -> list:
     """Phase 14 (f) on the card: (1) the backward kernels
     (``check_scan_backward``), (2) each family card vs CPU
     (``phase_train_family``), (3) each family's deep run
-    (``train_family_depth``).  Returns the two kernel checks."""
+    (``train_family_depth``); falcon-mamba's (2) and (3) with the plain
+    core composition refused on the card (``_NoPlainCore``).  Returns the
+    three kernel checks."""
     import torch
+    import contextlib
     r = report["train"]["families"] = {}
     t_phase = time.perf_counter()
     checks = check_scan_backward(gen)
     torch.cuda.empty_cache()
     log_time("train (f) kernels")
     for config in TRAIN_FAMILY_MODEL:
+        # the Mamba core under autograd on the card: SsmScanFn's kernels
+        # alone, never the plain composition (``_NoPlainCore``)
+        guard = (_NoPlainCore() if config == MAMBA
+                 else contextlib.nullcontext())
         t0 = time.perf_counter()
-        r[config] = res = {"model": phase_train_family(config, kernels)}
+        with guard:
+            r[config] = res = {"model": phase_train_family(config, kernels)}
         log(f"[train] {TRAIN_FAMILY_MODEL[config][0]}-layer full-width "
             f"{config} card vs CPU (loss, every leaf's gradient): "
             f"{json.dumps(res['model'])} ({time.perf_counter() - t0:.1f} s)")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        res["depth"] = dp = train_family_depth(config, kernels)
+        with guard:
+            res["depth"] = dp = train_family_depth(config, kernels)
         report["train"]["serve"][f"train-{config}"] = {
             "launches": dp["launches"]}
         log(f"[train] {config} at {dp['layers']} layers via "

@@ -9,9 +9,9 @@ Gradients: on the CPU autograd differentiates the plain versions.  On the
 card a call that autograd records goes through an autograd rule: the
 static ``flash_attention`` through ``FlashAttentionFn`` (the kernel
 forward, the plain version's backward), the time scans through
-``LinearScanFn`` and ``SelectiveScanFn`` (the kernel forward, a
-reverse-time backward kernel), and ``ssm_scan`` through the plain
-version's torch composition around ``SelectiveScanFn``.  The paged,
+``SsmScanFn`` (the fused Mamba-1 mixer core), ``SelectiveScanFn`` and
+``LinearScanFn`` (the kernel forward, a reverse-time backward kernel:
+one launch each way).  The paged,
 chunk-prefill and int4 kernels serve only and have no backward, so they
 raise when grad is enabled and an input requires grad, instead of
 returning an output without a ``grad_fn`` that would drop the gradients
@@ -33,13 +33,15 @@ from repro_torch.kernels.gptq_matmul import gptq_matmul
 from repro_torch.kernels.paged_attention import paged_attention as _paged
 from repro_torch.kernels.paged_attention_quant import (
     paged_attention_quant as _paged_quant)
-from repro_torch.kernels.time_scan import LinearScanFn, SelectiveScanFn
+from repro_torch.kernels.time_scan import (LinearScanFn, SelectiveScanFn,
+                                           SsmScanFn)
 from repro_torch.kernels.time_scan import linear_scan as _linear_scan
 from repro_torch.kernels.time_scan import selective_scan as _selective_scan
 
 KERNELS = (_paged, _paged_quant, flash_attention_chunk,
            flash_attention_chunk_int8, _flash, gptq_matmul, _selective_scan,
-           _linear_scan, _selective_scan.bwd, _linear_scan.bwd)
+           _linear_scan, _selective_scan.bwd, _selective_scan.fused_bwd,
+           _linear_scan.bwd)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -178,10 +180,10 @@ def ssm_scan(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0, mask=None):
     dtype, h_last [Bt, din, N] f32).  On the card one launch of the
     selective-scan kernel, counted by ``selective_scan``; B, C and z may be
     column views of the projections' outputs.  A call on the card that
-    autograd records runs the plain version's torch composition around
-    ``SelectiveScanFn`` (the scan alone: its forward and backward
-    kernels), so each input gets its gradient from autograd of those ops;
-    no training path passes a mask, and one raises there."""
+    autograd records goes through ``SsmScanFn``: the same launch, storing
+    its checkpoints, and one launch of the fused ``selective_scan_bwd``
+    for every input's gradient; no training path passes a mask, and one
+    raises there."""
     if _on_cuda(xc):
         if _records_grad(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0):
             if mask is not None:
@@ -189,8 +191,8 @@ def ssm_scan(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0, mask=None):
                     "ssm_scan: a mask under autograd is not supported on "
                     "the card (the trainer scans whole sequences; masked "
                     "prefill runs under torch.no_grad())")
-            return _ref.ssm_scan_ref(dt_lin, dt_bias, xc, B, C, z, A_log, D,
-                                     h0, scan=SelectiveScanFn.apply)
+            return SsmScanFn.apply(dt_lin, dt_bias, xc, B, C, z, A_log, D,
+                                   h0)
         return _selective_scan.fused(dt_lin, dt_bias, xc, B, C, z, A_log, D,
                                      h0, mask)
     return _ref.ssm_scan_ref(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0,

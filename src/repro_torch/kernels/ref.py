@@ -164,6 +164,32 @@ def selective_scan_bwd_ref(dt, u, B, C, A, h0, gy, g_hlast=None):
     return gdt, gu, gB, gC, gA, lam
 
 
+def scan_checkpoints(dt, u, B, A, h0, tile: int):
+    """The state entering each ``tile``-step tile of the selective scan
+    (``selective_scan_ref``'s arithmetic): [Bt, ceil(S / tile), din, N],
+    the checkpoints the ``selective_scan_bwd`` kernel recomputes from."""
+    out, h = [], h0
+    for t in range(dt.shape[1]):
+        if t % tile == 0:
+            out.append(h)
+        da = torch.exp(dt[:, t, :, None] * A[None])
+        h = da * h + (dt[:, t] * u[:, t])[..., None] * B[:, t, None, :]
+    if not out:
+        return h0.new_empty((h0.shape[0], 0) + tuple(h0.shape[1:]))
+    return torch.stack(out, 1)
+
+
+def ssm_scan_prologue(dt_lin, dt_bias, xc, A_log, mask=None):
+    """The mixer core's dt and A: softplus(dt_lin + dt_bias) in xc's dtype,
+    then the scan's (f32, or f64 for f64 inputs; 0 where ``mask`` [Bt, S]
+    is False), and A = -exp(A_log)."""
+    w = torch.promote_types(xc.dtype, torch.float32)
+    dt = F.softplus(dt_lin + dt_bias.to(xc.dtype)).to(w)        # [B, S, din]
+    if mask is not None:
+        dt = torch.where(mask[..., None], dt, 0.0)
+    return dt, -torch.exp(A_log.to(w))                          # [din, N]
+
+
 def ssm_scan_ref(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0, mask=None,
                  scan=selective_scan_ref):
     """The Mamba-1 mixer core after its two matmuls, the torch composition
@@ -173,17 +199,54 @@ def ssm_scan_ref(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0, mask=None,
     * silu(z) in xc's dtype.  dt_lin, xc, z [Bt, S, din]; B, C [Bt, S, N];
     dt_bias, D [din]; A_log [din, N]; h0 [Bt, din, N].  Returns (y [Bt, S,
     din] in xc's dtype, h_last [Bt, din, N] f32).  ``scan`` computes the
-    scan alone (``ops.ssm_scan`` passes the selective-scan kernel's
-    autograd rule on the card)."""
-    dt = F.softplus(dt_lin + dt_bias.to(xc.dtype)).float()      # [B, S, din]
-    if mask is not None:
-        dt = torch.where(mask[..., None], dt, 0.0)
-    A = -torch.exp(A_log.float())                               # [din, N]
-    y, h = scan(dt.contiguous(), xc.float().contiguous(),
-                B.float().contiguous(), C.float().contiguous(),
-                A.contiguous(), h0.float().contiguous())
+    scan alone.  (f64 inputs stay f64 throughout: float64 autograd of it
+    is ``ssm_scan_bwd_ref``'s yardstick.)"""
+    w = torch.promote_types(xc.dtype, torch.float32)
+    dt, A = ssm_scan_prologue(dt_lin, dt_bias, xc, A_log, mask)
+    y, h = scan(dt.contiguous(), xc.to(w).contiguous(), B.to(w).contiguous(),
+                C.to(w).contiguous(), A.contiguous(), h0.to(w).contiguous())
     y = y.to(xc.dtype) + xc * D.to(xc.dtype)
     return y * F.silu(z), h
+
+
+def ssm_scan_bwd_ref(dt_lin, dt_bias, xc, B, C, z, A_log, D, h0, g_out,
+                     g_hlast=None):
+    """The fused mixer core's backward, the plain version of the fused
+    ``selective_scan_bwd`` kernel: ``ssm_scan_ref``'s forward recomputed
+    (its dt, A, the pre-gate y, s = T(T(y) + T(xc T(D))) and silu(z) at its
+    rounding points in xc's dtype T), then, in f32 (f64 for f64 inputs)
+    with no rounding between:
+
+        gy        = g_out silu(z)                (the scan's y gradient)
+        (gdt, gu, gB, gC, gA, gh0) = selective_scan_bwd_ref(.., gy, g_hlast)
+        gz        = g_out s silu'(z)
+        g_xc      = gu + gy T(D),   gD = sum_{b, t} gy xc
+        g_dt_lin  = gdt sigmoid(x)  (gdt where x > 20: torch's softplus),
+                    x = T(dt_lin + T(dt_bias))
+        g_dt_bias = sum_{b, t} g_dt_lin,   g_A_log = gA A
+
+    No mask.  Returns the gradients of (dt_lin, dt_bias, xc, B, C, z,
+    A_log, D, h0), each in its input's dtype."""
+    T = xc.dtype
+    w = torch.promote_types(T, torch.float32)
+    dt, A = ssm_scan_prologue(dt_lin, dt_bias, xc, A_log)
+    u, Bw, Cw = xc.to(w), B.to(w), C.to(w)
+    y, _ = selective_scan_ref(dt, u, Bw, Cw, A, h0.to(w))
+    s = (y.to(T) + xc * D.to(T)).to(w)
+    zw = z.to(w)
+    sig = torch.sigmoid(zw)
+    go = g_out.to(w)
+    gy = go * F.silu(z).to(w)
+    gdt, gu, gB, gC, gA, gh0 = selective_scan_bwd_ref(dt, u, Bw, Cw, A,
+                                                      h0.to(w), gy, g_hlast)
+    gz = go * s * (sig * (1 + zw * (1 - sig)))
+    g_xc = gu + gy * D.to(T).to(w)
+    gD = (gy * u).sum((0, 1))
+    x = (dt_lin + dt_bias.to(T)).to(w)
+    g_lin = torch.where(x > 20, gdt, gdt * torch.sigmoid(x))
+    return (g_lin.to(T), g_lin.sum((0, 1)).to(dt_bias.dtype), g_xc.to(T),
+            gB.to(T), gC.to(T), gz.to(T), (gA * A).to(A_log.dtype),
+            gD.to(D.dtype), gh0.to(h0.dtype))
 
 
 def linear_scan_ref(a: torch.Tensor, g: torch.Tensor, h0: torch.Tensor):

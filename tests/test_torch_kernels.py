@@ -398,7 +398,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     kernels = (paged_attention, paged_attention_quant, gptq_matmul,
                flash_attention_chunk, flash_attention_chunk_int8,
                flash_attention, selective_scan, linear_scan,
-               selective_scan.bwd, linear_scan.bwd)
+               selective_scan.bwd, selective_scan.fused_bwd, linear_scan.bwd)
     assert set(ops.KERNELS) == set(kernels)
     assert [k.launches for k in kernels] == [0] * len(kernels)
     with pytest.raises(ValueError, match="device"):

@@ -2,19 +2,23 @@
 new paths for the MoE, hybrid and Mamba families, on the CPU against the
 JAX package on the same numpy inputs:
 
-(a) the plain backward versions ``linear_scan_bwd_ref`` and
-    ``selective_scan_bwd_ref`` (the backward kernels' yardsticks) against
-    float64 autograd of the plain forwards, from a nonzero h0 and with a
-    nonzero ``g_hlast``;
-(b) both against ``jax.vjp`` of the reference's scan steps (its
-    ``_chunked_time_scan`` over the RG-LRU's and the Mamba-1 step), and
-    autograd of the port's ``_rglru_scan`` / ``_ssm_inner`` against
-    ``jax.vjp`` of the reference's;
-(c) the autograd rules ``LinearScanFn`` and ``SelectiveScanFn`` with
-    ``_on_cuda`` patched (the CUDA routing runs on the CPU) and the kernel
-    launches patched to the plain forward and backward versions: autograd
-    of the plain composition, one backward launch a call, a mask refused
-    under autograd, and the serving kernels alone under ``no_grad``;
+(a) the plain backward versions ``linear_scan_bwd_ref``,
+    ``selective_scan_bwd_ref`` and ``ssm_scan_bwd_ref`` (the backward
+    kernels' yardsticks) against float64 autograd of the plain forwards,
+    from a nonzero h0 and with a nonzero ``g_hlast``;
+(b) the scans' against ``jax.vjp`` of the reference's scan steps (its
+    ``_chunked_time_scan`` over the RG-LRU's and the Mamba-1 step),
+    ``ssm_scan_bwd_ref`` chained through the two projections against
+    ``jax.vjp`` of the reference's ``_ssm_inner``, and autograd of the
+    port's ``_rglru_scan`` / ``_ssm_inner`` against ``jax.vjp`` of the
+    reference's;
+(c) the autograd rules ``LinearScanFn``, ``SelectiveScanFn`` and
+    ``SsmScanFn`` (the fused Mamba-1 mixer core) with ``_on_cuda`` patched
+    (the CUDA routing runs on the CPU) and the kernel launches patched to
+    the plain forward and backward versions: autograd of the plain
+    composition, one forward and one backward launch a call, a mask
+    refused under autograd, and the serving kernels alone under
+    ``no_grad``;
 (d) the MoE layer's gradients against ``jax.grad`` of the reference's
     ``moe_apply`` (f32), with an expert that receives no token getting an
     exact zero, and the dispatch gather bitwise the old one.
@@ -122,6 +126,54 @@ def test_selective_scan_bwd_ref_is_float64_autograd(S, with_hlast):
         *_t((dt, u, B, C, A, h0, gy)),
         torch.from_numpy(ghl) if with_hlast else None)
     for name, gg, w in zip(("gdt", "gu", "gB", "gC", "gA", "gh0"), got, want):
+        _close(gg, w, F64_REL, name)
+
+
+CORE_NAMES = ("dt_lin", "dt_bias", "xc", "B", "C", "z", "A_log", "D", "h0")
+
+
+def _core_inputs(S, dtype=np.float32, seed=0, Bt=2, din=8, N=4):
+    """The fused mixer core's inputs as numpy arrays (B and C as columns of
+    one x_proj-like output ``dbc``) and its two cotangents."""
+    rng = np.random.default_rng(seed)
+    xs = {"dt_lin": (Bt, S, din), "dt_bias": (din,), "xc": (Bt, S, din),
+          "dbc": (Bt, S, 2 * N + 3), "z": (Bt, S, din), "A_log": (din, N),
+          "D": (din,), "h0": (Bt, din, N)}
+    arrays = {k: rng.standard_normal(s).astype(dtype) for k, s in xs.items()}
+    arrays["A_log"] = rng.uniform(-1.0, 1.0, (din, N)).astype(dtype)
+    cots = [rng.standard_normal((Bt, S, din)).astype(dtype),
+            rng.standard_normal((Bt, din, N)).astype(dtype)]
+    return arrays, cots
+
+
+def _core_args(ts, N=4):
+    """``ops.ssm_scan``'s arguments from ``_core_inputs``' tensors: B and C
+    column views of ``dbc``, as ``_ssm_inner`` passes them."""
+    return (ts["dt_lin"], ts["dt_bias"], ts["xc"], ts["dbc"][..., 3:3 + N],
+            ts["dbc"][..., 3 + N:], ts["z"], ts["A_log"], ts["D"], ts["h0"])
+
+
+@pytest.mark.parametrize("S", S_CASES)
+@pytest.mark.parametrize("with_hlast", [True, False])
+def test_ssm_scan_bwd_ref_is_float64_autograd(S, with_hlast):
+    """The fused core's plain backward (the softplus', D skip's and gate's
+    derivatives on ``selective_scan_bwd_ref``) against float64 autograd of
+    ``ssm_scan_ref``: every input's gradient, B and C as column views."""
+    arrays, (gy, ghl) = _core_inputs(S, np.float64)
+    ts = {k: torch.from_numpy(v).requires_grad_(True)
+          for k, v in arrays.items()}
+    args = _core_args(ts)
+    y, h_last = ref.ssm_scan_ref(*args)
+    outs, cots = [y], [torch.from_numpy(gy)]
+    if with_hlast:
+        outs.append(h_last)
+        cots.append(torch.from_numpy(ghl))
+    want = torch.autograd.grad(outs, args, cots)
+    got = ref.ssm_scan_bwd_ref(*(a.detach() for a in args),
+                               torch.from_numpy(gy),
+                               torch.from_numpy(ghl) if with_hlast else None)
+    for name, gg, w in zip(CORE_NAMES, got, want):
+        assert gg.dtype == w.dtype and gg.shape == w.shape, name
         _close(gg, w, F64_REL, name)
 
 
@@ -258,6 +310,40 @@ def test_ssm_inner_autograd_matches_jax_vjp():
         _close(g, w, JAX_REL, name)
 
 
+@pytest.mark.parametrize("S", [37, 150])    # no multiple of 16 or 128
+def test_ssm_scan_bwd_ref_matches_jax_vjp(S):
+    """``ssm_scan_bwd_ref`` (the fused backward kernel's yardstick), chained
+    by hand through ``_ssm_inner``'s two projections (x_proj into dt_r, B,
+    C; dt_proj into dt_lin), against ``jax.vjp`` of the reference's
+    ``_ssm_inner`` on the same numpy inputs, f32, from a nonzero h0 with
+    cotangents on both y and h_last: every leaf it reads, xc, z and h0."""
+    jcfg, cfg, p, x, z, h0, cot = _mixer("falcon-mamba-7b", JS.ssm_init,
+                                         S=S)
+    ghl = np.random.default_rng(11).standard_normal(h0.shape).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda pp, a, b, h: JS._ssm_inner(jcfg, pp, a, b, h),
+                     jax.tree.map(jnp.asarray, p), *map(jnp.asarray,
+                                                        (x, z, h0)))
+    jp, jx, jz, jh = vjp((jnp.asarray(cot), jnp.asarray(ghl)))
+    tp = params_from_numpy(p, device="cpu")
+    xc, zt, ht = map(torch.from_numpy, (x, z, h0))
+    R, N = PS.dt_rank(cfg), cfg.ssm_state
+    dbc = xc @ tp["x_proj"]
+    dt_r, B, C = dbc.split([R, N, N], dim=-1)
+    g_lin, g_bias, g_xc, gB, gC, gz, g_alog, gD, gh0 = ref.ssm_scan_bwd_ref(
+        dt_r @ tp["dt_proj"], tp["dt_bias"], xc, B, C, zt, tp["A_log"],
+        tp["D"], ht, torch.from_numpy(cot), torch.from_numpy(ghl))
+    g_dbc = torch.cat([g_lin @ tp["dt_proj"].T, gB, gC], dim=-1)
+    got = {"x_proj": torch.einsum("bsi,bso->io", xc, g_dbc),
+           "dt_proj": torch.einsum("bsr,bsd->rd", dt_r, g_lin),
+           "dt_bias": g_bias, "A_log": g_alog, "D": gD}
+    for k, g in got.items():
+        _close(g, jp[k], JAX_REL, k)
+    _close(g_xc + g_dbc @ tp["x_proj"].T, jx, JAX_REL, "xc")
+    _close(gz, jz, JAX_REL, "z")
+    _close(gh0, jh, JAX_REL, "h0")
+
+
 def test_linear_scan_ref_forward_is_the_addcmul_loop():
     """The differentiable ``linear_scan_ref`` gives bitwise what its
     ``out=`` form gave (every CPU serving test of the hybrid reads it)."""
@@ -278,29 +364,52 @@ def test_linear_scan_ref_forward_is_the_addcmul_loop():
 class _PlainScans:
     """Stands in for the time-scan kernel wrappers: each call runs the
     plain version and is recorded (forward kernels under the autograd
-    rules must run with grad disabled)."""
+    rules must run with grad disabled); the checkpoints the forwards store
+    for the backward are ``ref.scan_checkpoints``', and the backwards take
+    h0 from them."""
 
     name = "scans"
 
     def __init__(self):
         self.calls = []
 
-    def __call__(self, *args):
+    def __call__(self, *args, checkpoints=False):
         assert not torch.is_grad_enabled()
         kind = "linear" if len(args) == 3 else "selective"
         self.calls.append(kind)
-        return (ref.linear_scan_ref if kind == "linear"
-                else ref.selective_scan_ref)(*args)
+        if kind == "linear":
+            return ref.linear_scan_ref(*args)
+        out = ref.selective_scan_ref(*args)
+        if checkpoints:
+            dt, u, B, _, A, h0 = args
+            out = (*out, ref.scan_checkpoints(dt, u, B, A, h0,
+                                              time_scan.TT_WAVE))
+        return out
 
-    def fused(self, *args):
+    def fused(self, *args, checkpoints=False):
+        assert not (checkpoints and torch.is_grad_enabled())
         self.calls.append("fused")
-        return ref.ssm_scan_ref(*args)
+        out = ref.ssm_scan_ref(*args)
+        if checkpoints:
+            dt_lin, dt_bias, xc, B, _, _, A_log, _, h0 = args
+            dt, A = ref.ssm_scan_prologue(dt_lin, dt_bias, xc, A_log)
+            out = (*out, ref.scan_checkpoints(dt, xc.float(), B.float(), A,
+                                              h0, time_scan.TT_WAVE))
+        return out
 
     def backward(self, *args):
         kind = "linear_bwd" if len(args) == 5 else "selective_bwd"
         self.calls.append(kind)
-        return (ref.linear_scan_bwd_ref if kind == "linear_bwd"
-                else ref.selective_scan_bwd_ref)(*args)
+        if kind == "linear_bwd":
+            return ref.linear_scan_bwd_ref(*args)
+        dt, u, B, C, A, ck, gy, g_hlast = args
+        return ref.selective_scan_bwd_ref(dt, u, B, C, A, ck[:, 0], gy,
+                                          g_hlast)
+
+    def fused_backward(self, *args):
+        self.calls.append("fused_bwd")
+        *ins, ck, g_out, g_hlast = args
+        return ref.ssm_scan_bwd_ref(*ins, ck[:, 0], g_out, g_hlast)
 
 
 @pytest.fixture
@@ -359,39 +468,54 @@ def test_selective_scan_fn_gives_the_plain_autograd(plain_kernels, S):
 
 
 def test_ssm_scan_under_autograd_is_the_plain_composition(plain_kernels):
-    """``ops.ssm_scan`` recorded on the card: the plain version's torch ops
-    around ``SelectiveScanFn`` (one scan launch, one backward launch); every
-    input's gradient is autograd's of ``ssm_scan_ref``; B, C and z as
-    column views, as ``_ssm_inner`` passes them; a mask raises by name."""
-    rng = np.random.default_rng(7)
-    Bt, S, din, N = 2, 11, 8, 4
-    xs = {"dt_lin": (Bt, S, din), "dt_bias": (din,), "xc": (Bt, S, din),
-          "dbc": (Bt, S, 2 * N + 3), "z": (Bt, S, din), "A_log": (din, N),
-          "D": (din,), "h0": (Bt, din, N)}
-    arrays = {k: rng.standard_normal(s).astype(np.float32)
-              for k, s in xs.items()}
-    gy = torch.from_numpy(rng.standard_normal((Bt, S, din))
-                          .astype(np.float32))
-
-    def call(fn, ts):
-        B_, C_ = ts["dbc"][..., 3:3 + N], ts["dbc"][..., 3 + N:]
-        return fn(ts["dt_lin"], ts["dt_bias"], ts["xc"], B_, C_, ts["z"],
-                  ts["A_log"], ts["D"], ts["h0"])
-
+    """``ops.ssm_scan`` recorded on the card goes through ``SsmScanFn``, not
+    the plain version's torch composition: one fused forward launch
+    (storing its checkpoints) and one fused backward launch, no scan-alone
+    launch; every input's gradient is autograd's of that composition
+    (``ssm_scan_ref``); B, C and z as column views, as ``_ssm_inner``
+    passes them; a mask raises by name."""
+    arrays, (gy, _) = _core_inputs(11, seed=7)
     ts = {k: torch.from_numpy(v).requires_grad_(True)
           for k, v in arrays.items()}
-    y, h = call(ops.ssm_scan, ts)
-    got = torch.autograd.grad(y, list(ts.values()), gy)
-    assert plain_kernels.calls == ["selective", "selective_bwd"]
-    want = torch.autograd.grad(call(ref.ssm_scan_ref, ts)[0],
-                               list(ts.values()), gy)
+    args = _core_args(ts)
+    y, h = ops.ssm_scan(*args)
+    assert type(y.grad_fn).__name__ == "SsmScanFnBackward"
+    assert plain_kernels.calls == ["fused"]
+    got = torch.autograd.grad(y, list(ts.values()), torch.from_numpy(gy))
+    assert plain_kernels.calls == ["fused", "fused_bwd"]
+    want = torch.autograd.grad(ref.ssm_scan_ref(*_core_args(ts))[0],
+                               list(ts.values()), torch.from_numpy(gy))
     for name, gg, w in zip(ts, got, want):
         _close(gg, w, FN_REL, name)
-    mask = torch.ones(Bt, S, dtype=torch.bool)
+    mask = torch.ones(y.shape[:2], dtype=torch.bool)
     with pytest.raises(RuntimeError, match="ssm_scan: a mask"):
-        ops.ssm_scan(ts["dt_lin"], ts["dt_bias"], ts["xc"],
-                     ts["dbc"][..., 3:3 + N], ts["dbc"][..., 3 + N:],
-                     ts["z"], ts["A_log"], ts["D"], ts["h0"], mask)
+        ops.ssm_scan(*args, mask)
+
+
+@pytest.mark.parametrize("S", S_CASES)
+def test_ssm_scan_fn_gives_the_plain_autograd(plain_kernels, S):
+    """``SsmScanFn`` with both outputs' cotangents (a nonzero h_last
+    gradient, h0 requiring grad): one forward and one backward launch a
+    call, and autograd's gradients of ``ssm_scan_ref`` for every input;
+    with y's gradient alone, one backward all the same."""
+    arrays, (gy, ghl) = _core_inputs(S, seed=8)
+    cots = [torch.from_numpy(gy), torch.from_numpy(ghl)]
+    ts = {k: torch.from_numpy(v).requires_grad_(True)
+          for k, v in arrays.items()}
+    outs = ops.ssm_scan(*_core_args(ts))
+    got = torch.autograd.grad(outs, list(ts.values()), cots)
+    assert plain_kernels.calls == ["fused", "fused_bwd"]
+    want = torch.autograd.grad(ref.ssm_scan_ref(*_core_args(ts)),
+                               list(ts.values()), cots)
+    for name, gg, w in zip(ts, got, want):
+        _close(gg, w, FN_REL, name)
+    y, _ = ops.ssm_scan(*_core_args(ts))
+    got = torch.autograd.grad(y, list(ts.values()), cots[0])
+    want = torch.autograd.grad(ref.ssm_scan_ref(*_core_args(ts))[0],
+                               list(ts.values()), cots[0])
+    assert plain_kernels.calls[2:] == ["fused", "fused_bwd"]
+    for name, gg, w in zip(ts, got, want):
+        _close(gg, w, FN_REL, f"{name}, y alone")
 
 
 def test_scans_under_no_grad_launch_the_serving_kernels(plain_kernels):
