@@ -32,7 +32,9 @@ Phases, each of which fails loudly (any failure exits non-zero):
              CPU over 9 rows of the full vocabulary: the uniforms bitwise
              equal, and ``sample_from_logits`` on the same logits (greedy,
              temperature 0.8, top-k 20, top-p 0.9 rows mixed) the same
-             tokens;
+             tokens; the legacy single-key ``serving.sampler``'s
+             ``sample_device`` on [8, vocab] bf16 logits (greedy and
+             sampled rows, top-k 0 and 40) the same tokens;
 3. model   — full-width qwen2-1.5b cut to 2 layers, int4 weights, bf16
              and int8 pools: the same params and inputs through the decode
              step, the prefill chunk, the unified step and the
@@ -70,8 +72,9 @@ Phases, each of which fails loudly (any failure exits non-zero):
              adds what its capture recorded), and the host's launch calls
              per step are counted in the re-run; then the same
              traffic is served by a second engine over the same weights
-             with ``capture_graphs=False``, profiled too, and must give
-             the same tokens;
+             with ``capture_graphs=False`` and must give the same tokens
+             (phases 4 and 6 do not re-run that serve under the profiler:
+             no check reads its profile; the later phases do);
 5. gptq    — (b) ``LLM.load("qwen2-1.5b", quant="gptq-int4")`` at full
              depth on 8 x [4, 512] seeded calibration tokens, the load's
              seconds split (init, calibration forward plus Hessians, OBQ,
@@ -99,8 +102,9 @@ Phases, each of which fails loudly (any failure exits non-zero):
              (``torch._grouped_mm`` over the sorted assignments) at 8 and
              256 rows against ``moe_apply_dense_ref`` within TOL of the
              largest entry, bitwise repeatable, timed beside the bound of
-             the experts it touches; the full-width model cut to 2 layers
-             in f32 card vs CPU (as phase 3, within MOE_LOGIT_TOL); then
+             the experts it touches; the full-width model cut to 1 layer
+             (MOE_MODEL_LAYERS) in f32 card vs CPU (as phase 3, within
+             MOE_LOGIT_TOL); then
              three full-depth serves of ``LLM.load("qwen2-moe-a2.7b",
              seed=0, ...)`` with bf16 weights on serve_prompts' traffic:
              ``moe-chunked-async`` (the defaults), ``moe-chunked``
@@ -137,6 +141,21 @@ Phases, each of which fails loudly (any failure exits non-zero):
              attention timed.  The static kernel's cases here, in phase
              2 and in phase 8 are also held per query row to
              FLASH_REL_TOL of the row's own RMS.
+   (b)     — the same model, full width and full depth, through
+             ``LLM.load("h2o-danube-3-4b", quant="gptq-int4")`` on 8 x
+             [4, 512] seeded calibration tokens over the same 8 rings:
+             the calibration, OBQ and pack seconds and the peak memory,
+             exactly 24 x 8 static ``flash_attention`` launches at head
+             dim 120 and no other; GPTQ's Hessian loss summed over the 48
+             (layer, Hessian) pairs below RTN's (each pair's ratio
+             printed), layer 0's Hessians within HESSIAN_TOL_REL of a
+             float64 CPU replay, layer 0's wk [3840, 960] through OBQ on
+             the card and on the CPU (at least 99.99% of codes equal,
+             scales and zeros bitwise); then the same traffic served
+             with graphs on, profiled: 0 pageable copies,
+             ``gptq_matmul`` once a linear, layer and step
+             (``check_gptq_serve_launches``), every served token against
+             teacher forcing.
 8. hybrid  — recurrentgemma-2b (18 RG-LRU layers with per-slot recurrent
              state, 8 sliding-window layers over private rings; 10 query
              heads over 1 KV head, head dim 256): the static kernel's
@@ -247,6 +266,11 @@ Phases, each of which fails loudly (any failure exits non-zero):
              attention kernel, ``--trace-out`` valid, ``--metrics-out``
              finite, the KV bytes a token 6.0 apart; then a short run
              under ``--profile-dir`` whose trace holds kernel records.
+   (b)     — the port's examples (``examples/repro_torch/``), each
+             ``main([..., "--device", "cuda"])`` in process on qwen2-1.5b
+             at full width (4 layers; ``train_small`` 6 layers, 4 steps):
+             each launches its kernels (``EXAMPLES``) and no other, its
+             numbers checked (``check_example``), its seconds printed.
 14. train  — the trainer on qwen2-1.5b at full width (f32 master weights,
              bf16 activations): (a) B5 under autograd
              (``FlashAttentionFn``: the kernel forward, the plain
@@ -1046,6 +1070,48 @@ def phase_sampling(dev: str = "cuda") -> dict:
                lambda: S.sample_from_logits(card, *greedy))}
     if not (uniforms_equal and out["tokens_equal"]):
         raise AssertionError(f"sampling: card vs CPU {out}")
+    out["sample_device"] = legacy_sampler(dev)
+    return out
+
+
+# the legacy single-key sampler's batch: bf16 logits [8, vocab], greedy
+# and sampled rows mixed, top-k off and 40
+SAMPLE_DEVICE_TEMPS = (0.0, 0.8, 1.0, 0.0, 0.5, 1.3, 0.0, 0.7)
+SAMPLE_DEVICE_TOP_KS = (0, 40)
+
+
+def legacy_sampler(dev: str = "cuda") -> dict:
+    """``serving.sampler.sample_device`` (one shared key, uniform top-k,
+    noise over the B x V positions flattened) on [8, V] bf16 logits of
+    qwen2-1.5b's vocabulary, on the card and on the CPU from the same
+    logits and key: the same token ids for each top-k of
+    SAMPLE_DEVICE_TOP_KS.  Timed on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.sampling import threefry_seed
+    from repro_torch.serving.sampler import sample, sample_device
+    V = get_config("qwen2-1.5b").vocab_size
+    rng = np.random.default_rng(4)
+    logits = torch.from_numpy((rng.normal(size=(len(SAMPLE_DEVICE_TEMPS), V))
+                               * 3).astype(np.float32)).bfloat16()
+    card = logits.to(dev)
+    temps = list(SAMPLE_DEVICE_TEMPS)
+    out = {"shape": list(logits.shape), "dtype": "bfloat16", "cases": []}
+    for top_k in SAMPLE_DEVICE_TOP_KS:
+        key = threefry_seed(11 + top_k)
+        want = sample(logits, key, temps, top_k)
+        got = sample(card, key, temps, top_k)
+        t = torch.tensor(temps, device=dev)
+        case = {"top_k": top_k, "tokens_cpu": want.tolist(),
+                "tokens_card": got.tolist(),
+                "tokens_equal": bool(np.array_equal(got, want)),
+                "call_ms": time_ms(
+                    lambda: sample_device(card, key, t, top_k))}
+        out["cases"].append(case)
+        if not case["tokens_equal"]:
+            raise AssertionError(f"sample_device top_k {top_k}: card vs "
+                                 f"CPU {case}")
     return out
 
 
@@ -1340,7 +1406,8 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
                 max_tokens: int = 32, kernels=(), label: str = "bf16-chunked",
                 options=None, must=(), never=(), profile: bool = False,
                 llm=None, quant="rtn-int4", lens=None,
-                graphs_off: bool = False, state_keys=()) -> dict:
+                graphs_off: bool = False, state_keys=(),
+                profile_off: bool = True) -> dict:
     """Serve the 8 requests of ``serve_prompts`` (of ``lens`` tokens when
     given) on ``llm`` or, when none is given, on ``LLM.load(config,
     quant=quant, **options)``; request i asks for ``max_tokens - 3 i`` new
@@ -1352,7 +1419,10 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
     engine over the same weights with graphs off (``"off"`` in the
     record), which must give the same tokens, and the runner's state
     entries ``state_keys`` after the serve within SERVE_STATE_TOL of
-    graphs off's (``"state_on_off"``)."""
+    graphs off's (``"state_on_off"``); that serve is re-run under the
+    profiler too only with ``profile_off`` (its record then has the
+    graphs-off profile: every check a profile feeds reads the graphs-on
+    one)."""
     import torch
     from repro_torch.serving import LLM
     card = dev != "cpu"
@@ -1378,7 +1448,8 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
         off_llm = LLM(llm.cfg, llm.params, seed=0, device=dev, **engine_kw)
         out["off"] = off = serve_once(off_llm, prompts, max_tokens, kernels,
                                       label + "/graphs-off", engine_kw, must,
-                                      never, profile, state_keys)
+                                      never, profile and profile_off,
+                                      state_keys)
         off_llm.close()
         del off_llm
         if off["tokens"] != out["tokens"]:
@@ -1797,27 +1868,34 @@ GPTQ_LOGIT_RATIO = 1.25       # tests/test_quantized_model.py:67
 GROUPING_TOL_REL = 1e-5
 
 
-def gptq_load(kernels, dev: str = "cuda", reduced: bool = False):
-    """(b) ``LLM.load("qwen2-1.5b", quant="gptq-int4")`` at full depth on
-    CALIB_N x [CALIB_B, CALIB_S] seeded calibration tokens.  The launch
-    counters are zeroed just before the load: the calibration forward
-    must launch the static ``flash_attention`` once per layer and batch,
-    and nothing else; every leaf of the served params lies on ``dev``."""
+def gptq_load(kernels, dev: str = "cuda", reduced: bool = False,
+              config: str = "qwen2-1.5b", options=None):
+    """(b) ``LLM.load(config, quant="gptq-int4")`` at full depth on
+    CALIB_N x [CALIB_B, CALIB_S] seeded calibration tokens, with the
+    engine ``options`` (SYNC when None).  The launch counters are zeroed
+    just before the load: the calibration forward must launch the static
+    ``flash_attention`` once per layer and batch, and nothing else; every
+    leaf of the served params lies on ``dev``.  On the card the peak of
+    ``torch.cuda.max_memory_allocated`` over the load is recorded."""
     import torch
     from repro_torch.configs.registry import get_config, get_reduced
     from repro_torch.models import transformer as T
     from repro_torch.serving import LLM
     from repro_torch.serving.llm import _synthetic_calib
-    cfg = get_reduced("qwen2-1.5b") if reduced else get_config("qwen2-1.5b")
+    cfg = get_reduced(config) if reduced else get_config(config)
     calib = _synthetic_calib(cfg, 1, CALIB_N, CALIB_B, CALIB_S)
     for k in kernels:
         k.launches = 0
+    if dev != "cpu":
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    llm = LLM.load("qwen2-1.5b", quant="gptq-int4", seed=0, reduced=reduced,
-                   calib_batches=calib, device=dev, **SYNC)
+    llm = LLM.load(config, quant="gptq-int4", seed=0, reduced=reduced,
+                   calib_batches=calib, device=dev,
+                   **(SYNC if options is None else options))
     if dev != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if dev != "cpu" else None
     launches = {k.name: k.launches for k in kernels}
     want = {k.name: 0 for k in kernels}
     if dev != "cpu":
@@ -1829,7 +1907,7 @@ def gptq_load(kernels, dev: str = "cuda", reduced: bool = False):
     if off:
         raise AssertionError(f"gptq load: params left on {off}")
     return llm, calib, {"wall_s": wall, "load_s": llm.load_s,
-                        "launches": launches}
+                        "launches": launches, "max_memory_allocated": peak}
 
 
 def _qt_of(layer_params: dict, names, din: int):
@@ -1846,14 +1924,17 @@ def _qt_of(layer_params: dict, names, din: int):
         g_idx=ds[0]["g_idx"], bits=4)
 
 
-def gptq_quality(llm, calib, dev: str = "cuda") -> dict:
+def gptq_quality(llm, calib, dev: str = "cuda",
+                 obq=("mlp", "w_gate")) -> dict:
     """(b) GPTQ's Hessian-weighted proxy loss against RTN's (group size
-    GS, ``quantize_params_rtn``) on the same dense weights, for the 56
-    (layer, Hessian) pairs: wq|wk|wv under the attention-input Hessian,
-    w_gate|w_up under the MLP-input one.  The dense weights and Hessians
-    are made again from the load's seed and calibration tokens.  Then
-    (a): layer 0's w_gate [1536, 8960] through the port's OBQ on the card
-    and on the CPU, the same float64 W and H."""
+    GS, ``quantize_params_rtn``) on the same dense weights, for every
+    (layer, Hessian) pair (qwen2-1.5b's 56, h2o-danube's 48): wq|wk|wv
+    under the attention-input Hessian, w_gate|w_up under the MLP-input
+    one.  The dense weights and Hessians are made again from the load's
+    seed and calibration tokens.  Then (a): layer 0's ``obq`` weight
+    (block, name; qwen2-1.5b's w_gate [1536, 8960]) through the port's
+    OBQ on the card and on the CPU, the same float64 W and its block's
+    Hessian."""
     import torch
     from repro_torch.configs.base import QuantConfig
     from repro_torch.core.gptq import quant_error
@@ -1888,10 +1969,11 @@ def gptq_quality(llm, calib, dev: str = "cuda") -> dict:
         raise AssertionError(f"gptq: summed Hessian loss {e_gptq} not below "
                              f"RTN's {e_rtn}")
 
-    # (a) card OBQ against CPU OBQ, one full-width w_gate
+    # (a) card OBQ against CPU OBQ, one full-width weight
     qcfg = QuantConfig(bits=4, group_size=GS)
-    w = dl[0]["mlp"]["w_gate"].double()
-    h = hess[0][1].h
+    block, name = obq
+    w = dl[0][block][name].reshape(d, -1).double()
+    h = hess[0][0 if block == "attn" else 1].h
     card, card_s = _timed_obq(w, h, qcfg)
     cpu, cpu_s = _timed_obq(w.cpu(), h.cpu(), qcfg)
     equal = float((card.q.cpu() == cpu.q).float().mean())
@@ -1900,16 +1982,17 @@ def gptq_quality(llm, calib, dev: str = "cuda") -> dict:
     e_card = quant_error(w, card, h)
     e_cpu = quant_error(w.cpu(), cpu, h.cpu())
     rel = abs(e_card - e_cpu) / e_cpu
-    # the load quantized w_gate in one loop with w_up: its codes
-    loaded = _qt_of(llm.params["layers"][0]["mlp"], ("w_gate",), d)
-    out["obq"] = {"shape": list(w.shape), "card_s": card_s,
+    # the load quantized the weight in one loop with its block's others:
+    # its codes
+    loaded = _qt_of(llm.params["layers"][0][block], (name,), d)
+    out["obq"] = {"weight": name, "shape": list(w.shape), "card_s": card_s,
                   "cpu_s": cpu_s, "codes_equal": equal,
                   "scales_zeros_equal": same_sz, "err_card": e_card,
                   "err_cpu": e_cpu, "err_rel": rel,
                   "load_codes_equal": float((loaded.q.cpu()
                                              == cpu.q).float().mean()),
-                  "rtn_err": quant_error(w, _qt_of(rtn["layers"][0]["mlp"],
-                                                   ("w_gate",), d), h)}
+                  "rtn_err": quant_error(w, _qt_of(rtn["layers"][0][block],
+                                                   (name,), d), h)}
     if not (equal >= OBQ_CODES_EQUAL and same_sz and rel <= OBQ_ERR_REL):
         raise AssertionError(f"gptq: card OBQ vs CPU OBQ: {out['obq']}")
     return out
@@ -1926,7 +2009,8 @@ def hessian_replay(cfg, dense, calib, card_pair) -> dict:
     (``card_pair``: attention input, MLP input) against a float64 replay
     on the CPU of the same calibration tokens through the same layer,
     written out here (RMSNorm, q/k/v with bias, NeoX RoPE, causal GQA
-    attention, wo, residual): relative Frobenius difference of each."""
+    attention inside the config's sliding window, wo, residual): relative
+    Frobenius difference of each."""
     import torch
     from repro_torch.models import transformer as T
     lp = {k: {n: t.cpu().double() for n, t in v.items()}
@@ -1964,8 +2048,11 @@ def hessian_replay(cfg, dense, calib, card_pair) -> dict:
         k = k.repeat_interleave(H // KV, dim=2)
         v = v.repeat_interleave(H // KV, dim=2)
         sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / Dh ** 0.5
-        sc = sc.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1),
-                            float("-inf"))
+        ahead = torch.ones(S, S, dtype=torch.bool).triu(1)
+        if cfg.sliding_window:
+            ahead |= torch.ones(S, S, dtype=torch.bool).tril(
+                -cfg.sliding_window)
+        sc = sc.masked_fill(ahead, float("-inf"))
         o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), v)
         x = x + torch.einsum("bshk,hkd->bsd", o, a["wo"])
         h2 = rms(x, lp["mlp_norm"]["w"])
@@ -2166,7 +2253,7 @@ def phase_gptq(report: dict, kernels):
         f"gptq_sum={q['gptq_sum']:.6e} rtn_sum={q['rtn_sum']:.6e} "
         f"ratio={q['sum_ratio']:.4f} per-pair ratio "
         f"{q['ratio_min']:.4f}..{q['ratio_max']:.4f}")
-    log(f"[gptq] OBQ of w_gate {o['shape']}: card_s={o['card_s']:.3f} "
+    log(f"[gptq] OBQ of {o['weight']} {o['shape']}: card_s={o['card_s']:.3f} "
         f"cpu_s={o['cpu_s']:.3f} codes_equal={o['codes_equal']:.6f} "
         f"scales_zeros_equal={o['scales_zeros_equal']} "
         f"err_rel={o['err_rel']:.3e} (gptq {o['err_card']:.6e}, rtn "
@@ -2193,6 +2280,9 @@ MOE_KERNEL_CHECKS = (
     (check_flash_attention_chunk, "flash_attention_chunk[G=1]"),
     (check_flash_attention_chunk_int8, "flash_attention_chunk_int8[G=1]"))
 MOE_ROWS = (8, 256)           # a decode step's rows, a chunk's
+# the f32 model check card vs CPU at full width, cut to 1 layer (its CPU
+# side took ~37 s at 2 layers: ROADMAP C16)
+MOE_MODEL_LAYERS = 1
 MOE_BF16 = {"paged_attention", "flash_attention_chunk"}
 MOE_INT8 = {"paged_attention_quant", "flash_attention_chunk_int8"}
 # The MoE serves (bf16 weights, the reference's only MoE mode), full
@@ -2364,6 +2454,26 @@ def log_serve(label: str, serve: dict, quant) -> None:
         f"graph_pool_bytes={serve['graph_pool_bytes']} "
         f"graphs {json.dumps(serve['graphs'])}")
     prof = serve["profile"]
+    if prof is None:
+        log(f"[profile] {label}: not re-run under the profiler")
+    else:
+        log_profile(label, prof)
+    acc = serve["launch_accounting"]
+    if acc is not None:
+        log(f"[profile] {label}: two requests profiled "
+            f"{len(acc['records_short'])} time(s), kernel records equal "
+            f"the counters {json.dumps(acc['launches'])}; host calls (the "
+            f"warm-up's and the marker's included) "
+            f"{json.dumps(acc['host_launch_calls'])}")
+    if "off" in serve:
+        log_serve(serve["off"]["label"], serve["off"], quant)
+        log(f"[graphs] {label}: tokens with graphs on equal graphs off; "
+            f"wall {serve['wall_s']:.3f} s on, {serve['off']['wall_s']:.3f} "
+            "s off")
+
+
+def log_profile(label: str, prof: dict) -> None:
+    """A profiled re-run's record on the log, with its top kernels."""
     hl = prof["host_launches_per_step"]
     log(f"[profile] {label} re-run under torch.profiler: "
         f"wall_ms={prof['wall_ms']:.1f} "
@@ -2380,29 +2490,27 @@ def log_serve(label: str, serve: dict, quant) -> None:
         f"records_lost={prof['records_lost']} "
         f"sessions={prof['sessions']} "
         f"ours_ms={json.dumps(prof['ours_ms'])}")
-    acc = serve["launch_accounting"]
-    if acc is not None:
-        log(f"[profile] {label}: two requests profiled "
-            f"{len(acc['records_short'])} time(s), kernel records equal "
-            f"the counters {json.dumps(acc['launches'])}; host calls (the "
-            f"warm-up's and the marker's included) "
-            f"{json.dumps(acc['host_launch_calls'])}")
     for row in prof["top"]:
         log(f"[profile]   {row['ms']:9.2f} ms  {row['calls']:6d} calls  "
             f"{row['kernel']}")
-    if "off" in serve:
-        log_serve(serve["off"]["label"], serve["off"], quant)
-        log(f"[graphs] {label}: tokens with graphs on equal graphs off; "
-            f"wall {serve['wall_s']:.3f} s on, {serve['off']['wall_s']:.3f} "
-            "s off")
 
 
 def phase_moe(report: dict, gen, kernels) -> list:
     """Phase 6 on the card: the attention kernels at the MoE model's
-    heads, one layer's expert product, the 2-layer f32 model card vs CPU,
-    the three full-depth MoE serves (each with its launches counted from
-    zero), then the checkpoint reader.  Returns the kernel checks."""
+    heads, one layer's expert product, the MOE_MODEL_LAYERS-layer f32
+    model card vs CPU, the three full-depth MoE serves (each with its
+    launches counted from zero, graphs on and off; only the graphs-on
+    serve re-run under the profiler), then the checkpoint reader.  The
+    seconds of each part go to ``report["moe"]["seconds"]``.  Returns the
+    kernel checks."""
     m = report["moe"] = {}
+    secs = m["seconds"] = {}
+    t_phase = t0 = time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        secs[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
     checks = []
     for check, label in MOE_KERNEL_CHECKS:
         k = check(gen, heads=MOE_HEADS)
@@ -2413,17 +2521,21 @@ def phase_moe(report: dict, gen, kernels) -> list:
             f"bound_ms={k['bound'][0]:.5f} ({k['bound'][1]}) "
             f"max_abs_err={k['max_abs_err']:.3e} [{k['shape']}]")
     m["kernels"] = checks
+    lap("kernels")
     m["ffn"] = check_moe_ffn(gen)
-    t0 = time.perf_counter()
-    m["model"] = res = phase_model("cuda", config=MOE)
-    log(f"[model] 2-layer full-width {MOE} f32, card vs CPU: "
-        f"{json.dumps(res)} ({time.perf_counter() - t0:.1f} s)")
+    lap("ffn")
+    m["model"] = res = phase_model("cuda", config=MOE,
+                                   layers=MOE_MODEL_LAYERS)
+    lap("model")
+    log(f"[model] {MOE_MODEL_LAYERS}-layer full-width {MOE} f32, card vs "
+        f"CPU: {json.dumps(res)} ({secs['model']:.1f} s)")
     serves = m["serve"] = {}
     for label, options, must, never in MOE_SERVES:
         serves[label] = serve = phase_serve(
             "cuda", config=MOE, quant=None, kernels=kernels, label=label,
             options=options, must=must, never=never, profile=True,
-            graphs_off=True)
+            graphs_off=True, profile_off=False)
+        lap(f"serve {label}")
         log_serve(label, serve, "bf16")
     check_async_serve(serves["moe-chunked-async"], serves["moe-chunked"])
     same = agreement(serves["moe-chunked"]["tokens"],
@@ -2431,10 +2543,15 @@ def phase_moe(report: dict, gen, kernels) -> list:
     log(f"[serve] greedy agreement moe-chunked vs moe-int8-chunked: "
         f"{same:.3f}")
     m["checkpoint"] = ck = phase_checkpoint()
+    lap("checkpoint")
     log(f"[checkpoint] qwen2-1.5b x{ck['layers']} written ({ck['bytes']} "
         f"bytes, {ck['write_s']:.2f} s) and read by LLM.load(checkpoint=..)"
         f" in {ck['load_s']:.2f} s: greedy tokens equal the in-memory "
         "params'")
+    secs["phase"] = time.perf_counter() - t_phase
+    log(f"[moe] phase 6 took {secs['phase']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()
+                    if k != "phase"))
     return checks
 
 
@@ -2492,6 +2609,14 @@ def ring_pool_blocks(cfg, slots: int, ring_blocks: int) -> int:
     while n - slots * ring_blocks < max(1, int(n * cfg.paging.watermark_frac)):
         n += 1
     return n
+
+
+def ring_options(cfg, slots: int = DANUBE_WAVE[0],
+                 ring_blocks: int = DANUBE_RING_BLOCKS) -> dict:
+    """``LLM.load``'s engine options for ``slots`` private rings of
+    ``ring_blocks`` blocks."""
+    return {"max_slots": slots, "max_blocks_per_seq": ring_blocks,
+            "num_blocks": ring_pool_blocks(cfg, slots, ring_blocks)}
 
 
 def _plain_by_group(q, k, v, **kw):
@@ -2765,8 +2890,7 @@ def serve_ring(kernels, config: str = DANUBE, label: str = "danube-defaults",
     from repro_torch.configs.registry import get_config
     from repro_torch.serving import LLM
     cfg = get_config(config)
-    options = {"max_slots": slots, "max_blocks_per_seq": ring_blocks,
-               "num_blocks": ring_pool_blocks(cfg, slots, ring_blocks)}
+    options = ring_options(cfg, slots, ring_blocks)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     llm = LLM.load(config, quant="rtn-int4", seed=0, **options)
@@ -2867,6 +2991,117 @@ def phase_sliding(report: dict, gen, kernels) -> list:
     r["seconds"] = time.perf_counter() - t_phase
     log(f"[sliding] phase 7 took {r['seconds']:.1f} s")
     return checks
+
+
+# --------------------------------------------------------------------------
+# Phase 7 (b): h2o-danube-3-4b with gptq-int4
+# --------------------------------------------------------------------------
+
+DANUBE_GPTQ = "danube-gptq"
+# the one weight held card OBQ against CPU OBQ: layer 0's wk [3840, 960]
+# (its CPU side takes seconds; w_gate's [3840, 10240] would take minutes)
+DANUBE_OBQ = ("attn", "wk")
+
+
+def phase_danube_gptq(report: dict, kernels, dev: str = "cuda",
+                      reduced: bool = False) -> dict:
+    """Phase 7 (b) on the card: full-width, full-depth h2o-danube-3-4b
+    ``LLM.load(quant="gptq-int4")`` on CALIB_N x [CALIB_B, CALIB_S] seeded
+    calibration tokens over its rings (``gptq_load``: the static kernel at
+    head dim 120 exactly layers x CALIB_N times, nothing else; seconds by
+    part and peak memory), GPTQ's Hessian loss below RTN's over the 48
+    (layer, Hessian) pairs, layer 0's Hessians within HESSIAN_TOL_REL of
+    a float64 CPU replay, layer 0's wk through OBQ on the card and on the
+    CPU (``gptq_quality``), then the danube traffic of ``serve_ring``
+    served on the engine's defaults with graphs on, profiled: 0 pageable
+    copies, ``gptq_matmul`` once a linear, layer and step, every served
+    token held to teacher forcing.  The serve joins phase 7's serves
+    (``report["sliding"]["serve"]``), so the head-dim-120 and danube int4
+    rows count its launches.  With ``dev="cpu", reduced=True`` the same
+    steps run the reduced config on the plain path (no profile)."""
+    import torch
+    from repro_torch.configs.registry import get_config, get_reduced
+    t_phase = time.perf_counter()
+    card = dev != "cpu"
+    cfg = get_reduced(DANUBE) if reduced else get_config(DANUBE)
+    options = ring_options(cfg)
+    r = report["danube_gptq"] = {}
+    llm, calib, load = gptq_load(kernels, dev, reduced, DANUBE, options)
+    r["load"] = load
+    ls = load["load_s"]
+    peak = load["max_memory_allocated"]
+    log(f"[danube-gptq] LLM.load {DANUBE} gptq-int4 x{cfg.num_layers} "
+        f"layers, calibration {CALIB_N} x [{CALIB_B}, {CALIB_S}] tokens: "
+        f"wall_s={load['wall_s']:.2f} "
+        + " ".join(f"{k}_s={v:.2f}" for k, v in ls.items())
+        + " peak_gb=" + ("not measured" if peak is None
+                         else f"{peak / 1e9:.2f}")
+        + " "
+        f"column_steps={cfg.num_layers * 2 * cfg.d_model} "
+        f"launches={json.dumps(load['launches'])}")
+    log_time("danube-gptq load")
+    r["quality"] = q = gptq_quality(llm, calib, dev, obq=DANUBE_OBQ)
+    o = q["obq"]
+    log(f"[danube-gptq] layer-0 Hessians, card vs CPU float64 replay: "
+        f"{json.dumps(q['hessians_vs_cpu'])}")
+    log(f"[danube-gptq] Hessian loss over {q['pairs']} (layer, Hessian) "
+        f"pairs: gptq_sum={q['gptq_sum']:.6e} rtn_sum={q['rtn_sum']:.6e} "
+        f"ratio={q['sum_ratio']:.4f} per-pair ratios "
+        + json.dumps([round(p["ratio"], 4) for p in q["per_pair"]]))
+    log(f"[danube-gptq] OBQ of {o['weight']} {o['shape']}: "
+        f"card_s={o['card_s']:.3f} cpu_s={o['cpu_s']:.3f} "
+        f"codes_equal={o['codes_equal']:.6f} "
+        f"scales_zeros_equal={o['scales_zeros_equal']} "
+        f"err_rel={o['err_rel']:.3e} (gptq {o['err_card']:.6e}, rtn "
+        f"{o['rtn_err']:.6e}); codes equal to the load's (one loop with "
+        f"wq, wv): {o['load_codes_equal']:.6f}")
+    log_time("danube-gptq quality")
+    eng = llm.engine
+    if eng.chunked or eng.async_step or not eng.scheduler.ring_only:
+        raise AssertionError(f"{DANUBE} gptq-int4: a ring stack must run "
+                             "whole-prompt, synchronous and ring_only")
+    must, never = DANUBE_KERNELS
+    serve = phase_serve(dev, config=DANUBE, kernels=kernels,
+                        label=DANUBE_GPTQ, options=options,
+                        must=must if kernels else (),
+                        never=never if kernels else (), profile=card,
+                        llm=llm, lens=DANUBE_LENS,
+                        max_tokens=DANUBE_MAX_TOKENS)
+    serve["load_s"] = load["wall_s"]
+    serve["load_max_memory_allocated"] = peak
+    if card:
+        log_serve(DANUBE_GPTQ, serve, "gptq-int4")
+        if serve["profile"]["pageable_copies"]:
+            raise AssertionError(f"{DANUBE_GPTQ} serve: pageable memcpys "
+                                 "under the profiler (want 0)")
+    if kernels:
+        serve["gptq_launches_planned"] = check_gptq_serve_launches(
+            serve, cfg, GS, options["max_slots"],
+            wave_rows=DANUBE_WAVE[0] * DANUBE_WAVE[1])
+    tf = teacher_forced(llm, serve_prompts(cfg.vocab_size, DANUBE_LENS),
+                        serve["tokens"])
+    r["teacher_forced"] = tf
+    if not teacher_ok(tf):
+        raise AssertionError(f"{DANUBE_GPTQ}: served tokens against teacher "
+                             f"forcing (agreement >= {TEACHER_AGREEMENT}, "
+                             f"gap <= {TEACHER_GAP}): {tf}")
+    llm.close()
+    del llm, eng
+    if card:
+        torch.cuda.empty_cache()
+    report.setdefault("sliding", {}).setdefault("serve", {})[
+        DANUBE_GPTQ] = serve
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"[danube-gptq] {DANUBE_GPTQ}: 0 pageable memcpys; gptq_matmul "
+        f"{serve['launches'].get('gptq_matmul')} launches = 7 linears x "
+        f"{cfg.num_layers} layers x the runner's steps "
+        f"{json.dumps(serve['runner_steps'])}; teacher forcing over all "
+        f"{tf['tokens']} tokens: agreement {tf['agreement']:.3f} (by request "
+        f"{json.dumps(tf['agreement_by_request'])}, after the wrap "
+        f"{tf['agreement_after_wrap']:.3f}), logit gap max "
+        f"{tf['max_gap']:.4f} mean {tf['mean_gap']:.5f}; phase 7 (b) took "
+        f"{r['seconds']:.1f} s")
+    return r
 
 
 # --------------------------------------------------------------------------
@@ -4818,18 +5053,23 @@ def paged_decode_ms(llm) -> dict:
 
 
 def check_gptq_serve_launches(serve: dict, cfg, gs: int, slots: int,
-                              width: int) -> int:
-    """``gptq_matmul``'s launches over a chunked serve, from the runner's
-    steps: each decode step multiplies ``slots`` rows and each chunk
-    ``width`` rows through every layer's int4 linears, as their plans
-    give (``_gptq_launches``).  Returns the count; raises unless the
-    wrapper counted it."""
+                              width=None, wave_rows=None) -> int:
+    """``gptq_matmul``'s launches over a serve, from the runner's steps:
+    each decode step multiplies ``slots`` rows, each chunk ``width`` rows
+    (a chunked engine) and each whole-prompt wave ``wave_rows`` rows (a
+    whole-prompt one) through every layer's int4 linears, as their plans
+    give (``_gptq_launches``: one a call).  Returns the count; raises on a
+    step of the kind the engine does not run, and unless the wrapper
+    counted the count."""
     steps = serve["runner_steps"]
-    if steps.get("wave"):
-        raise AssertionError(f"serve {serve['label']}: whole-prompt waves "
-                             f"{steps} on a chunked engine")
+    for kind, rows in (("chunk", width), ("wave", wave_rows)):
+        if rows is None and steps.get(kind):
+            raise AssertionError(f"serve {serve['label']}: {kind} steps "
+                                 f"{steps} on an engine that runs none")
     want = steps["decode"] * _gptq_launches(cfg, slots, cfg.num_layers, gs) \
-        + steps["chunk"] * _gptq_launches(cfg, width, cfg.num_layers, gs)
+        + sum(steps[kind] * _gptq_launches(cfg, rows, cfg.num_layers, gs)
+              for kind, rows in (("chunk", width), ("wave", wave_rows))
+              if rows is not None)
     if serve["launches"]["gptq_matmul"] != want:
         raise AssertionError(f"serve {serve['label']}: gptq_matmul launched "
                              f"{serve['launches']['gptq_matmul']} times, its "
@@ -5115,6 +5355,104 @@ def phase_cli(report: dict, kernels, dev: str = "cuda",
     log(f"[cli] kv_bytes_per_token MHA / Opt-GQA = {ratio}")
     r["seconds"] = time.perf_counter() - t_phase
     log(f"[cli] phase 13 took {r['seconds']:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# Phase 13 (b): the port's examples (examples/repro_torch/)
+# --------------------------------------------------------------------------
+
+EXAMPLES_DIR = ROOT / "examples" / "repro_torch"
+EXAMPLE_TRAIN_STEPS = 4
+# (example, its arguments besides --device, the kernels it must launch;
+# every other kernel must not).  On the card each takes qwen2-1.5b at full
+# width (head dim 128), cut to 4 layers (train_small: 6)
+EXAMPLES = (
+    ("quickstart", (), {"gptq_matmul", "paged_attention",
+                        "flash_attention_chunk", "flash_attention"}),
+    ("serve_batched", (), {"paged_attention", "flash_attention_chunk"}),
+    ("quantize_model", (), {"gptq_matmul", "flash_attention"}),
+    ("convert_mha_to_gqa", (), {"flash_attention"}),
+    ("train_small", ("--steps", str(EXAMPLE_TRAIN_STEPS)),
+     {"flash_attention"}))
+
+
+def load_example(name: str):
+    """``examples/repro_torch/<name>.py`` as a module (examples/ is not a
+    package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", EXAMPLES_DIR / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_example(name: str, out) -> None:
+    """What each example's numbers must show, on any device."""
+    import math
+    ok = {"quickstart": lambda o: len(o["tokens"]) == 8 and all(
+              len(t) == 8 for t in o["tokens"])
+          and set(o["finish_reasons"]) == {"length"},
+          "serve_batched": lambda o: o["finished"] == 24
+          and o["rejected"] == 0,
+          "quantize_model": lambda o: all(
+              v["gptq"] < v["rtn"] for v in o["single"].values())
+          and all(math.isfinite(v["mean_abs_drift"])
+                  for v in o["model"].values()),
+          "convert_mha_to_gqa": lambda o: sorted(
+              h for g in o["groups"] for h in g) == list(range(o["heads"]))
+          and len(o["groups"]) == o["kv_heads"]
+          and math.isfinite(o["attention_rel_diff"]),
+          "train_small": lambda o: len(o) == EXAMPLE_TRAIN_STEPS
+          and all(math.isfinite(x) for x in o)}[name]
+    if not ok(out):
+        raise AssertionError(f"example {name}: {out}")
+
+
+def phase_examples(report: dict, kernels, dev: str = "cuda") -> dict:
+    """Phase 13 (b): each example's ``main([..., "--device", dev])`` in
+    process, the launch counters zeroed just before and read just after:
+    on the card each must launch the kernels EXAMPLES names and no other;
+    its numbers are checked (``check_example``) and its seconds kept.
+    ``train_small`` writes its checkpoint under ``build/`` (removed
+    after)."""
+    import shutil
+    import torch
+    r = report["examples"] = {}
+    t_phase = time.perf_counter()
+    names = {k.name for k in kernels}
+    ckpt = ROOT / "build" / "train_small_smoke"
+    for name, args, must in EXAMPLES:
+        argv = [*args, "--device", dev]
+        if name == "train_small":
+            shutil.rmtree(ckpt, ignore_errors=True)
+            argv += ["--ckpt-dir", str(ckpt)]
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        try:
+            out = load_example(name).main(argv)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        secs = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        missing = sorted(k for k in must & names if launches[k] <= 0)
+        stray = sorted(k for k in names - must if launches[k] > 0)
+        if missing or stray:
+            raise AssertionError(f"example {name}: kernels {missing} never "
+                                 f"launched, {stray} launched off its path: "
+                                 f"{launches}")
+        check_example(name, out)
+        r[name] = {"seconds": secs, "launches": launches, "argv": argv}
+        log(f"[examples] {name} {' '.join(argv)}: {secs:.1f} s, launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+    r["seconds"] = time.perf_counter() - t_phase
+    log(f"[examples] phase 13 (b) took {r['seconds']:.1f} s")
+    return r
 
 
 # --------------------------------------------------------------------------
@@ -6516,6 +6854,7 @@ def main() -> int:
 
     report["sampling"] = smp = phase_sampling()
     log(f"[sampling] threefry on the card vs the CPU: {json.dumps(smp)}")
+    log_time("sampling")
 
     report["model"] = {}
     for kv in ("bf16", "int8"):
@@ -6534,7 +6873,7 @@ def main() -> int:
         serves[label] = serve = phase_serve(
             "cuda", kernels=ops.KERNELS, label=label, options=options,
             must=must, never=never, profile=True, llm=gptq_llm,
-            graphs_off=True)
+            graphs_off=True, profile_off=False)
         log_serve(label, serve,
                   "gptq-int4" if gptq_llm is not None else "rtn-int4")
         log_time(f"serve {label}")
@@ -6571,6 +6910,8 @@ def main() -> int:
     log_time("moe phase")
     sliding_checks = phase_sliding(report, gen, ops.KERNELS)
     log_time("sliding phase")
+    phase_danube_gptq(report, ops.KERNELS)
+    log_time("danube-gptq phase")
     hybrid_checks = phase_hybrid(report, gen, ops.KERNELS)
     log_time("hybrid phase")
     ssm_checks = phase_ssm(report, gen, ops.KERNELS)
@@ -6583,6 +6924,8 @@ def main() -> int:
     log_time("cmdr phase")
     phase_cli(report, ops.KERNELS)
     log_time("cli phase")
+    phase_examples(report, ops.KERNELS)
+    log_time("examples phase")
     train_checks = phase_train(report, gen, ops.KERNELS)
     log_time("train phase")
 
@@ -6617,6 +6960,13 @@ def main() -> int:
         if phase_serves is serves:
             by_serve["gptq-load"] = \
                 report["gptq"]["load"]["launches"][k["name"]]
+            # the examples run qwen2-1.5b at full width
+            by_serve.update({f"example {n}": ex["launches"][k["name"]]
+                             for n, ex in report["examples"].items()
+                             if isinstance(ex, dict)})
+        if phase_serves is report["sliding"]["serve"]:
+            by_serve["danube-gptq-load"] = \
+                report["danube_gptq"]["load"]["launches"][k["name"]]
         record.append({
             "name": k.get("label", k["name"]), "route": k["route"],
             "source": k["source"],

@@ -79,13 +79,18 @@ def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
     return b1 ^ b2
 
 
+def _unit(bits: torch.Tensor) -> torch.Tensor:
+    """f32 uniforms in [tiny, 1) from 32 random bits (int64 holding
+    uint32 values): 23 mantissa bits under exponent 0, minus 1, scaled
+    and clamped to at least the smallest normal f32."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return (f * (1.0 - _TINY) + _TINY).clamp_min(_TINY)
+
+
 def uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.uniform(key, (n,), minval=tiny, maxval=1.)`` per row,
-    f32 [B, n]: 23 random mantissa bits under exponent 0, minus 1, scaled
-    and clamped to at least the smallest normal f32."""
-    bits = (random_bits(keys, n) >> 9) | 0x3F800000
-    f = bits.to(torch.int32).view(torch.float32) - 1.0
-    return (f * (1.0 - _TINY) + _TINY).clamp_min(_TINY)
+    f32 [B, n]."""
+    return _unit(random_bits(keys, n))
 
 
 def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
@@ -165,3 +170,33 @@ def sample_from_logits(logits: torch.Tensor, base_keys, counts, temps,
         ok = torch.isfinite(logits.max(dim=-1).values)
         tok = torch.where(ok, tok, -1)
     return tok
+
+
+def sample_device(logits: torch.Tensor, key, temperatures,
+                  top_k: int = 0) -> torch.Tensor:
+    """Legacy single-key batch sampler (one shared key, uniform
+    ``top_k``), the JAX package's ``sample_device``: [B] int32 token ids
+    on the logits' device.
+
+    logits [B, V]; key: one threefry key, uint32 [2] (numpy, or a tensor
+    holding the bits); temperatures [B] (<= 0 greedy), a tensor or numpy.
+    Its noise is ``jax.random.categorical(key, scaled, axis=-1)``'s: one
+    key's partitionable bits over the B x V positions flattened row by
+    row (not a key per row, as ``sample_from_logits``), in f32, which
+    the scaled logits promote to.  ``top_k`` > 0 masks every scaled logit
+    below the row's k-th largest to -inf (ties with it kept).  Kept for
+    callers that predate per-slot ``SamplingParams``; new code should
+    use ``sample_from_logits``.
+    """
+    dev = logits.device
+    t = _on(temperatures, dev, torch.float32)[:, None]
+    greedy = logits.argmax(dim=-1)
+    scaled = logits / t.clamp(min=1e-6)
+    B, V = scaled.shape
+    if top_k > 0:
+        kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+        scaled = scaled.masked_fill(scaled < kth, float("-inf"))
+    k = _u32(key, dev).reshape(1, 2)
+    noise = -torch.log(-torch.log(_unit(random_bits(k, B * V))))
+    sampled = (noise.reshape(B, V) + scaled).argmax(dim=-1)
+    return torch.where(t[:, 0] <= 0.0, greedy, sampled).to(torch.int32)

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch``, and none of
+"""The port stands alone: no module of ``src/repro_torch``, none of
 ``chip_smoke.py``, ``chip_pair.py``, ``chip_faults.py`` and
-``chip_b3_plans.py``, imports JAX or any part of the JAX package, and the
+``chip_b3_plans.py``, and no example of ``examples/repro_torch/``
+imports JAX or any part of the JAX package, and the
 entry points that default to the card (the bridge from the JAX package's
 weights included) refuse to run on a host without CUDA instead of falling
 back to the CPU."""
@@ -26,6 +27,7 @@ def one_intra_op_thread():
     torch.set_num_threads(threads)
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = sorted((ROOT / "examples" / "repro_torch").glob("*.py"))
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "chip_pair.py",
        ROOT / "chip_faults.py", ROOT / "chip_b3_plans.py"]
@@ -40,11 +42,26 @@ def _imported(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+@pytest.mark.parametrize("path", FILES + EXAMPLES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported(path)
            if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_the_port_has_an_example_for_each_of_the_references():
+    """Every script of ``examples/`` has a counterpart in
+    ``examples/repro_torch/`` but ``multidevice_check.py``, which waits
+    for the parallelism (ROADMAP A13); each exposes ``main(argv)``."""
+    ref = {p.name for p in (ROOT / "examples").glob("*.py")}
+    assert {p.name for p in EXAMPLES} == ref - {"multidevice_check.py"}
+    for path in EXAMPLES:
+        tree = ast.parse(path.read_text(), str(path))
+        mains = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+                 and n.name == "main"]
+        assert mains and [a.arg for a in mains[0].args.args] == ["argv"], \
+            path.name
 
 
 def test_cuda_entry_points_raise_without_cuda():
