@@ -74,7 +74,12 @@ Phases, each of which fails loudly (any failure exits non-zero):
              traffic is served by a second engine over the same weights
              with ``capture_graphs=False`` and must give the same tokens
              (phases 4 and 6 do not re-run that serve under the profiler:
-             no check reads its profile; the later phases do);
+             no check reads its profile; the later phases do).
+             ``bf16-chunked-async``'s graphs-off serve runs under
+             ``torch.cuda.set_sync_debug_mode("warn")`` (R1's twin, no
+             phase of its own): each sync torch warns of must lie in a
+             function where the static checker's R1 reports a finding,
+             and a control sync R1 reports must be recorded;
 5. gptq    — (b) ``LLM.load("qwen2-1.5b", quant="gptq-int4")`` at full
              depth on 8 x [4, 512] seeded calibration tokens, the load's
              seconds split (init, calibration forward plus Hessians, OBQ,
@@ -1400,6 +1405,95 @@ ATTENTION_LAUNCHES = {
 # traffic and schedule
 GPTQ_SERVE = ("gptq-chunked", SYNC, *SERVES[0][2:])
 ATTENTION_LAUNCHES["gptq-chunked"] = ATTENTION_LAUNCHES["bf16-chunked"]
+# R1's twin on the card: this serve's graphs-off run (the engine's
+# defaults, every step eager, no PERF.md figure) goes under
+# torch.cuda.set_sync_debug_mode("warn"), and every sync it warns of must
+# lie in a function where the static checker's R1 reports a finding
+SYNC_TWIN_SERVE = "bf16-chunked-async"
+_SYNC_WARNING = "synchronizing CUDA operation"
+
+
+def record_syncs(run):
+    """``run()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result, and for each sync torch warned of the innermost frame of the
+    call stack inside ``src/repro_torch`` as (path, line) (None for a
+    sync the harness made itself)."""
+    import traceback
+    import warnings
+    import torch
+    port = str((ROOT / "src" / "repro_torch").resolve())
+    frames = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if _SYNC_WARNING not in str(message):
+            return
+        inner = [f for f in traceback.extract_stack()[:-1]
+                 if str(Path(f.filename).resolve()).startswith(port)]
+        frames.append((inner[-1].filename, inner[-1].lineno)
+                      if inner else None)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, frames
+
+
+def check_syncs(frames, steps: int, label: str) -> dict:
+    """Hold the syncs ``record_syncs`` saw to R1: each must lie in a
+    function where ``repro_torch.analysis``'s R1 reports a finding
+    (baselined or allowed); one that R1 does not see fails.  A control
+    first: the once-per-tensor ``g_idx`` check of ``gptq_matmul`` on a
+    fresh tensor is a sync R1 reports (``GptqMatmul._check_groups``), and
+    must be recorded there, or the recording sees nothing."""
+    import torch
+    from repro_torch.analysis.project import Project
+    from repro_torch.analysis.rules_sync import check_host_sync
+    from repro_torch.kernels.gptq_matmul import gptq_matmul
+    t0 = time.perf_counter()
+    project = Project.from_root(ROOT)
+    r1 = {(f.path, f.qualname) for f in check_host_sync(project)}
+    g_idx = torch.arange(64, device="cuda", dtype=torch.int32) // 32
+    _, control = record_syncs(lambda: gptq_matmul._check_groups(g_idx, 64,
+                                                                32))
+    control_sites = _sync_sites(project, control)
+    if not any(s.endswith("(GptqMatmul._check_groups)")
+               for s in control_sites):
+        raise AssertionError(f"serve {label}: the control sync was not "
+                             f"recorded at GptqMatmul._check_groups: "
+                             f"{control}")
+    sites = _sync_sites(project, frames)
+    unseen = {s for s in sites
+              if (s.split(":")[0], s[s.index("(") + 1:-1]) not in r1}
+    n = sum(sites.values())
+    rec = {"syncs": n, "harness_syncs": len(frames) - n,
+           "syncs_per_step": n / max(steps, 1), "sites": sites,
+           "control": control_sites,
+           "r1_functions": sorted(f"{p}::{q}" for p, q in r1),
+           "check_s": time.perf_counter() - t0}
+    if unseen:
+        raise AssertionError(f"serve {label}: syncs at {sorted(unseen)} lie "
+                             "in no function where R1 reports a finding")
+    return rec
+
+
+def _sync_sites(project, frames) -> dict:
+    """``path:line (function)`` -> count of the recorded port frames."""
+    sites = {}
+    for fr in frames:
+        if fr is None:
+            continue
+        rel = Path(fr[0]).resolve().relative_to(ROOT.resolve()).as_posix()
+        fn = project.by_rel[rel].function_at(fr[1]) \
+            if rel in project.by_rel else None
+        site = f"{rel}:{fr[1]} " \
+            f"({fn.qualname if fn is not None else '<module>'})"
+        sites[site] = sites.get(site, 0) + 1
+    return sites
 
 
 def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
@@ -1407,7 +1501,7 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
                 options=None, must=(), never=(), profile: bool = False,
                 llm=None, quant="rtn-int4", lens=None,
                 graphs_off: bool = False, state_keys=(),
-                profile_off: bool = True) -> dict:
+                profile_off: bool = True, sync_twin: bool = False) -> dict:
     """Serve the 8 requests of ``serve_prompts`` (of ``lens`` tokens when
     given) on ``llm`` or, when none is given, on ``LLM.load(config,
     quant=quant, **options)``; request i asks for ``max_tokens - 3 i`` new
@@ -1422,7 +1516,8 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
     graphs off's (``"state_on_off"``); that serve is re-run under the
     profiler too only with ``profile_off`` (its record then has the
     graphs-off profile: every check a profile feeds reads the graphs-on
-    one)."""
+    one).  With ``sync_twin`` the graphs-off serve runs under
+    ``record_syncs``, held to R1."""
     import torch
     from repro_torch.serving import LLM
     card = dev != "cpu"
@@ -1449,7 +1544,7 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
         out["off"] = off = serve_once(off_llm, prompts, max_tokens, kernels,
                                       label + "/graphs-off", engine_kw, must,
                                       never, profile and profile_off,
-                                      state_keys)
+                                      state_keys, syncs=sync_twin)
         off_llm.close()
         del off_llm
         if off["tokens"] != out["tokens"]:
@@ -1477,14 +1572,16 @@ def phase_serve(dev: str, config: str = "qwen2-1.5b", reduced: bool = False,
 
 
 def serve_once(llm, prompts, max_tokens, kernels, label, options, must,
-               never, profile, state_keys=()) -> dict:
+               never, profile, state_keys=(), syncs: bool = False) -> dict:
     """One warm request, then the serve of ``prompts`` on ``llm`` with
     its checks (finished, in vocabulary, full length, its own kernels,
     the attention launches, a clean allocator audit), then optionally its
     profiled re-run; the record, with a CPU copy of the runner's state
     entries ``state_keys`` as the serve left them (``"state"``).  Step graphs: the kinds captured, each
     variant once, none in the re-run, and the seconds and graph-pool
-    bytes they cost (the pool released after)."""
+    bytes they cost (the pool released after).  With ``syncs`` the serve
+    runs under ``record_syncs`` and its syncs are held to R1
+    (``"syncs"``)."""
     import torch
     from repro_torch.serving import SamplingParams
     card = llm.engine.runner.device.type == "cuda"
@@ -1517,7 +1614,10 @@ def serve_once(llm, prompts, max_tokens, kernels, label, options, must,
         k.launches = 0
     t0_ns = time.perf_counter_ns()
     t0 = time.perf_counter()
-    outs = llm.generate(prompts, sps)
+    if syncs:
+        outs, frames = record_syncs(lambda: llm.generate(prompts, sps))
+    else:
+        outs, frames = llm.generate(prompts, sps), None
     if card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1525,6 +1625,8 @@ def serve_once(llm, prompts, max_tokens, kernels, label, options, must,
     state = {k: eng.runner.state[k].float().cpu() for k in state_keys}
     m = {k: eng.metrics.get(k, 0) - v for k, v in base.items()}
     steps = {k: eng.runner.steps[k] - steps0[k] for k in steps0}
+    sync_rec = None if frames is None \
+        else check_syncs(frames, m["work_steps"], label)
     latency = {f"{k.split('_')[-1]}_p{q}_ms": h.percentile(q)
                for k, h in hist.items() for q in (50, 99)}
     attribution = {}
@@ -1629,7 +1731,7 @@ def serve_once(llm, prompts, max_tokens, kernels, label, options, must,
             "kv_pool_bytes": eng.runner.kv_pool_bytes(),
             "blocks_reused": eng.alloc.stats["reused"], "audit": audit,
             "launches": launches, "launch_accounting": accounting,
-            "tokens": [o.token_ids for o in outs]}
+            "syncs": sync_rec, "tokens": [o.token_ids for o in outs]}
 
 
 # Our kernels' device functions (every instantiation) -> wrapper name; an
@@ -2465,6 +2567,16 @@ def log_serve(label: str, serve: dict, quant) -> None:
             f"the counters {json.dumps(acc['launches'])}; host calls (the "
             f"warm-up's and the marker's included) "
             f"{json.dumps(acc['host_launch_calls'])}")
+    if serve.get("syncs") is not None:
+        sy = serve["syncs"]
+        log(f"[syncs] {label}: under set_sync_debug_mode('warn'): "
+            f"{sy['syncs']} syncs in the port over {serve['work_steps']} "
+            f"steps ({sy['syncs_per_step']:.3f} a step; the harness "
+            f"{sy['harness_syncs']}), at {json.dumps(sy['sites'])}; each in "
+            f"a function where R1 reports a finding; the control sync "
+            f"recorded at {json.dumps(sy['control'])} "
+            f"({len(sy['r1_functions'])}: {sy['r1_functions']}; the "
+            f"checker took {sy['check_s']:.2f} s)")
     if "off" in serve:
         log_serve(serve["off"]["label"], serve["off"], quant)
         log(f"[graphs] {label}: tokens with graphs on equal graphs off; "
@@ -6873,7 +6985,8 @@ def main() -> int:
         serves[label] = serve = phase_serve(
             "cuda", kernels=ops.KERNELS, label=label, options=options,
             must=must, never=never, profile=True, llm=gptq_llm,
-            graphs_off=True, profile_off=False)
+            graphs_off=True, profile_off=False,
+            sync_twin=label == SYNC_TWIN_SERVE)
         log_serve(label, serve,
                   "gptq-int4" if gptq_llm is not None else "rtn-int4")
         log_time(f"serve {label}")

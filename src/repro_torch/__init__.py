@@ -6,13 +6,15 @@ layouts.  The port imports ``torch`` and ``numpy`` only.
 """
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device) -> torch.device:
+def resolve_device(device):
     """The device an entry point runs on.  CUDA is the default of every
     entry point; asking for it on a host without a usable card raises —
-    nothing falls back to the CPU behind the caller's back."""
+    nothing falls back to the CPU behind the caller's back.  torch is
+    imported here, not with the package, so the static checker
+    (``repro_torch.analysis``, standard library only) starts without
+    it."""
+    import torch
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -154,7 +154,8 @@ class Scheduler:
     Policies (unchanged from the monolithic engine):
     * prompts longer than the per-sequence KV capacity are clamped at
       admission (an exactly-cap prompt still prefills and yields one
-      token before force-finishing);
+      token before force-finishing), except on a ring stack, whose ring
+      prefill keeps the last ring's worth of a longer prompt itself;
     * admission is watermark-gated on free blocks, FIFO over ``waiting``;
     * out-of-blocks preempts the *youngest* running sequence back to the
       queue head with its generated tokens folded into the prompt
@@ -207,9 +208,11 @@ class Scheduler:
         admission instead of crashing the prefill scatter.  Requeued
         preempted sequences — whose prompt+output never exceeds cap — are
         never clamped and keep their full context.  A ring sequence can
-        outgrow cap (its ring wraps), so its replay is never clamped:
-        ring prefill keeps the last cap tokens itself."""
-        if self.ring_only and req.folded:
+        outgrow cap (its ring wraps), so neither its fresh prompt nor its
+        replay is clamped: ring prefill keeps the last cap tokens itself.
+        (The JAX scheduler clamps a fresh ring prompt to its head, and
+        then answers a different prompt: ROADMAP C17.)"""
+        if self.ring_only:
             return
         if len(req.prompt) > self.cap_tokens:
             req.prompt = req.prompt[:self.cap_tokens]

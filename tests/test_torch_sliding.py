@@ -279,6 +279,57 @@ def test_batched_drain_matches_teacher_forced_tokens(danube, mode, lens):
     llm.close()
 
 
+LONG_PROMPTS = {"33": (33,), "40": (40,), "60": (60,),
+                "33+short": (33, 7), "40+short": (9, 40),
+                "60+short": (60, 5)}
+
+
+@pytest.mark.parametrize("mode", list(DRAIN_MODES))
+@pytest.mark.parametrize("lens", list(LONG_PROMPTS.values()),
+                         ids=list(LONG_PROMPTS))
+def test_prompt_longer_than_its_ring_matches_teacher_forced_tokens(
+        danube, mode, lens):
+    """ROADMAP C17: a prompt longer than its 32-slot ring, alone and
+    batched with a short one, gives the tokens of teacher forcing over
+    the whole prompt.  The ring prefill keeps the last ``cache_len``
+    positions itself, so the scheduler must not cut a fresh ring prompt
+    to its head (the JAX scheduler does, and then answers the head)."""
+    jcfg, cfg, params, bridged = danube
+    rng = np.random.default_rng(100 + sum(lens))
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+    want = _teacher_forced(jcfg, params, prompts, 12)
+    llm = LLM(cfg, bridged, device="cpu", **ENGINE_KW, **DRAIN_MODES[mode])
+    got = llm.generate(prompts, SamplingParams(max_tokens=12))
+    assert [o.token_ids for o in got] == want
+    assert [len(o.prompt_token_ids) for o in got] == list(lens)
+    assert llm.engine.metrics["truncated_prompts"] == 0
+    assert llm.engine.alloc.audit() == {"live_blocks": 0, "free_blocks": 24,
+                                        "hash_entries": 0}
+    llm.close()
+
+
+def test_prompt_longer_than_a_ring_that_is_exactly_the_window():
+    """C17 as the ROADMAP states it: window 32 over rings of 2 x 16 = 32
+    slots, prompts of 40 and 60 tokens served together with a short one,
+    against teacher forcing."""
+    jcfg = j_get_reduced(ARCH, **dict(_cfg_kw(), sliding_window=32))
+    cfg = get_reduced(ARCH, **dict(_cfg_kw(), sliding_window=32))
+    params = JT.init_params(jcfg, jax.random.PRNGKey(0))
+    bridged = params_from_numpy(jax.tree.map(np.asarray, params),
+                                device="cpu")
+    rng = np.random.default_rng(32)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (40, 60, 6)]
+    want = _teacher_forced(jcfg, params, prompts, 12)
+    llm = LLM(cfg, bridged, device="cpu", **ENGINE_KW,
+              enable_async_step=False)
+    assert llm.engine.scheduler.cap_tokens == 32 == cfg.sliding_window
+    got = llm.generate(prompts, SamplingParams(max_tokens=12))
+    assert [o.token_ids for o in got] == want
+    assert llm.engine.metrics["truncated_prompts"] == 0
+    llm.close()
+
+
 def test_single_request_drain_matches_jax_engine(danube):
     """One request alone: the JAX engine's ring aliases only onto its own
     first block, which a window of 12 under 16-token blocks survives, so
